@@ -1,0 +1,18 @@
+"""ray_tpu_torch — the PyTorch/CUDA port of ray_tpu, for NVIDIA Hopper.
+
+A package beside ``ray_tpu`` with the same module paths
+(``ray_tpu_torch/ops/flash_attention.py`` is the counterpart of
+``ray_tpu/ops/flash_attention.py``).  It imports ``torch`` and nothing of
+JAX or of ``ray_tpu``; where it needs a pure-Python module of ``ray_tpu``
+it keeps its own copy.  Every Pallas kernel on a ported path is a kernel
+written by hand for ``sm_90a`` under ``csrc/``.
+
+Sub-packages in this slice: ``ops`` (flash-attention forward), ``native``
+(the nvcc build of ``csrc``), ``models`` (GPT-2 forward), ``core``
+(config flags, exceptions) and ``serve`` (the replica).  No runtime is
+started on import.
+"""
+
+from ray_tpu_torch._version import __version__
+
+__all__ = ["__version__", "core", "models", "native", "ops", "serve"]

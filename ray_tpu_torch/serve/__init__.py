@@ -1,0 +1,11 @@
+"""ray_tpu_torch.serve — the replica that hosts a deployment's callable.
+
+The controller, router and HTTP proxy of ``ray_tpu.serve`` are not
+ported yet (ROADMAP); a caller constructs a ``Replica`` and sends it
+requests directly.
+"""
+
+from ray_tpu_torch.serve.multiplex import get_multiplexed_model_id
+from ray_tpu_torch.serve.replica import Replica
+
+__all__ = ["Replica", "get_multiplexed_model_id"]
