@@ -14,17 +14,32 @@ Phases; any failure exits non-zero:
    1000, 1024}), at D=128 (H=32, S=2048) and at D=32; max abs errors
    beside their tolerances, kernel / plain / library times (CUDA events
    after warm-up) and the kernel's bound;
+2b. backward kernels — the dq and dk/dv kernels against the plain
+   backward (``_reference_attention_bwd``) on the same (o, lse, do), in
+   bf16, both layouts, causal on and off, at the training shape (B=16,
+   H=12, S=1024, D=64), S=1000 (ragged), D=128 (H=32, S=2048) and D=32
+   (H=4, S=100); the largest |err| / tolerance per gradient, each
+   kernel's time, their bound, the plain time and the library's
+   (``scaled_dot_product_attention``'s backward, timed only);
 3. serve — GPT-2 124M (``GPT2_SMALL``, random weights from ``--seed``) in
    the port's ``Replica`` hosting ``Generator``: 4 requests through
    ``handle_request`` (prompts of 16, 127, 500 and 1000 tokens, 8 new
    tokens each) and one through ``handle_request_stream``; the kernel's
    launch count must equal ``n_layer`` x forwards; the first forward's
-   logits with the kernel must match ``attention="dense"`` (plain).
+   logits with the kernel must match ``attention="dense"`` (plain);
+4. train — GPT-2 124M with f32 master weights from ``--seed`` and
+   ``torch.optim.AdamW(lr=3e-4, weight_decay=0.1)``, as ``bench.py``
+   drives the JAX model: first the loss and gradients of every leaf at
+   B=4, S=1024 with the kernels against ``attention="dense"``; then one
+   warm-up step and 10 timed steps at B=16, S=1024 on one batch, whose
+   losses must be finite and fall, with exactly ``n_layer`` launches of
+   each kernel per step; ms per step, tokens/s, MFU and peak memory.
 
 The last two lines are a JSON object of per-kernel numbers and the
-result line ``{"ok": true, "device": {...}}``.  ``--profile`` adds a
-``torch.profiler`` table of device time by kernel for one forward at
-S=1024.
+result line ``{"ok": true, "device": {...}}``.  ``--profile`` adds
+``torch.profiler`` tables of device time by kernel for a forward at
+S=1024 and a train step, each with the device's idle share over the
+traced calls.
 
 Precision: TF32 is off for matmuls and cuDNN
 (``torch.backends.cuda.matmul.allow_tf32 = False``,
@@ -38,6 +53,8 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
+import re
 import subprocess
 import sys
 import time
@@ -70,6 +87,29 @@ LSE_TOL = 1e-3
 # difference passes through 12 bf16 layers and a 768-wide head; logits
 # have std ~0.5 at this init, so 0.1 is ~3% of the largest logits.
 LOGITS_TOL = 0.1
+# backward kernels vs the plain backward, both on the card, per element:
+# |g - g_plain| <= G_RTOL |g_plain| + G_PTOL * M_g.  Both round g to bf16
+# (<= 2^-8 |g| each, so 2^-7 apart; G_RTOL gives ~1.3x room).  The kernels
+# round p to bf16 (<= 2^-8 relative) before p^T do, so dv moves by
+# <= 2^-8 M_dv with M_dv = P^T |dO|; they round p and then ds to bf16
+# (<= 2^-7 relative on ds) before ds k and ds^T q, so dq and dk move by
+# <= 2^-7 M with M_dq = scale |dS| |K| and M_dk = scale |dS|^T |Q|, where
+# |dS| = |P (dP - delta)| of the plain backward.  Each held with 2x room.
+# dP and delta are f32 sums of D bf16 products in another order on each
+# side (<= D 2^-24 of their sums of |terms| apart, 2^-17 at D = 128); where
+# dP - delta vanishes (a causal first row: one key, dP = delta) that noise
+# is all of ds, so |dS| also carries 2^-10 P (|dO| |V|^T + rowsum|dO o|),
+# 2^-16 of it after G_PTOL.
+G_RTOL = 1e-2
+G_PTOL = {"dq": 2.0 ** -6, "dk": 2.0 ** -6, "dv": 2.0 ** -7}
+# full-width GPT-2 gradients, kernels vs dense attention (bf16 compute):
+# the two attention forwards differ by ~1 bf16 ulp per layer and the
+# kernels round p and ds to bf16 where the dense backward stays f32.  The
+# first run on the card measured a loss difference of 4.8e-5 and a
+# largest per-leaf gradient difference of 1.33e-2 (median 9.5e-3); each
+# is held with ~4x room or more.
+TRAIN_LOSS_TOL = 1e-3        # absolute, on a loss of ~11
+TRAIN_GRAD_REL_TOL = 5e-2    # ||g - g_dense|| / ||g_dense|| per leaf
 
 
 def set_precision():
@@ -137,15 +177,25 @@ def time_ms(fn, iters=20, warmup=3, hold_ms=25):
     return start.elapsed_time(end) / iters
 
 
-def attention_bound(B, H, S, D, causal):
-    """(least ms on an H100 SXM, "bytes" or "operations"): 4*B*H*S^2*D
-    operations (halved when causal) at the bf16 peak; q, k, v, o (bf16)
-    and lse (f32) moved once at the memory rate."""
-    flops = 4 * B * H * S * S * D / (2 if causal else 1)
-    nbytes = 4 * B * S * H * D * 2 + B * H * S * 4
+def attention_bound(B, H, S, D, causal, products=2, tensors=4, rows=1):
+    """(least ms on an H100 SXM, "bytes" or "operations") for attention
+    work of ``products`` (S, S, D) products, 2*B*H*S^2*D operations each
+    (halved when causal), at the bf16 peak, against ``tensors`` bf16
+    (B, S, H, D) tensors and ``rows`` f32 (B, H, S) rows moved once at the
+    memory rate.  The forward: 2 products, q, k, v, o and lse."""
+    flops = products * 2 * B * H * S * S * D / (2 if causal else 1)
+    nbytes = tensors * B * S * H * D * 2 + rows * B * H * S * 4
     t_ops = flops / PEAK_BF16_FLOPS * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# (products, bf16 tensors, f32 rows) of each backward kernel's work, and of
+# the whole backward: dq recomputes s and dp and forms ds k (q, k, v, do,
+# dq; lse, delta); dk/dv recomputes s and dp and forms p^T do and ds^T q
+# (q, k, v, do, dk, dv; lse, delta); the backward as one function needs
+# five products and q, k, v, do, dq, dk, dv.
+BWD_WORK = {"dq": (3, 5, 2), "dkv": (4, 6, 2), "pair": (5, 7, 2)}
 
 
 def card_line() -> str:
@@ -171,9 +221,14 @@ def phase_build():
           f"{time.perf_counter() - t0:.2f} s: "
           + ", ".join(sorted(libs)), flush=True)
     for name, log in sorted(build.BUILD_LOG.items()):
+        entry = name
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build] {name}: {line.strip()}")
+            m = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)_kernel)ILi(\d+)E",
+                          line)
+            if "Compiling entry function" in line and m:
+                entry = f"{m.group(1)}<{m.group(2)}>"
+            elif "registers" in line or "spill" in line:
+                print(f"[build] {entry}: {line.split(':', 1)[-1].strip()}")
     print(f"[build] card: {card_line()}", flush=True)
 
 
@@ -251,6 +306,115 @@ def phase_kernels(seed):
     return served
 
 
+def bwd_magnitudes(q, k, v, o, lse, do, scale, causal):
+    """(M_dq, M_dk, M_dv) of the G_PTOL bounds, (B, H, S, D) f32."""
+    p = torch.exp(fa._scores(q, k, scale, causal, torch.float32)
+                  - lse[..., None])
+    do, v = do.float(), v.float()
+    dp = do @ v.transpose(-1, -2)
+    delta = (do * o.float()).sum(-1)[..., None]
+    f32_sums = do.abs() @ v.abs().transpose(-1, -2) + (
+        do * o.float()).abs().sum(-1)[..., None]
+    ads = (p * ((dp - delta).abs() + 2.0 ** -10 * f32_sums)) * scale
+    del dp, f32_sums
+    m_dq = ads @ k.float().abs()
+    m_dk = ads.transpose(-1, -2) @ q.float().abs()
+    m_dv = p.transpose(-1, -2) @ do.float().abs()
+    return m_dq, m_dk, m_dv
+
+
+def phase_bwd_kernels(seed):
+    """Backward kernels vs the plain backward on the card; returns the
+    training-shape records of the dq and dk/dv kernels."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 2)
+    train_shape = (16, 12, 1024, 64)
+    cases = [train_shape, (1, 12, 1000, 64), (1, 32, 2048, 128),
+             (1, 4, 100, 32)]
+    worst = {"dq": 0.0, "dkv": 0.0}
+    rec = {}
+    for B, H, S, D in cases:
+        for layout in ("bshd", "bhsd"):
+            for causal in (True, False):
+                q, k, v = _qkv(B, H, S, D, layout, gen)
+                scale = D ** -0.5
+                fwd = fa._flash_fwd if layout == "bhsd" else fa._flash_fwd_bshd
+                o, res = fwd(q, k, v, causal, None, None, None)
+                do = torch.randn(o.shape, generator=gen, device="cuda",
+                                 dtype=torch.bfloat16)
+                tr = (lambda t: t) if layout == "bhsd" else (  # noqa: E731
+                    lambda t: t.transpose(1, 2))
+                lse = res[4]
+                ops = fa._bwd_operands(q, k, v, o, lse, do, layout)
+                dq = fa._launch_bwd_dq(ops, causal, scale, layout)
+                dk, dv = fa._launch_bwd_dkv(ops, causal, scale, layout)
+                qh, kh, vh, oh, doh = (tr(t) for t in (q, k, v, o, do))
+                plain = lambda: fa._reference_attention_bwd(  # noqa: E731
+                    qh, kh, vh, oh, lse, doh, scale, causal)
+                ref = plain()
+                mags = bwd_magnitudes(qh, kh, vh, oh, lse, doh, scale, causal)
+                torch.cuda.synchronize()
+                ratios, errs = {}, {}
+                for name, g, r, m in zip(("dq", "dk", "dv"), (dq, dk, dv),
+                                         ref, mags):
+                    diff = (tr(g).float() - r.float()).abs()
+                    tol = G_RTOL * r.float().abs() + G_PTOL[name] * m
+                    errs[name] = diff.max().item()
+                    ratios[name] = (diff / tol).max().item()
+                del mags
+                worst["dq"] = max(worst["dq"], errs["dq"])
+                worst["dkv"] = max(worst["dkv"], errs["dk"], errs["dv"])
+                ok = all(r <= 1 for r in ratios.values())
+                dq_ms = time_ms(lambda: fa._launch_bwd_dq(
+                    ops, causal, scale, layout))
+                dkv_ms = time_ms(lambda: fa._launch_bwd_dkv(
+                    ops, causal, scale, layout))
+                plain_ms = time_ms(plain, iters=3)
+                ql, kl, vl = (t.detach().requires_grad_(True)
+                              for t in (qh, kh, vh))
+                ol = F.scaled_dot_product_attention(ql, kl, vl,
+                                                    is_causal=causal)
+                lib = {name: time_ms(lambda wrt=wrt: torch.autograd.grad(
+                    ol, wrt, doh, retain_graph=True))
+                    for name, wrt in (("all", (ql, kl, vl)), ("dq", (ql,)),
+                                      ("dkv", (kl, vl)))}
+                del ol
+                bounds = {n: attention_bound(B, H, S, D, causal, *w)
+                          for n, w in BWD_WORK.items()}
+                print(f"[bwd] B={B} H={H} S={S} D={D} {layout} "
+                      f"causal={int(causal)}: max err/tol dq="
+                      f"{ratios['dq']:.3f} dk={ratios['dk']:.3f} "
+                      f"dv={ratios['dv']:.3f} (must be <= 1; max |err| dq="
+                      f"{errs['dq']:.3e} dk={errs['dk']:.3e} "
+                      f"dv={errs['dv']:.3e}) dq_ms={dq_ms:.4f} "
+                      f"dkv_ms={dkv_ms:.4f} sum_ms={dq_ms + dkv_ms:.4f} "
+                      f"bound_ms dq={bounds['dq'][0]:.4f} "
+                      f"dkv={bounds['dkv'][0]:.4f} "
+                      f"pair={bounds['pair'][0]:.4f} "
+                      f"({bounds['pair'][1]}) plain_ms={plain_ms:.3f} "
+                      f"library_ms={lib['all']:.4f}"
+                      f"{'' if ok else '  <-- OUT OF TOLERANCE'}",
+                      flush=True)
+                if not ok:
+                    fail(f"backward kernels disagree with plain at B={B} "
+                         f"H={H} S={S} D={D} {layout} causal={causal}")
+                if (B, H, S, D) == train_shape and layout == "bshd" \
+                        and causal:
+                    for n, t in (("dq", dq_ms), ("dkv", dkv_ms)):
+                        rec[n] = {"ms": t, "plain_ms": plain_ms,
+                                  "bound_ms": bounds[n][0],
+                                  "bound_by": bounds[n][1],
+                                  "library_ms": lib[n]}
+                    print(f"[bwd] training shape: dq bound "
+                          f"{bounds['dq'][0]:.4f} ms ({bounds['dq'][1]}), "
+                          f"dk/dv bound {bounds['dkv'][0]:.4f} ms "
+                          f"({bounds['dkv'][1]}); library grad wrt q "
+                          f"{lib['dq']:.4f} ms, wrt k, v {lib['dkv']:.4f} ms",
+                          flush=True)
+    for n in rec:
+        rec[n]["max_abs_err"] = worst[n]
+    return rec
+
+
 def greedy(params, cfg, prompt, n):
     tokens = list(prompt)
     with torch.inference_mode():
@@ -291,7 +455,7 @@ def phase_serve(seed, profile):
 
     replica.handle_request({"prompt": prompts[16], "max_tokens": 2})  # warm
 
-    fa.KERNEL_LAUNCHES = 0
+    reset_launches()
     f0 = gen_obj.forwards
     results = {}
     for L in (16, 127, 500, 1000):
@@ -344,18 +508,154 @@ def phase_serve(seed, profile):
 
 
 def profile_forward(params, x, cfg):
-    from torch.profiler import ProfilerActivity, profile as tprofile
-
     with torch.inference_mode():
         for _ in range(2):
             gpt2.forward(params, x, cfg)
         torch.cuda.synchronize()
-        with tprofile(activities=[ProfilerActivity.CPU,
-                                  ProfilerActivity.CUDA]) as prof:
-            gpt2.forward(params, x, cfg)
-            torch.cuda.synchronize()
-    print(prof.key_averages().table(sort_by="cuda_time_total",
-                                    row_limit=15))
+        print_profile(lambda: gpt2.forward(params, x, cfg), 15,
+                      "forward S=1024 B=1", calls=3)
+
+
+def device_idle_share(events):
+    """1 - (time some device activity runs) / (first start to last end) of
+    the traced device events: the gaps on the card's timeline."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    busy, (lo, hi) = 0.0, spans[0]
+    for a, b in spans[1:]:
+        if a > hi:
+            busy += hi - lo
+            lo, hi = a, b
+        else:
+            hi = max(hi, b)
+    busy += hi - lo
+    return 1 - busy / (max(b for _, b in spans) - spans[0][0])
+
+
+def print_profile(fn, rows, label, calls=1):
+    """Device time by kernel of ``calls`` back-to-back calls of fn
+    (torch.profiler's CUDA events), per call, and the device's idle share
+    over them; returns the device ms per call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    # CUDA events, less the ranges that annotations (Optimizer.step, ...)
+    # mark on the device timeline over kernels already counted
+    def on_device(e):
+        return (e.device_type == DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False))
+
+    kernels = sorted(filter(on_device, prof.key_averages()),
+                     key=lambda e: -e.self_device_time_total)
+    total = sum(e.self_device_time_total for e in kernels) / calls
+    idle = device_idle_share(list(filter(on_device, prof.events())))
+    print(f"[profile] {label}: {total:.0f} us of device time per call in "
+          f"{sum(e.count for e in kernels) // calls} kernel launches; "
+          f"device idle {idle:.2%} of the trace from the first kernel of "
+          f"{calls} back-to-back calls to the last; by kernel, per call:")
+    for e in kernels[:rows]:
+        t = e.self_device_time_total / calls
+        print(f"[profile] {t:10.0f} us {100 * t / total:5.1f}% "
+              f"{e.count // calls:5d} x  {e.key[:100]}")
+    return total / 1e3
+
+
+def reset_launches():
+    fa.KERNEL_LAUNCHES = fa.BWD_DQ_LAUNCHES = fa.BWD_DKV_LAUNCHES = 0
+
+
+def read_launches():
+    return {"flash_fwd": fa.KERNEL_LAUNCHES,
+            "flash_bwd_dq": fa.BWD_DQ_LAUNCHES,
+            "flash_bwd_dkv": fa.BWD_DKV_LAUNCHES}
+
+
+def train_grad_check(params, batch, cfg):
+    """Loss and every leaf's gradient with the kernels vs dense attention,
+    at full width."""
+    names, leaves = zip(*gpt2.named_leaves(params))
+
+    def loss_and_grads(c):
+        loss = gpt2.loss_fn(gpt2._cast_weights(params, c.compute_dtype),
+                            batch, c)
+        return loss.item(), torch.autograd.grad(loss, leaves)
+
+    lf, gf = loss_and_grads(cfg)
+    ld, gd = loss_and_grads(replace(cfg, attention="dense"))
+    rel = [((a - b).norm() / b.norm()).item() for a, b in zip(gf, gd)]
+    i = max(range(len(rel)), key=rel.__getitem__)
+    B, S = batch["tokens"].shape
+    print(f"[train] gradient check B={B} S={S - 1}: loss kernels {lf:.6f} "
+          f"dense {ld:.6f} |diff| {abs(lf - ld):.3e} (tol "
+          f"{TRAIN_LOSS_TOL}); largest ||g - g_dense|| / ||g_dense|| "
+          f"{rel[i]:.3e} at {names[i]} (tol {TRAIN_GRAD_REL_TOL}); median "
+          f"{sorted(rel)[len(rel) // 2]:.3e}", flush=True)
+    if not all(map(torch.isfinite, (torch.tensor(lf), torch.tensor(ld)))):
+        fail("train loss not finite")
+    if abs(lf - ld) > TRAIN_LOSS_TOL or rel[i] > TRAIN_GRAD_REL_TOL:
+        fail("gradients with the kernels disagree with dense attention")
+
+
+def phase_train(seed, profile):
+    """GPT-2 124M train steps at B=16, S=1024; returns the launches of the
+    10 timed steps."""
+    cfg = gpt2.GPT2_SMALL
+    B, S, steps = 16, 1024, 10
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = gpt2.init_params(gen, cfg, device="cuda")
+    leaves = gpt2.param_leaves(params)
+    for leaf in leaves:
+        leaf.requires_grad_(True)
+    rng = torch.Generator().manual_seed(seed + 1)
+    tokens = torch.randint(0, 50257, (B, S + 1), generator=rng).to("cuda")
+    batch = {"tokens": tokens}
+
+    train_grad_check(params, {"tokens": tokens[:4]}, cfg)
+
+    opt = torch.optim.AdamW(leaves, lr=3e-4, betas=(0.9, 0.999), eps=1e-8,
+                            weight_decay=0.1)
+    step = gpt2.make_train_step(cfg, opt)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    first = step(params, batch)["loss"].item()   # warm-up
+    print(f"[train] warm-up step: loss {first:.4f} in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+    reset_launches()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = [step(params, batch)["loss"] for _ in range(steps)]
+    end.record()
+    torch.cuda.synchronize()
+    launches = read_launches()
+    ms = start.elapsed_time(end) / steps
+    losses = [first] + [x.item() for x in out]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    tok_s = B * S / (ms / 1e3)
+    mfu = tok_s * gpt2.count_flops_per_token(cfg, S) / PEAK_BF16_FLOPS
+    print(f"[train] losses {' '.join(f'{x:.4f}' for x in losses)}",
+          flush=True)
+    print(f"[train] GPT2_SMALL B={B} S={S}: {ms:.3f} ms per step (CUDA "
+          f"events over {steps} steps), {tok_s:.1f} tokens/s, MFU "
+          f"{mfu:.4f} of {PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s bf16, peak "
+          f"memory {peak_gb:.2f} GB; card {card_line()}", flush=True)
+    print(f"[train] launches in {steps} steps: {launches} (n_layer "
+          f"{cfg.n_layer} x {steps} each)", flush=True)
+    if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
+        fail(f"train losses not finite or not falling: {losses}")
+    if any(n != cfg.n_layer * steps for n in launches.values()):
+        fail("a train step did not launch each kernel once per layer")
+
+    if profile:
+        print_profile(lambda: step(params, batch), 30,
+                      f"train step B={B} S={S}", calls=3)
+    return launches
 
 
 def main():
@@ -372,17 +672,30 @@ def main():
           flush=True)
     phase_build()
     kern = phase_kernels(args.seed)
-    launches = phase_serve(args.seed, args.profile)
+    bwd = phase_bwd_kernels(args.seed)
+    serve_launches = phase_serve(args.seed, args.profile)
+    train = phase_train(args.seed, args.profile)
     print(card_line())
+    src = "ray_tpu/ops/flash_attention.py"
+    rows = [
+        ("flash_fwd", "flash_fwd.cu", f"{src}:443", [f"{src}:192"], kern,
+         serve_launches + train["flash_fwd"],
+         {"serve": serve_launches, "train": train["flash_fwd"]}),
+        ("flash_bwd_dq", "flash_bwd.cu", f"{src}:213",
+         [f"{src}:203", f"{src}:463"], bwd["dq"], train["flash_bwd_dq"],
+         {"train": train["flash_bwd_dq"]}),
+        ("flash_bwd_dkv", "flash_bwd.cu", f"{src}:268",
+         [f"{src}:203", f"{src}:463"], bwd["dkv"], train["flash_bwd_dkv"],
+         {"train": train["flash_bwd_dkv"]}),
+    ]
     print(json.dumps({"kernels": [{
-        "name": "flash_fwd", "route": "cuda",
-        "source": "ray_tpu_torch/csrc/flash_fwd.cu",
-        "replaces": "ray_tpu/ops/flash_attention.py:443",
-        "also_replaces": "ray_tpu/ops/flash_attention.py:192",
-        "launches": launches, "max_abs_err": kern["max_abs_err"],
-        "ms": kern["ms"], "plain_ms": kern["plain_ms"],
-        "bound_ms": kern["bound_ms"], "bound_by": kern["bound_by"],
-        "library_ms": kern["library_ms"]}]}))
+        "name": name, "route": "cuda",
+        "source": f"ray_tpu_torch/csrc/{source}", "replaces": replaces,
+        "also_replaces": also, "launches": launches,
+        "launches_by_path": by_path, "max_abs_err": r["max_abs_err"],
+        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+        for name, source, replaces, also, r, launches, by_path in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -43,6 +43,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "mma.cuh"
+
 namespace {
 
 constexpr int kBlockM = 64;  // q rows per block (16 per warp)
@@ -51,41 +53,6 @@ constexpr int kBlockN = 64;  // k/v rows per tile; equal to kBlockM, which
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr float kLn2 = 0.6931471805599453f;
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Four 8x8 b16 matrices, transposed; lanes 8i..8i+7 give the row
-// addresses of matrix i, and register i receives matrix i.
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* smem) {
-  const uint32_t addr =
-      static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// Two floats as one bf16x2 word; `lo` is the lower column.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t load_pair(const __nv_bfloat16* base,
-                                              int row, int64_t row_stride,
-                                              int col, int S) {
-  if (row >= S) return 0u;
-  return *reinterpret_cast<const uint32_t*>(base + row * row_stride + col);
-}
 
 template <int D>
 __global__ void __launch_bounds__(kThreads)

@@ -1,4 +1,4 @@
-"""GPT-2 forward in PyTorch — counterpart of ``ray_tpu/models/gpt2.py``.
+"""GPT-2 in PyTorch — counterpart of ``ray_tpu/models/gpt2.py``.
 
 Parameters are a nested dict of tensors with the JAX package's names
 (``wte/embedding``, ``h_{i}/attn/c_attn/kernel``, ...), f32 as there;
@@ -14,16 +14,22 @@ Attention goes through ``flash_attention_bshd`` (``attention="flash"``,
 the CUDA kernel on the card) or the plain dense version
 (``attention="dense"``).
 
-Forward only.  MoE, ring/ulysses attention, pipeline-stacked ``blocks``,
-remat, the loss and the train step are not ported yet (ROADMAP.md); a
-config that selects one of them raises ``NotImplementedError``.
+Training: ``loss_fn`` (next-token cross-entropy through the dense tied
+head) and ``make_train_step`` (f32 master weights cast once to
+``compute_dtype`` per step, as the JAX ``_cast_weights`` does, and a
+``torch.optim`` optimizer such as AdamW over ``param_leaves``).  Gradients
+of attention go through the flash backward kernels on the card.
+
+MoE, ring/ulysses attention, pipeline-stacked ``blocks``, remat and the
+chunked cross-entropy are not ported yet (ROADMAP.md); a config that
+selects one of the first four raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Dict
+from typing import Any, Dict, List, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -41,7 +47,7 @@ class GPT2Config:
     n_embd: int = 768
     compute_dtype: Any = torch.bfloat16
     attention: str = "flash"  # flash | dense (ring | ulysses: not ported)
-    remat: bool = False       # training only: not ported
+    remat: bool = False       # checkpoint each block: not ported
     moe_experts: int = 0      # >0 selects the MoE FFN: not ported
 
     @property
@@ -67,8 +73,8 @@ def _check_ported(cfg: GPT2Config):
             "the MoE FFN is not ported yet (ROADMAP.md: GPT-2 MoE)")
     if cfg.remat:
         raise NotImplementedError(
-            "remat is a training option, not ported yet (ROADMAP.md: "
-            "Training GPT-2)")
+            "remat is not ported yet (ROADMAP.md: remat and the chunked "
+            "cross-entropy)")
 
 
 def init_params(generator: torch.Generator, cfg: GPT2Config,
@@ -173,7 +179,9 @@ def _block(x, p, cfg: GPT2Config):
 
 def _trunk(params, tokens, cfg: GPT2Config):
     """Embedding + transformer blocks + final LN -> (B, S, E) in
-    compute_dtype."""
+    compute_dtype.  The embedding sum runs in the dtype of the tables: f32
+    when serving, ``compute_dtype`` in training, where ``_cast_weights``
+    has cast them, as in the JAX model."""
     _check_ported(cfg)
     if "blocks" in params:
         raise NotImplementedError(
@@ -191,20 +199,96 @@ def _trunk(params, tokens, cfg: GPT2Config):
     return x.to(cfg.compute_dtype)
 
 
-def forward(params, tokens, cfg: GPT2Config):
-    """tokens (B, S) int64 -> logits (B, S, vocab) f32.
-
-    The tied lm head multiplies compute-dtype operands with f32 output:
-    both operands are up-cast to f32 (exact for bf16) and multiplied in
-    f32, so the logits are not rounded to bf16 (which would tie argmaxes
-    that the JAX model separates).  Needs TF32 off for f32 matmuls
+def _lm_head(x, wte):
+    """The tied lm head: compute-dtype operands, f32 logits.  Both operands
+    are up-cast to f32 (exact for bf16) and multiplied in f32, so the
+    logits are not rounded to bf16 (which would tie argmaxes that the JAX
+    model separates).  Needs TF32 off for f32 matmuls
     (``torch.backends.cuda.matmul.allow_tf32 = False``, the default)."""
-    x = _trunk(params, tokens, cfg)
-    wte = params["wte"]["embedding"].to(cfg.compute_dtype)
     return torch.matmul(x.float(), wte.float().T)
+
+
+def forward(params, tokens, cfg: GPT2Config):
+    """tokens (B, S) int64 -> logits (B, S, vocab) f32."""
+    x = _trunk(params, tokens, cfg)
+    return _lm_head(x, params["wte"]["embedding"].to(cfg.compute_dtype))
+
+
+def loss_fn(params, batch, cfg: GPT2Config):
+    """batch: {"tokens": (B, S+1) int64} -> mean next-token cross-entropy
+    (f32 scalar) through the tied head's f32 logits."""
+    tokens = batch["tokens"]
+    inputs, targets = tokens[:, :-1], tokens[:, 1:]
+    x = _trunk(params, inputs, cfg)
+    logits = _lm_head(x, params["wte"]["embedding"].to(cfg.compute_dtype))
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = logits.gather(-1, targets[..., None])[..., 0]
+    return (lse - tgt).mean()
+
+
+def _cast_weights(params, dtype):
+    """The parameter tree with every f32 leaf of ndim >= 2 (the matmul
+    weights and both embedding tables) cast once to ``dtype``; 1-D leaves
+    (biases, LN scales) stay f32.  Differentiable: gradients flow back to
+    the f32 leaves."""
+    if isinstance(params, dict):
+        return {k: _cast_weights(v, dtype) for k, v in params.items()}
+    if params.dtype == torch.float32 and params.dim() >= 2:
+        return params.to(dtype)
+    return params
+
+
+def named_leaves(params, prefix="") -> List[Tuple[str, torch.Tensor]]:
+    """(path, tensor) of every leaf, in sorted key order at each level (the
+    order of ``jax.tree.leaves`` on the JAX tree)."""
+    if not isinstance(params, dict):
+        return [(prefix, params)]
+    out = []
+    for k in sorted(params):
+        out += named_leaves(params[k], f"{prefix}/{k}" if prefix else k)
+    return out
+
+
+def param_leaves(params) -> List[torch.Tensor]:
+    """The leaves of ``named_leaves``, for one optimizer parameter group."""
+    return [t for _, t in named_leaves(params)]
+
+
+def make_train_step(cfg: GPT2Config, optimizer):
+    """Returns ``train_step(params, batch) -> {"loss": tensor}``.
+
+    ``params`` are the f32 master leaves, each with ``requires_grad``;
+    ``optimizer`` is a ``torch.optim.Optimizer`` over them (one group, e.g.
+    ``torch.optim.AdamW(param_leaves(params), ...)``).  A step casts the
+    tree to ``cfg.compute_dtype`` (``_cast_weights``), runs ``loss_fn``,
+    backpropagates through the cast (so the gradients are f32), steps the
+    optimizer and clears the gradients.  Unlike the JAX step, which
+    returns new parameter and optimizer-state trees, this one updates the
+    parameters and the optimizer's state in place."""
+
+    def train_step(params, batch):
+        loss = loss_fn(_cast_weights(params, cfg.compute_dtype), batch, cfg)
+        loss.backward()
+        optimizer.step()
+        optimizer.zero_grad(set_to_none=True)
+        return {"loss": loss.detach()}
+
+    return train_step
 
 
 def num_params(params) -> int:
     if isinstance(params, dict):
         return sum(num_params(v) for v in params.values())
     return params.numel()
+
+
+def count_flops_per_token(cfg: GPT2Config, seq_len: int) -> float:
+    """Training (fwd+bwd) FLOPs per token: 6N + 12*L*E*S (PaLM appendix B).
+
+    N counts matmul params only: 12*L*E^2 for the blocks (c_attn 3E^2 +
+    attn c_proj E^2 + mlp 8E^2) plus V*E for the tied lm head (the
+    embedding gather is not a matmul).  The 6 covers fwd (2) + bwd (4);
+    callers must NOT multiply by 3 again.
+    """
+    n = 12 * cfg.n_layer * cfg.n_embd ** 2 + cfg.vocab_size * cfg.n_embd
+    return 6 * n + 12 * cfg.n_layer * cfg.n_embd * seq_len

@@ -1,4 +1,5 @@
-"""The CUDA flash-attention kernel on the card, against its plain version.
+"""The CUDA flash-attention kernels on the card, against their plain
+versions, and a GPT-2 train step through them.
 
 Marked ``cuda``: every test skips where there is no CUDA device.  On a
 machine with one (no JAX needed, hence ``--noconftest``):
@@ -6,11 +7,13 @@ machine with one (no JAX needed, hence ``--noconftest``):
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
 """
 
+import math
 from dataclasses import replace
 
 import pytest
 import torch
 
+from chip_smoke import G_PTOL, G_RTOL, bwd_magnitudes
 from ray_tpu_torch.models import gpt2
 from ray_tpu_torch.ops import flash_attention as fa
 
@@ -96,3 +99,113 @@ def test_gpt2_tiny_flash_matches_dense(cuda):
     dense = gpt2.forward(params, tokens, replace(cfg, attention="dense"))
     # bf16 activations: ~1 ulp of attention output per layer (chip_smoke.py)
     assert (flash - dense).abs().max().item() <= 0.1
+
+
+def _bwd_case(cuda, shape, causal, layout):
+    q, k, v, do = (torch.randn(shape, generator=cuda, device="cuda",
+                               dtype=torch.bfloat16) for _ in range(4))
+    fwd = fa._flash_fwd_bshd if layout == "bshd" else fa._flash_fwd
+    o, res = fwd(q, k, v, causal, None, None, None)
+    return res, do
+
+
+@pytest.mark.parametrize("layout", ["bshd", "bhsd"])
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("S", [1, 63, 65, 200])
+def test_bwd_kernels_match_plain(cuda, S, D, causal, layout):
+    """dq, dk, dv of the two backward kernels within chip_smoke.py's
+    per-element bound of the plain backward on the same (o, lse, do)."""
+    B, H = 2, 3
+    shape = (B, S, H, D) if layout == "bshd" else (B, H, S, D)
+    res, do = _bwd_case(cuda, shape, causal, layout)
+    bwd = fa._flash_bwd_bshd if layout == "bshd" else fa._flash_bwd
+    before = (fa.BWD_DQ_LAUNCHES, fa.BWD_DKV_LAUNCHES)
+    grads = bwd(causal, None, None, None, res, do)
+    torch.cuda.synchronize()
+    assert (fa.BWD_DQ_LAUNCHES, fa.BWD_DKV_LAUNCHES) == (before[0] + 1,
+                                                         before[1] + 1)
+    tr = (lambda t: t.transpose(1, 2)) if layout == "bshd" else (
+        lambda t: t)
+    q, k, v, o, lse = res
+    qh, kh, vh, oh, doh = (tr(t) for t in (q, k, v, o, do))
+    scale = D ** -0.5
+    ref = fa._reference_attention_bwd(qh, kh, vh, oh, lse, doh, scale,
+                                      causal)
+    mags = bwd_magnitudes(qh, kh, vh, oh, lse, doh, scale, causal)
+    for name, g, r, m in zip(("dq", "dk", "dv"), grads, ref, mags):
+        assert g.dtype == torch.bfloat16 and g.shape == shape
+        tol = G_RTOL * r.float().abs() + G_PTOL[name] * m
+        assert ((tr(g).float() - r.float()).abs() <= tol).all(), name
+
+
+def test_bwd_given_lse_and_delta_are_used(cuda):
+    """Ring attention's contract on the card: a shifted lse and a given
+    delta reach the kernels as they are."""
+    res, do = _bwd_case(cuda, (1, 2, 130, 64), True, "bhsd")
+    q, k, v, o, lse = res
+    delta = torch.randn(lse.shape, generator=cuda, device="cuda")
+    shifted = (q, k, v, o, lse + 0.25)
+    grads = fa._flash_bwd(True, None, None, None, shifted, do, delta)
+    ref = fa._reference_attention_bwd(q, k, v, o, lse + 0.25, do, 0.125,
+                                      True, delta)
+    for g, r in zip(grads, ref):
+        err = (g.float() - r.float()).abs().max().item()
+        assert err <= 0.05 * r.float().abs().max().item()
+
+
+def test_bwd_strided_do_and_determinism(cuda):
+    """A do expanded from o.sum() (zero strides) and a transposed do give
+    the gradients of their contiguous copies, bit for bit; two runs agree
+    bit for bit (no atomics)."""
+    res, do = _bwd_case(cuda, (2, 70, 4, 64), True, "bshd")
+    bwd = lambda d: fa._flash_bwd_bshd(True, None, None, None, res, d)  # noqa: E731
+    ones = torch.ones((), device="cuda", dtype=torch.bfloat16).expand(
+        do.shape)
+    views = (ones, do.transpose(1, 2).contiguous().transpose(1, 2))
+    for d in views:
+        for a, b in zip(bwd(d), bwd(d.contiguous())):
+            assert torch.equal(a, b)
+    for a, b in zip(bwd(do), bwd(do)):
+        assert torch.equal(a, b)
+
+
+def test_bwd_unsupported_inputs_raise(cuda):
+    res, do = _bwd_case(cuda, (1, 8, 2, 64), True, "bshd")
+    q, k, v, o, lse = res
+    with pytest.raises(TypeError, match="bfloat16"):
+        fa._flash_bwd_bshd(True, None, None, None, res, do.half())
+    with pytest.raises(TypeError, match="lse must be float32"):
+        fa._flash_bwd_bshd(True, None, None, None,
+                           (q, k, v, o, lse.double()), do)
+
+
+def test_autograd_through_kernels(cuda):
+    """requires_grad bf16 inputs on the card go through both backward
+    kernels and get the plain backward's gradients."""
+    q, k, v = (torch.randn((2, 100, 3, 64), generator=cuda, device="cuda",
+                           dtype=torch.bfloat16, requires_grad=True)
+               for _ in range(3))
+    before = fa.BWD_DQ_LAUNCHES
+    fa.flash_attention_bshd(q, k, v, True).float().square().sum().backward()
+    assert fa.BWD_DQ_LAUNCHES == before + 1
+    assert all(torch.isfinite(t.grad).all() for t in (q, k, v))
+
+
+def test_gpt2_tiny_train_step_on_card(cuda):
+    """GPT2_TINY widths on the card: AdamW steps through the kernels, n_layer
+    launches of each kernel per step, the loss falls."""
+    cfg = gpt2.GPT2_TINY
+    params = gpt2.init_params(cuda, cfg, device="cuda")
+    for leaf in gpt2.param_leaves(params):
+        leaf.requires_grad_(True)
+    opt = torch.optim.AdamW(gpt2.param_leaves(params), lr=1e-3,
+                            weight_decay=0.1)
+    step = gpt2.make_train_step(cfg, opt)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (4, 101),
+                                     generator=cuda, device="cuda")}
+    before = (fa.KERNEL_LAUNCHES, fa.BWD_DQ_LAUNCHES, fa.BWD_DKV_LAUNCHES)
+    losses = [step(params, batch)["loss"].item() for _ in range(5)]
+    after = (fa.KERNEL_LAUNCHES, fa.BWD_DQ_LAUNCHES, fa.BWD_DKV_LAUNCHES)
+    assert [a - b for a, b in zip(after, before)] == [5 * cfg.n_layer] * 3
+    assert all(map(math.isfinite, losses)) and losses[-1] < losses[0]

@@ -98,11 +98,68 @@ def test_mha_alias_and_default_scale():
         tfa.flash_attention_bshd(q, k, v, True, None, 16, 8), o)
 
 
-def test_requires_grad_raises_not_implemented():
-    q, k, v = (torch.from_numpy(x) for x in _inputs((1, 2, 16, 32)))
-    q.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfa.flash_attention(q, k, v, True)
+@pytest.mark.parametrize("layout", ["bhsd", "bshd"])
+def test_requires_grad_inputs_get_gradients(layout):
+    """Inputs that require grad get the plain backward's gradients on the
+    CPU, also from ``o.sum()``, whose do autograd hands over expanded (zero
+    strides)."""
+    q, k, v = (torch.from_numpy(x).requires_grad_(True)
+               for x in _inputs((1, 2, 16, 32), seed=3))
+    fn = tfa.flash_attention if layout == "bhsd" else tfa.flash_attention_bshd
+    o = fn(q, k, v, True)
+    o.sum().backward()
+    tr = (lambda x: x) if layout == "bhsd" else (  # noqa: E731
+        lambda x: x.transpose(1, 2))
+    qd, kd, vd = (tr(x.detach()) for x in (q, k, v))
+    o_ref, lse = tfa._reference_attention(qd, kd, vd, 32 ** -0.5, True)
+    ref = tfa._reference_attention_bwd(qd, kd, vd, o_ref, lse,
+                                       torch.ones_like(o_ref), 32 ** -0.5,
+                                       True)
+    for x, g in zip((q, k, v), ref):
+        torch.testing.assert_close(x.grad, tr(g))
+
+
+def test_kernel_ready_takes_strides_and_copies_what_it_must():
+    """The kernels read an input through its strides when D has unit
+    stride and rows are 16-byte aligned; a zero leading stride (a
+    broadcast do) is read as it is; anything else is copied."""
+    x = torch.zeros((2, 8, 3, 64))
+    assert tfa._kernel_ready(x) is x
+    view = x.transpose(1, 2)                         # other layout's memory
+    assert tfa._kernel_ready(view) is view
+    bcast = torch.zeros((1, 8, 3, 64)).expand(4, 8, 3, 64)
+    assert bcast.stride(0) == 0 and tfa._kernel_ready(bcast) is bcast
+    ones = torch.ones(()).expand(2, 8, 3, 64)          # o.sum()'s do
+    ready = tfa._kernel_ready(ones)
+    assert ready.stride(-1) == 1 and ready.is_contiguous()
+    odd = torch.zeros((2, 8, 3, 65))[..., 1:]          # rows misaligned
+    assert tfa._kernel_ready(odd).is_contiguous()
+    strided = torch.zeros((2, 8, 3, 128))[..., ::2]    # D stride 2
+    assert tfa._kernel_ready(strided).stride(-1) == 1
+
+
+def test_backward_kernel_path_rejects_what_it_does_not_take():
+    """The backward's CUDA path validates before it touches the card."""
+    meta = lambda shape, dt: torch.empty(shape, dtype=dt,  # noqa: E731
+                                         device="meta")
+    x = meta((1, 8, 2, 64), torch.bfloat16)
+    lse = meta((1, 2, 8), torch.float32)
+    before = (tfa.BWD_DQ_LAUNCHES, tfa.BWD_DKV_LAUNCHES)
+    with pytest.raises(TypeError, match="bfloat16"):
+        tfa._kernel_backward(x, x, x, meta((1, 8, 2, 64), torch.float32), lse,
+                             x, True, 1.0, "bshd")
+    with pytest.raises(ValueError, match="head dim 48"):
+        y = meta((1, 8, 2, 48), torch.bfloat16)
+        tfa._kernel_backward(y, y, y, y, lse, y, True, 1.0, "bshd")
+    with pytest.raises(TypeError, match="lse must be float32"):
+        tfa._kernel_backward(x, x, x, x, lse.to(torch.bfloat16), x, True,
+                             1.0, "bshd")
+    with pytest.raises(ValueError, match="delta must be"):
+        tfa._kernel_backward(x, x, x, x, lse, x, True, 1.0, "bshd",
+                             delta=meta((1, 8, 2), torch.float32))
+    with pytest.raises(ValueError, match="no flash-attention path"):
+        tfa._flash_bwd_bshd(True, None, None, None, (x, x, x, x, lse), x)
+    assert (tfa.BWD_DQ_LAUNCHES, tfa.BWD_DKV_LAUNCHES) == before
 
 
 def test_kernel_path_rejects_what_it_does_not_take():
@@ -131,3 +188,14 @@ def test_cuda_request_raises_without_cuda():
     q, k, v = (torch.from_numpy(x) for x in _inputs((1, 8, 2, 64)))
     with pytest.raises((RuntimeError, AssertionError)):
         tfa.flash_attention_bshd(q.to("cuda"), k.to("cuda"), v.to("cuda"))
+
+
+def test_backward_cuda_request_raises_without_cuda():
+    """The backward, asked for the card where there is none, raises too."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device")
+    q, k, v = (torch.from_numpy(x) for x in _inputs((1, 8, 2, 64)))
+    o, res = tfa._flash_fwd_bshd(q, k, v, True, None, None, None)
+    with pytest.raises((RuntimeError, AssertionError)):
+        tfa._flash_bwd_bshd(True, None, None, None,
+                            tuple(x.to("cuda") for x in res), o.to("cuda"))
