@@ -52,9 +52,11 @@ head) run in full f32 and bf16 GEMMs accumulate in f32, as the JAX model's
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import math
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -197,6 +199,9 @@ def attention_bound(B, H, S, D, causal, products=2, tensors=4, rows=1):
 # five products and q, k, v, do, dq, dk, dv.
 BWD_WORK = {"dq": (3, 5, 2), "dkv": (4, 6, 2), "pair": (5, 7, 2)}
 
+#: (B, H, S, D) of a GPT-2 124M train step at B=16, S=1024
+TRAIN_SHAPE = (16, 12, 1024, 64)
+
 
 def card_line() -> str:
     return subprocess.run(
@@ -214,6 +219,37 @@ def fail(msg):
 # phases
 # ---------------------------------------------------------------------------
 
+def kernel_name(mangled):
+    """``flash_fwd_kernel<64,128,3>`` from a mangled template name."""
+    m = re.search(r"([a-z][a-z_]*_kernel)I((?:Li\d+E)+)E", mangled)
+    if not m:
+        return mangled
+    return f"{m.group(1)}<{','.join(re.findall(r'Li(-?[0-9]+)E', m.group(2)))}>"
+
+
+def sass_counts(lib, pattern="flash_fwd_kernel"):
+    """{kernel: {opcode: count}} of the TMA loads (UTMALDG), wgmma
+    (HGMMA) and mbarrier operations (SYNCS) in the SASS of each kernel of
+    ``lib`` whose name holds ``pattern`` (``cuobjdump --dump-sass``)."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "--dump-sass", lib], capture_output=True,
+                          text=True, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = kernel_name(m.group(1)) if pattern in m.group(1) else None
+            if name:
+                counts[name] = dict.fromkeys(SASS_OPS, 0)
+        elif name:
+            for op in re.findall(r"\b(" + "|".join(SASS_OPS) + r")\b", line):
+                counts[name][op] += 1
+    return counts
+
+
+SASS_OPS = ("UTMALDG", "HGMMA", "SYNCS")
+
+
 def phase_build():
     t0 = time.perf_counter()
     libs = build.build()
@@ -223,13 +259,69 @@ def phase_build():
     for name, log in sorted(build.BUILD_LOG.items()):
         entry = name
         for line in log.splitlines():
-            m = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)_kernel)ILi(\d+)E",
-                          line)
-            if "Compiling entry function" in line and m:
-                entry = f"{m.group(1)}<{m.group(2)}>"
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                entry = kernel_name(m.group(1))
             elif "registers" in line or "spill" in line:
                 print(f"[build] {entry}: {line.split(':', 1)[-1].strip()}")
+    for kernel, ops in sorted(sass_counts(libs["flash_fwd"]).items()):
+        print(f"[build] SASS {kernel}: "
+              + ", ".join(f"{op} {n}" for op, n in ops.items()), flush=True)
     print(f"[build] card: {card_line()}", flush=True)
+
+
+def phase_sm90_checks(seed):
+    """csrc/sm90_check.cu against torch: a TMA tile load of a strided bshd
+    view with rows past S, an SS wgmma (q k^T's form) and an RS wgmma with
+    an MN-major B (p v's form), at D = 32, 64 and 128.  Entries are small
+    integers, so every product and sum is exact in f32 and the results
+    must be equal, not close."""
+    lib = build.load("sm90_check")
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.sm90_check_tma.argtypes = [P, P, I, I, I, I, P, I, I, I, P]
+    lib.sm90_check_ss.argtypes = [P, P, P, I, P]
+    lib.sm90_check_rs.argtypes = [P, P, P, I, P]
+    gen = torch.Generator(device="cuda").manual_seed(seed + 3)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call(fn, *args):
+        rc = getattr(lib, fn)(*args, stream)
+        if rc:
+            fail(f"{fn} returned {rc}")
+
+    def ints(*shape):
+        return torch.randint(-4, 5, shape, generator=gen, device="cuda",
+                             dtype=torch.int32).to(torch.bfloat16)
+
+    for D in (32, 64, 128):
+        B, S, H, row0, h, b = 2, 1000, 12, 960, 5, 1
+        _, view, _ = _qkv(B, H, S, D, "bshd", gen)  # k of a fused qkv
+        tile = torch.empty((64, D), dtype=torch.bfloat16, device="cuda")
+        st = (ctypes.c_int64 * 3)(*view.stride()[:3])
+        call("sm90_check_tma", view.data_ptr(), tile.data_ptr(), B, S, H, D,
+             st, row0, h, b)
+        want = torch.zeros_like(tile)
+        want[:S - row0] = view[b, row0:, h]
+        a, bt = ints(64, D), ints(64, D)
+        s = torch.empty((64, 64), device="cuda")
+        call("sm90_check_ss", a.data_ptr(), bt.data_ptr(), s.data_ptr(), D)
+        p, v = ints(64, 64), ints(64, D)
+        o = torch.empty((64, D), device="cuda")
+        call("sm90_check_rs", p.data_ptr(), v.data_ptr(), o.data_ptr(), D)
+        torch.cuda.synchronize()
+        res = {"tma": torch.equal(tile, want),
+               "ss": torch.equal(s, a.float() @ bt.float().T),
+               "rs": torch.equal(o, p.float() @ v.float())}
+        print(f"[sm90] D={D}: TMA tile of a strided bshd view, rows "
+              f"{row0}..{row0 + 63} of S={S} ({row0 + 64 - S} past S read "
+              f"as zeros): "
+              f"{'equal' if res['tma'] else 'DIFFERS'}; wgmma SS 64x64x{D} "
+              f"vs torch.matmul f32: {'equal' if res['ss'] else 'DIFFERS'}; "
+              f"wgmma RS 64x{D}x64, B MN-major: "
+              f"{'equal' if res['rs'] else 'DIFFERS'} (exact: integer "
+              f"entries)", flush=True)
+        if not all(res.values()):
+            fail(f"sm90 primitives disagree with torch at D={D}: {res}")
 
 
 def _qkv(B, H, S, D, layout, gen):
@@ -246,64 +338,94 @@ def _qkv(B, H, S, D, layout, gen):
 def phase_kernels(seed):
     """Kernel vs plain on the card; returns the served-shape record."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    cases = [(B, 12, S, 64) for B in (1, 4) for S in (128, 1000, 1024)]
-    cases += [(1, 32, 2048, 128), (2, 4, 100, 32)]
+    cases = [(B, 12, S, 64, layout) for B in (1, 4) for S in (128, 1000, 1024)
+             for layout in ("bshd", "bhsd")]
+    cases += [(1, 32, 2048, 128, layout) for layout in ("bshd", "bhsd")]
+    cases += [(2, 4, 100, 32, layout) for layout in ("bshd", "bhsd")]
+    cases += [TRAIN_SHAPE + ("bshd",)]
     served = None
     worst = 0.0
-    for B, H, S, D in cases:
-        for layout in ("bshd", "bhsd"):
-            for causal in (True, False):
-                q, k, v = _qkv(B, H, S, D, layout, gen)
-                if layout == "bhsd":
-                    run = lambda: fa._flash_fwd(  # noqa: E731
-                        q, k, v, causal, None, None, None)
-                    qh, kh, vh = q, k, v
-                else:
-                    run = lambda: fa._flash_fwd_bshd(  # noqa: E731
-                        q, k, v, causal, None, None, None)
-                    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
-                scale = D ** -0.5
-                plain = lambda: fa._reference_attention(  # noqa: E731
-                    qh, kh, vh, scale, causal)
-                o, (_, _, _, _, lse) = run()
-                o_ref, lse_ref = plain()
-                o_mag, _ = fa._reference_attention(qh, kh, vh.abs(), scale,
-                                                   causal)
-                if layout == "bshd":
-                    o_ref, o_mag = (t.transpose(1, 2) for t in (o_ref, o_mag))
-                torch.cuda.synchronize()
-                diff = (o.float() - o_ref.float()).abs()
-                o_tol = O_RTOL * o_ref.float().abs() + O_PTOL * o_mag.float()
-                o_err = diff.max().item()
-                o_ratio = (diff / o_tol).max().item()
-                lse_err = (lse - lse_ref).abs().max().item()
-                ok = o_ratio <= 1 and lse_err <= LSE_TOL
-                worst = max(worst, o_err)
-                ms = time_ms(run)
-                plain_ms = time_ms(plain, iters=5)
-                lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-                    qh, kh, vh, is_causal=causal))
-                bound, bound_by = attention_bound(B, H, S, D, causal)
-                print(f"[kernel] B={B} H={H} S={S} D={D} {layout} "
-                      f"causal={int(causal)}: o_err={o_err:.3e} "
-                      f"max o_err/tol={o_ratio:.3f} (tol {O_RTOL}*|o| + "
-                      f"2^-8*P@|v|, must be <= 1) "
-                      f"lse_err={lse_err:.3e} "
-                      f"(tol {LSE_TOL}) kernel_ms={ms:.4f} "
-                      f"bound_us={bound * 1e3:.3f} ({bound_by}) "
-                      f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f}"
-                      f"{'' if ok else '  <-- OUT OF TOLERANCE'}",
-                      flush=True)
-                if not ok:
-                    fail(f"kernel disagrees with plain at B={B} H={H} "
-                         f"S={S} D={D} {layout} causal={causal}")
-                if (B, H, S, D, layout, causal) == (1, 12, 1024, 64, "bshd",
-                                                    True):
-                    served = {"ms": ms, "plain_ms": plain_ms,
-                              "bound_ms": bound, "bound_by": bound_by,
-                              "library_ms": lib_ms}
+    for B, H, S, D, layout in cases:
+        for causal in (True, False):
+            q, k, v = _qkv(B, H, S, D, layout, gen)
+            if layout == "bhsd":
+                run = lambda: fa._flash_fwd(  # noqa: E731
+                    q, k, v, causal, None, None, None)
+                qh, kh, vh = q, k, v
+            else:
+                run = lambda: fa._flash_fwd_bshd(  # noqa: E731
+                    q, k, v, causal, None, None, None)
+                qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+            scale = D ** -0.5
+            plain = lambda: fa._reference_attention(  # noqa: E731
+                qh, kh, vh, scale, causal)
+            o, (_, _, _, _, lse) = run()
+            o_ref, lse_ref = plain()
+            o_mag, _ = fa._reference_attention(qh, kh, vh.abs(), scale,
+                                               causal)
+            if layout == "bshd":
+                o_ref, o_mag = (t.transpose(1, 2) for t in (o_ref, o_mag))
+            torch.cuda.synchronize()
+            diff = (o.float() - o_ref.float()).abs()
+            o_tol = O_RTOL * o_ref.float().abs() + O_PTOL * o_mag.float()
+            o_err = diff.max().item()
+            o_ratio = (diff / o_tol).max().item()
+            lse_err = (lse - lse_ref).abs().max().item()
+            ok = o_ratio <= 1 and lse_err <= LSE_TOL
+            worst = max(worst, o_err)
+            ms = time_ms(run)
+            plain_ms = time_ms(plain, iters=5)
+            lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, is_causal=causal))
+            bound, bound_by = attention_bound(B, H, S, D, causal)
+            plan = fa._fwd_plan(B, H, S, D, fa._sm_count(q.device))
+            print(f"[kernel] B={B} H={H} S={S} D={D} {layout} "
+                  f"causal={int(causal)} plan={plan.block_m} rows x "
+                  f"{plan.stages} slots: o_err={o_err:.3e} "
+                  f"max o_err/tol={o_ratio:.3f} (tol {O_RTOL}*|o| + "
+                  f"2^-8*P@|v|, must be <= 1) "
+                  f"lse_err={lse_err:.3e} "
+                  f"(tol {LSE_TOL}) kernel_ms={ms:.4f} "
+                  f"bound_us={bound * 1e3:.3f} ({bound_by}) "
+                  f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f}"
+                  f"{'' if ok else '  <-- OUT OF TOLERANCE'}",
+                  flush=True)
+            if not ok:
+                fail(f"kernel disagrees with plain at B={B} H={H} "
+                     f"S={S} D={D} {layout} causal={causal}")
+            if (B, H, S, D, layout, causal) == (1, 12, 1024, 64, "bshd",
+                                                True):
+                served = {"ms": ms, "plain_ms": plain_ms,
+                          "bound_ms": bound, "bound_by": bound_by,
+                          "library_ms": lib_ms}
+                print(f"[kernel] served shape: kernel_ms={ms:.4f} "
+                      f"library_ms={lib_ms:.4f} bound_ms={bound:.5f} "
+                      f"({bound_by}); tensor-map encode "
+                      f"{encode_us(q, k, v, layout):.3f} us of host "
+                      f"time per launch (3 maps)", flush=True)
+            if (B, H, S, D) == TRAIN_SHAPE:
+                print(f"[kernel] training shape, causal={int(causal)}: "
+                      f"kernel_ms={ms:.4f} library_ms={lib_ms:.4f} "
+                      f"bound_ms={bound:.5f} ({bound_by})", flush=True)
     served["max_abs_err"] = worst
     return served
+
+
+def encode_us(q, k, v, layout, iters=10000):
+    """Host microseconds of the three cuTensorMapEncodeTiled calls that
+    each forward launch makes (``flash_fwd_encode_us``)."""
+    lib = fa._kernel("flash_fwd")
+    fn = lib.flash_fwd_encode_us
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p, ctypes.c_int]
+    fn.restype = ctypes.c_double
+    B, H, S, D, dims = fa._geometry(q, layout)
+    q, k, v = (fa._kernel_ready(x) for x in (q, k, v))
+    us = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), B, H, S, D,
+            fa._strides(dims, q, k, v, q), iters)
+    if us < 0:
+        fail("a tensor map was refused")
+    return us
 
 
 def bwd_magnitudes(q, k, v, o, lse, do, scale, causal):
@@ -327,7 +449,7 @@ def phase_bwd_kernels(seed):
     """Backward kernels vs the plain backward on the card; returns the
     training-shape records of the dq and dk/dv kernels."""
     gen = torch.Generator(device="cuda").manual_seed(seed + 2)
-    train_shape = (16, 12, 1024, 64)
+    train_shape = TRAIN_SHAPE
     cases = [train_shape, (1, 12, 1000, 64), (1, 32, 2048, 128),
              (1, 4, 100, 32)]
     worst = {"dq": 0.0, "dkv": 0.0}
@@ -671,6 +793,7 @@ def main():
           f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}",
           flush=True)
     phase_build()
+    phase_sm90_checks(args.seed)
     kern = phase_kernels(args.seed)
     bwd = phase_bwd_kernels(args.seed)
     serve_launches = phase_serve(args.seed, args.profile)

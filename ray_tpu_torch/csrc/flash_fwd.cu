@@ -7,33 +7,33 @@
 //   * _fwd_kernel_lanes (:443, launched by _pallas_forward_bshd :510),
 //     layout (B, S, H, D), which exists on the TPU only to avoid a
 //     transpose under the 128-lane tiling rule.
-// Here one kernel serves both: it takes the batch, sequence and head
-// strides of q, k, v and o, so neither layout is ever transposed.
+// Both run _fwd_core (:100-147): online softmax in base 2, an f32
+// accumulator, a causal loop that stops at the diagonal.  Here one kernel
+// serves both layouts: its tensor maps take the batch, sequence and head
+// strides of q, k and v, so neither layout is ever transposed.
 //
-// Work split.  One thread block per (64-row q tile, head, batch), four
-// warps, each warp owning 16 q rows.  The block walks the k/v sequence in
-// tiles of 64 rows staged in shared memory with 16-byte vector loads
-// (rows padded by 8 elements so the fragment reads are free of bank
-// conflicts).  Q K^T and P V run on the tensor cores with
-// mma.sync.m16n8k16 (bf16 in, f32 accumulate); V's fragments come from
-// ldmatrix.trans.  The online softmax (running max, running sum, rescaled
-// accumulator) stays in registers in f32, in base-2 units: the scores are
-// scaled by sm_scale*log2(e) in f32 and exponentiated with exp2f.  (The
-// TPU kernel folds that scale into the bf16 q tile; scaling the f32
-// scores costs one multiply per score and keeps q exact.)
+// Bound on an H100 SXM: the larger of 4 B H S^2 D operations (half when
+// causal) at 989 TFLOP/s bf16 and the bytes of q, k, v, o (bf16) and lse
+// (f32) at 3.35 TB/s.  Causal, D = 64: at the served shape (B = 1, H = 12,
+// S = 1024) 0.00189 ms, bytes; at the training shape (B = 16) 0.0303 ms,
+// bytes.  Neither is near: at these sizes the kernel is bound by latency
+// (a block walks up to S / 64 k/v tiles in series) and by how well the
+// tiles' loads overlap the products.
 //
-// Causal: the k loop stops at the diagonal tile; only the diagonal tile and
-// the ragged last tile (S not a multiple of 64) are masked.  q tiles run in
-// reverse order so the longest ones start first.  Rows >= S are computed
-// on zero-filled inputs and never written.
+// Design.  One block per (q tile of 64 or 128 rows, head, batch), all
+// heads' longest causal tiles first.  Warpgroup 0 is the producer: one
+// thread issues TMA loads of the q tile once and of k and v tiles into a
+// ring of kStages slots, each with a `full` mbarrier (transaction bytes)
+// and an `empty` one (every consumer thread arrives when done).  The other
+// one or two warpgroups are consumers of 64 q rows each.  Tiles land
+// swizzled (128-byte rows; 64-byte at D = 32; sm90.cuh); rows past S land
+// as zeros, and are never written.  A causal block stops at its diagonal
+// tile; only the diagonal and ragged tiles are masked.
 //
-// Bound on an H100 SXM.  Operations 4*B*H*S^2*D (half that when causal)
-// against 989 TFLOP/s bf16; bytes: q, k, v and o (2 bytes each) plus lse
-// (4 bytes a row) against 3.35 TB/s.  At GPT-2 shapes (D = 64, S <= 1024)
-// both bounds are a few microseconds, below launch overhead; this kernel
-// is written to be right, not fast: no cp.async pipelining of the k/v
-// tiles, no wgmma, no TMA, no warp specialisation.  Those are for a later
-// change.
+// Consumers: mma.sync.m16n8k16 (bf16 in, f32 accumulate), each warp 16 q
+// rows, operands by ldmatrix at swizzled addresses; the online softmax
+// (running max, running sum, rescaled accumulator) in f32 registers, in
+// base 2 (scores scaled by sm_scale * log2(e) in f32, exp2f).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (ray_tpu_torch/native/build.py).
@@ -43,57 +43,118 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <chrono>
+
 #include "mma.cuh"
+#include "sm90.cuh"
 
 namespace {
 
-constexpr int kBlockM = 64;  // q rows per block (16 per warp)
-constexpr int kBlockN = 64;  // k/v rows per tile; equal to kBlockM, which
-                             // the causal tile arithmetic below relies on
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
+constexpr int kBlockN = 64;  // k/v rows per tile = q rows per consumer
 constexpr float kLn2 = 0.6931471805599453f;
 
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
-                 const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v,
-                 __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
-                 int H, int S, int64_t q_sb, int64_t q_ss, int64_t q_sh,
-                 int64_t k_sb, int64_t k_ss, int64_t k_sh, int64_t v_sb,
-                 int64_t v_ss, int64_t v_sh, int64_t o_sb, int64_t o_ss,
-                 int64_t o_sh, float scale_log2, int causal) {
-  static_assert(D % 16 == 0, "head dim must be a multiple of 16");
-  constexpr int kStride = D + 8;  // padded shared-memory row, in elements
-  __shared__ __align__(16) __nv_bfloat16 sK[kBlockN * kStride];
-  __shared__ __align__(16) __nv_bfloat16 sV[kBlockN * kStride];
+// Four 8x8 b16 matrices; lanes 8i..8i+7 give the row addresses of matrix
+// i, and register i receives matrix i.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
+                                            const void* smem) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(sm90::smem_u32(smem)));
+}
 
-  const int m_block = causal ? (gridDim.x - 1 - blockIdx.x) : blockIdx.x;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
+// Dynamic shared memory, from a 1024-aligned base: the q tiles, the k and v
+// rings, then the barriers (q_full, full[kStages], empty[kStages]).
+template <int D, int kBlockM, int kStages>
+struct Smem {
+  using T = sm90::Tile<D, kBlockN>;
+  static constexpr int kQ = 0;
+  static constexpr int kK = kQ + (kBlockM / kBlockN) * T::kBytes;
+  static constexpr int kV = kK + kStages * T::kBytes;
+  static constexpr int kBar = kV + kStages * T::kBytes;
+  static constexpr int kBytes = kBar + 8 * (1 + 2 * kStages) + 1024;
+};
+
+template <int D, int kBlockM, int kStages>
+__global__ void __launch_bounds__(128 * (1 + kBlockM / 64),
+                                  kBlockM == 64 && D < 128 ? 2 : 1)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
+                 const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv,
+                 __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                 int H, int S, int64_t o_sb, int64_t o_ss, int64_t o_sh,
+                 float scale_log2, int causal) {
+  using L = Smem<D, kBlockM, kStages>;
+  using T = typename L::T;
+  constexpr int kConsumers = kBlockM / 64;  // warpgroups of 64 q rows
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem =
+      smem_raw + ((1024 - (sm90::smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::kBar);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + kStages;
+
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int m_block = causal ? gridDim.z - 1 - blockIdx.z : blockIdx.z;
+  const int m0 = m_block * kBlockM;
+  const int n_tiles = (S + kBlockN - 1) / kBlockN;
+  const int n_end = causal ? min(n_tiles, (m0 + kBlockM) / kBlockN) : n_tiles;
+
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], 128 * kConsumers);
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {  // producer warpgroup
+    if (threadIdx.x == 0) {
+      sm90::mbar_arrive_expect_tx(q_full, kConsumers * T::kBytes);
+      for (int c = 0; c < kConsumers; ++c)
+        for (int box = 0; box < T::kBoxes; ++box)
+          sm90::tma_load_4d(smem + L::kQ + c * T::kBytes + box * T::kBoxBytes,
+                            &tq, q_full, box * T::kBoxCols, m0 + 64 * c, h,
+                            b);
+      for (int it = 0; it < n_end; ++it) {
+        const int s = it % kStages;
+        // the slot's previous round must be released by every consumer
+        if (it >= kStages) sm90::mbar_wait(&empty[s], (it / kStages - 1) & 1);
+        sm90::mbar_arrive_expect_tx(&full[s], 2 * T::kBytes);
+        for (int box = 0; box < T::kBoxes; ++box) {
+          const int off = s * T::kBytes + box * T::kBoxBytes;
+          sm90::tma_load_4d(smem + L::kK + off, &tk, &full[s],
+                            box * T::kBoxCols, it * kBlockN, h, b);
+          sm90::tma_load_4d(smem + L::kV + off, &tv, &full[s],
+                            box * T::kBoxCols, it * kBlockN, h, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup wg: q rows q_first .. q_first + 63
+  const int wg = threadIdx.x / 128 - 1;
+  const int warp = (threadIdx.x / 32) % 4;
+  const int lane = threadIdx.x % 32;
   const int g = lane >> 2;  // fragment row group
   const int t = lane & 3;   // thread in the group
-  const int row0 = m_block * kBlockM + warp * 16 + g;  // rows row0, row0 + 8
+  const int q_first = m0 + 64 * wg;
+  const int row0 = q_first + warp * 16 + g;  // rows row0, row0 + 8
+  const int diag = q_first / kBlockN;        // this warpgroup's diagonal
+  const int wg_end = causal ? min(n_tiles, diag + 1) : n_tiles;
+  const uint8_t* sQ = smem + L::kQ + wg * T::kBytes;
 
-  const __nv_bfloat16* qb = q + b * q_sb + h * q_sh;
-  const __nv_bfloat16* kb = k + b * k_sb + h * k_sh;
-  const __nv_bfloat16* vb = v + b * v_sb + h * v_sh;
-  __nv_bfloat16* ob = o + b * o_sb + h * o_sh;
-
-  // This warp's q rows as A fragments, read once from device memory.
-  uint32_t qf[D / 16][4];
+  sm90::mbar_wait(q_full, 0);
+  uint32_t qf[D / 16][4];  // this warp's q rows as A fragments
 #pragma unroll
-  for (int kc = 0; kc < D / 16; ++kc) {
-    const int col = kc * 16 + 2 * t;
-    qf[kc][0] = load_pair(qb, row0, q_ss, col, S);
-    qf[kc][1] = load_pair(qb, row0 + 8, q_ss, col, S);
-    qf[kc][2] = load_pair(qb, row0, q_ss, col + 8, S);
-    qf[kc][3] = load_pair(qb, row0 + 8, q_ss, col + 8, S);
-  }
+  for (int kc = 0; kc < D / 16; ++kc)
+    ldmatrix_x4(qf[kc], sQ + T::offset(warp * 16 + ((lane >> 3) & 1) * 8 +
+                                           (lane & 7),
+                                       kc * 16 + (lane >> 4) * 8));
 
   float acc[D / 8][4];
 #pragma unroll
@@ -103,106 +164,101 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   float m_run[2] = {-INFINITY, -INFINITY};  // running max, base-2 units
   float l_run[2] = {0.f, 0.f};  // this thread's share of the row sums
 
-  const int n_tiles = (S + kBlockN - 1) / kBlockN;
-  const int n_end = causal ? min(n_tiles, m_block + 1) : n_tiles;
+  for (int it = 0; it < n_end; ++it) {
+    const int s = it % kStages;
+    sm90::mbar_wait(&full[s], (it / kStages) & 1);
+    if (it < wg_end) {
+      const uint8_t* sK = smem + L::kK + s * T::kBytes;
+      const uint8_t* sV = smem + L::kV + s * T::kBytes;
+      const int n0 = it * kBlockN;
 
-  for (int nb = 0; nb < n_end; ++nb) {
-    const int n0 = nb * kBlockN;
-    __syncthreads();  // every warp is done with the previous tile
-    constexpr int kVecPerRow = D / 8;
+      // s = q k^T: 16 rows x 64 keys per warp, as 8 C fragments; one
+      // ldmatrix gives the B fragments of two 8-key tiles
+      float sc[kBlockN / 8][4];
 #pragma unroll
-    for (int i = tid; i < kBlockN * kVecPerRow; i += kThreads) {
-      const int r = i / kVecPerRow;
-      const int c = (i % kVecPerRow) * 8;
-      uint4 kv = make_uint4(0, 0, 0, 0);
-      uint4 vv = make_uint4(0, 0, 0, 0);
-      if (n0 + r < S) {
-        kv = *reinterpret_cast<const uint4*>(kb + (n0 + r) * k_ss + c);
-        vv = *reinterpret_cast<const uint4*>(vb + (n0 + r) * v_ss + c);
+      for (int nt = 0; nt < kBlockN / 8; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) sc[nt][i] = 0.f;
+#pragma unroll
+      for (int np = 0; np < kBlockN / 16; ++np) {
+#pragma unroll
+        for (int kc = 0; kc < D / 16; ++kc) {
+          uint32_t kf[4];
+          ldmatrix_x4(kf, sK + T::offset(np * 16 + (lane >> 4) * 8 +
+                                             (lane & 7),
+                                         kc * 16 + ((lane >> 3) & 1) * 8));
+          mma_bf16(sc[2 * np], qf[kc], kf[0], kf[1]);
+          mma_bf16(sc[2 * np + 1], qf[kc], kf[2], kf[3]);
+        }
       }
-      *reinterpret_cast<uint4*>(&sK[r * kStride + c]) = kv;
-      *reinterpret_cast<uint4*>(&sV[r * kStride + c]) = vv;
-    }
-    __syncthreads();
 
-    // s = q k^T: 16 rows x 64 keys per warp, as 8 C fragments.
-    float s[kBlockN / 8][4];
+      const bool masked = (causal && it == diag) || (n0 + kBlockN > S);
 #pragma unroll
-    for (int nt = 0; nt < kBlockN / 8; ++nt) {
+      for (int nt = 0; nt < kBlockN / 8; ++nt) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) s[nt][i] = 0.f;
-#pragma unroll
-      for (int kc = 0; kc < D / 16; ++kc) {
-        const __nv_bfloat16* kp = &sK[(nt * 8 + g) * kStride + kc * 16 + 2 * t];
-        mma_bf16(s[nt], qf[kc], *reinterpret_cast<const uint32_t*>(kp),
-                 *reinterpret_cast<const uint32_t*>(kp + 8));
+        for (int i = 0; i < 4; ++i) {
+          sc[nt][i] *= scale_log2;
+          if (masked) {
+            const int col = n0 + nt * 8 + 2 * t + (i & 1);
+            const int row = row0 + (i >= 2 ? 8 : 0);
+            if (col >= S || (causal && col > row)) sc[nt][i] = -INFINITY;
+          }
+        }
       }
-    }
 
-    const bool masked = (causal && nb == m_block) || (n0 + kBlockN > S);
+      // online softmax: C fragment entries 0,1 are row row0, 2,3 row row0+8
 #pragma unroll
-    for (int nt = 0; nt < kBlockN / 8; ++nt) {
+      for (int r = 0; r < 2; ++r) {
+        float mx = m_run[r];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        s[nt][i] *= scale_log2;
-        if (masked) {
-          const int col = n0 + nt * 8 + 2 * t + (i & 1);
-          const int row = row0 + (i >= 2 ? 8 : 0);
-          if (col >= S || (causal && col > row)) s[nt][i] = -INFINITY;
+        for (int nt = 0; nt < kBlockN / 8; ++nt)
+          mx = fmaxf(mx, fmaxf(sc[nt][2 * r], sc[nt][2 * r + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        // a row with every score masked so far keeps m = -inf; subtract 0
+        // then, so that exp2 gives 0 and not NaN
+        const float m_use = mx == -INFINITY ? 0.f : mx;
+        const float alpha = exp2f(m_run[r] - m_use);
+        m_run[r] = mx;
+        float rowsum = 0.f;
+#pragma unroll
+        for (int nt = 0; nt < kBlockN / 8; ++nt) {
+          sc[nt][2 * r] = exp2f(sc[nt][2 * r] - m_use);
+          sc[nt][2 * r + 1] = exp2f(sc[nt][2 * r + 1] - m_use);
+          rowsum += sc[nt][2 * r] + sc[nt][2 * r + 1];
+        }
+        l_run[r] = l_run[r] * alpha + rowsum;
+#pragma unroll
+        for (int dt = 0; dt < D / 8; ++dt) {
+          acc[dt][2 * r] *= alpha;
+          acc[dt][2 * r + 1] *= alpha;
+        }
+      }
+
+      // acc += p v: p's C fragments become A fragments, 16 keys at a time
+#pragma unroll
+      for (int kc = 0; kc < kBlockN / 16; ++kc) {
+        uint32_t pa[4];
+        pa[0] = pack_bf16(sc[2 * kc][0], sc[2 * kc][1]);
+        pa[1] = pack_bf16(sc[2 * kc][2], sc[2 * kc][3]);
+        pa[2] = pack_bf16(sc[2 * kc + 1][0], sc[2 * kc + 1][1]);
+        pa[3] = pack_bf16(sc[2 * kc + 1][2], sc[2 * kc + 1][3]);
+        const int mi = lane >> 3;  // which of the four 8x8 matrices
+        const int key = kc * 16 + (lane & 7) + (mi & 1) * 8;
+#pragma unroll
+        for (int dp = 0; dp < D / 16; ++dp) {
+          uint32_t vf[4];
+          ldmatrix_x4_trans(vf, sV + T::offset(key, dp * 16 + (mi >> 1) * 8));
+          mma_bf16(acc[2 * dp], pa, vf[0], vf[1]);
+          mma_bf16(acc[2 * dp + 1], pa, vf[2], vf[3]);
         }
       }
     }
-
-    // online softmax: C fragment entries 0,1 are row row0, 2,3 row row0+8
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float mx = m_run[r];
-#pragma unroll
-      for (int nt = 0; nt < kBlockN / 8; ++nt)
-        mx = fmaxf(mx, fmaxf(s[nt][2 * r], s[nt][2 * r + 1]));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      // a row with every score masked so far keeps m = -inf; subtract 0
-      // then, so that exp2 gives 0 and not NaN
-      const float m_use = mx == -INFINITY ? 0.f : mx;
-      const float alpha = exp2f(m_run[r] - m_use);
-      m_run[r] = mx;
-      float rowsum = 0.f;
-#pragma unroll
-      for (int nt = 0; nt < kBlockN / 8; ++nt) {
-        s[nt][2 * r] = exp2f(s[nt][2 * r] - m_use);
-        s[nt][2 * r + 1] = exp2f(s[nt][2 * r + 1] - m_use);
-        rowsum += s[nt][2 * r] + s[nt][2 * r + 1];
-      }
-      l_run[r] = l_run[r] * alpha + rowsum;
-#pragma unroll
-      for (int dt = 0; dt < D / 8; ++dt) {
-        acc[dt][2 * r] *= alpha;
-        acc[dt][2 * r + 1] *= alpha;
-      }
-    }
-
-    // acc += p v: p's C fragments become A fragments, 16 keys at a time.
-#pragma unroll
-    for (int kc = 0; kc < kBlockN / 16; ++kc) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * kc][0], s[2 * kc][1]);
-      pa[1] = pack_bf16(s[2 * kc][2], s[2 * kc][3]);
-      pa[2] = pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]);
-      pa[3] = pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3]);
-      const int mi = lane >> 3;  // which of the four 8x8 matrices
-      const int key = kc * 16 + (lane & 7) + (mi & 1) * 8;
-#pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
-        uint32_t vf[4];
-        ldmatrix_x4_trans(vf, &sV[key * kStride + dp * 16 + (mi >> 1) * 8]);
-        mma_bf16(acc[2 * dp], pa, vf[0], vf[1]);
-        mma_bf16(acc[2 * dp + 1], pa, vf[2], vf[3]);
-      }
-    }
+    sm90::mbar_arrive(&empty[s]);
   }
 
   // finish: sum the row shares across the 4 threads of a row, normalise
+  __nv_bfloat16* ob = o + b * o_sb + h * o_sh;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     float l = l_run[r];
@@ -225,44 +281,107 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <int D>
-void launch(const void* q, const void* k, const void* v, void* o, float* lse,
-            int B, int H, int S, const int64_t* st, float scale_log2,
-            int causal, cudaStream_t stream) {
-  const dim3 grid((S + kBlockM - 1) / kBlockM, H, B);
-  flash_fwd_kernel<D><<<grid, kThreads, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      lse, H, S, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
-      st[8], st[9], st[10], st[11], scale_log2, causal);
+// q, k, v tensor maps: boxes of one 64-row tile (Tile<D, 64>).
+int encode_maps(CUtensorMap (&maps)[3], const void* q, const void* k,
+                const void* v, int B, int H, int S, int D,
+                const int64_t* st) {
+  const void* ptrs[3] = {q, k, v};
+  for (int i = 0; i < 3; ++i) {
+    const int rc = sm90::encode_tile_map(&maps[i], ptrs[i], B, H, S, D,
+                                         st[3 * i], st[3 * i + 1],
+                                         st[3 * i + 2], kBlockN);
+    if (rc) return rc;
+  }
+  return 0;
+}
+
+template <int D, int kBlockM, int kStages>
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int H, int S, const int64_t* st, float scale_log2,
+           int causal, cudaStream_t stream) {
+  CUtensorMap maps[3];
+  int rc = encode_maps(maps, q, k, v, B, H, S, D, st);
+  if (rc) return rc;
+  auto kernel = flash_fwd_kernel<D, kBlockM, kStages>;
+  constexpr int kSmem = Smem<D, kBlockM, kStages>::kBytes;
+  static bool sized[64] = {};  // per device: the attribute is set once
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+  if (!sized[dev]) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    sized[dev] = true;
+  }
+  const dim3 grid(H, B, (S + kBlockM - 1) / kBlockM);
+  kernel<<<grid, 128 * (1 + kBlockM / 64), kSmem, stream>>>(
+      maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(o), lse, H, S,
+      st[9], st[10], st[11], scale_log2, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D, int kStages>
+int launch_rows(int block_m, const void* q, const void* k, const void* v,
+                void* o, float* lse, int B, int H, int S, const int64_t* st,
+                float scale_log2, int causal, cudaStream_t stream) {
+  if (block_m == 64)
+    return launch<D, 64, kStages>(q, k, v, o, lse, B, H, S, st, scale_log2,
+                                  causal, stream);
+  if (block_m == 128)
+    return launch<D, 128, kStages>(q, k, v, o, lse, B, H, S, st, scale_log2,
+                                   causal, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// q, k, v, o: bf16 with unit stride along D, 16-byte aligned rows; strides
-// in elements, (batch, seq, head) for q, k, v, o in that order (12 values).
-// lse: f32 (B, H, S), contiguous.  scale_log2 = sm_scale * log2(e).
-// Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for a
-// head dim other than 32, 64 or 128).
+// q, k, v, o: bf16 with unit stride along D, 16-byte aligned base and
+// rows; strides in elements, (batch, seq, head) for q, k, v, o in that
+// order (12 values).  lse: f32 (B, H, S), contiguous.  scale_log2 =
+// sm_scale * log2(e).  The plan (ops/flash_attention.py _fwd_plan): q rows
+// a block holds (64 or 128), ring depth (3 at D = 32 and 64, 2 at 128) and
+// swizzle bytes (64 at D = 32, else 128).  Returns cudaGetLastError()
+// after the launch, cudaErrorInvalidValue for a head dim or plan the
+// kernel is not built for, or sm90::kEncodeError + the CUresult of a
+// refused tensor map.
 extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v,
                               void* o, void* lse, int B, int H, int S, int D,
                               const int64_t* strides, float scale_log2,
-                              int causal, void* stream) {
+                              int causal, int block_m, int stages,
+                              int swizzle, void* stream) {
   float* l = static_cast<float*>(lse);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int want_stages = D == 128 ? 2 : 3;
+  const int want_swizzle = D == 32 ? 64 : 128;
+  if (stages != want_stages || swizzle != want_swizzle)
+    return static_cast<int>(cudaErrorInvalidValue);
   switch (D) {
     case 32:
-      launch<32>(q, k, v, o, l, B, H, S, strides, scale_log2, causal, st);
-      break;
+      return launch_rows<32, 3>(block_m, q, k, v, o, l, B, H, S, strides,
+                                scale_log2, causal, st);
     case 64:
-      launch<64>(q, k, v, o, l, B, H, S, strides, scale_log2, causal, st);
-      break;
+      return launch_rows<64, 3>(block_m, q, k, v, o, l, B, H, S, strides,
+                                scale_log2, causal, st);
     case 128:
-      launch<128>(q, k, v, o, l, B, H, S, strides, scale_log2, causal, st);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+      return launch_rows<128, 2>(block_m, q, k, v, o, l, B, H, S, strides,
+                                 scale_log2, causal, st);
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Mean host microseconds of encoding one launch's three tensor maps, over
+// `iters` encodes of the maps of these arguments; negative on a refused map.
+extern "C" double flash_fwd_encode_us(const void* q, const void* k,
+                                      const void* v, int B, int H, int S,
+                                      int D, const int64_t* strides,
+                                      int iters) {
+  CUtensorMap maps[3];
+  if (encode_maps(maps, q, k, v, B, H, S, D, strides)) return -1.0;
+  const auto t0 = std::chrono::steady_clock::now();
+  for (int i = 0; i < iters; ++i)
+    encode_maps(maps, q, k, v, B, H, S, D, strides);
+  const std::chrono::duration<double, std::micro> dt =
+      std::chrono::steady_clock::now() - t0;
+  return dt.count() / iters;
 }

@@ -37,6 +37,7 @@ JAX package computes it in XLA outside its kernels.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
@@ -114,7 +115,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # library -> C entry point -> argument types (all return a CUDA error code)
 _SIGNATURES = {
     "flash_fwd": {
-        "flash_fwd_bf16": [_P] * 5 + [_I] * 4 + [_P, _F, _I, _P]},
+        "flash_fwd_bf16": [_P] * 5 + [_I] * 4 + [_P, _F] + [_I] * 4 + [_P]},
     "flash_bwd": {
         "flash_bwd_dq_bf16": [_P] * 7 + [_I] * 4 + [_P, _F, _F, _I, _P],
         "flash_bwd_dkv_bf16": [_P] * 8 + [_I] * 4 + [_P, _F, _F, _I, _P]},
@@ -196,14 +197,54 @@ def _strides(dims, *xs):
         *(x.stride(d) for x in xs for d in dims))
 
 
+#: a C entry point's code for a tensor map that the driver refused: this
+#: plus the CUresult (ray_tpu_torch/csrc/sm90.cuh kEncodeError)
+ENCODE_ERROR = 1 << 16
+
+
 def _launch(lib, fn, device, *args):
     """Call a C entry point on the current stream of ``device``; raise on
-    the CUDA error it returns (a refused launch never runs)."""
+    the error it returns (a refused launch never runs)."""
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = getattr(_kernel(lib), fn)(*args, stream)
+    if rc >= ENCODE_ERROR:
+        raise RuntimeError(f"{fn}: tensor map refused: CUresult "
+                           f"{rc - ENCODE_ERROR}")
     if rc != 0:
         raise RuntimeError(f"{fn} launch failed: CUDA error {rc}")
+
+
+#: the H100 SXM's streaming multiprocessors, the default of ``_fwd_plan``
+H100_SMS = 132
+#: shared memory a block may use on Hopper (227 KB)
+SMEM_PER_BLOCK = 232448
+
+FwdPlan = collections.namedtuple(
+    "FwdPlan", "block_m stages swizzle q_blocks smem_bytes")
+
+
+def _fwd_plan(B, H, S, D, sms=H100_SMS):
+    """The forward kernel's plan for (B, H, S, D): q rows a block holds
+    (one consumer warpgroup of 64, or two), k/v ring depth, swizzle bytes
+    of a tile row, q blocks along S and dynamic shared memory, as
+    ``csrc/flash_fwd.cu`` lays it out (q tiles, k and v rings of 64-row
+    tiles, 8-byte barriers, 1024 bytes of alignment slack).
+
+    Two warpgroups (128 rows) only where B·H·⌈S/128⌉ still gives every SM
+    a block; else 64 rows, so that more, shorter blocks fill the card.
+    Three slots in the ring, two at D = 128 (a 64-row block then keeps to
+    half an SM's shared memory).  The swizzle is 128 bytes (64 columns of
+    D a box row), 64 at D = 32, whose rows are 64 bytes."""
+    block_m = 128 if B * H * -(-S // 128) >= sms else 64
+    stages = 2 if D == 128 else 3
+    swizzle = 64 if D == 32 else 128
+    smem = (block_m + 2 * stages * 64) * D * 2 + 8 * (1 + 2 * stages) + 1024
+    return FwdPlan(block_m, stages, swizzle, -(-S // block_m), smem)
+
+
+def _sm_count(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _kernel_forward(q, k, v, causal, scale, layout):
@@ -213,12 +254,14 @@ def _kernel_forward(q, k, v, causal, scale, layout):
     _check_kernel_inputs(q, k, v)
     q, k, v = (_kernel_ready(x) for x in (q, k, v))
     B, H, S, D, dims = _geometry(q, layout)
+    plan = _fwd_plan(B, H, S, D, _sm_count(q.device))
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     _launch("flash_fwd", "flash_fwd_bf16", q.device,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), B, H, S, D, _strides(dims, q, k, v, o),
-            scale * _LOG2E, int(bool(causal)))
+            scale * _LOG2E, int(bool(causal)), plan.block_m, plan.stages,
+            plan.swizzle)
     KERNEL_LAUNCHES += 1
     return o, lse
 

@@ -7,6 +7,7 @@ machine with one (no JAX needed, hence ``--noconftest``):
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
 """
 
+import ctypes
 import math
 from dataclasses import replace
 
@@ -46,12 +47,22 @@ def _plain(q, k, v, causal, layout):
     return tr(o), lse, tr(tol)
 
 
+@pytest.fixture(params=[64, 128], ids=["rows64", "rows128"])
+def plan_rows(request, monkeypatch):
+    """Force the forward's plan: 64-row blocks (a card of many SMs) or
+    128-row blocks, two consumer warpgroups (a card of one SM)."""
+    sms = 10 ** 9 if request.param == 64 else 1
+    monkeypatch.setattr(fa, "_sm_count", lambda device: sms)
+    return request.param
+
+
 @pytest.mark.parametrize("layout", ["bshd", "bhsd"])
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
 @pytest.mark.parametrize("D", [32, 64, 128])
-@pytest.mark.parametrize("S", [1, 63, 65, 200])
-def test_kernel_matches_plain(cuda, S, D, causal, layout):
+@pytest.mark.parametrize("S", [1, 63, 65, 200, 1000])
+def test_kernel_matches_plain(cuda, plan_rows, S, D, causal, layout):
     B, H = 2, 3
+    assert fa._fwd_plan(B, H, S, D, fa._sm_count(None)).block_m == plan_rows
     shape = (B, S, H, D) if layout == "bshd" else (B, H, S, D)
     q, k, v = (torch.randn(shape, generator=cuda, device="cuda",
                            dtype=torch.bfloat16) for _ in range(3))
@@ -77,6 +88,40 @@ def test_strided_and_misaligned_inputs(cuda):
     ref = fa.flash_attention_bshd(q.contiguous(), k.contiguous(),
                                   v.contiguous(), True)
     torch.testing.assert_close(o, ref, atol=0, rtol=0)
+
+
+def test_zero_stride_inputs(cuda, plan_rows):
+    """k and v broadcast along the batch (stride 0), as an expand gives
+    them, give what their contiguous copies give, bit for bit."""
+    q = torch.randn((3, 130, 4, 64), generator=cuda, device="cuda",
+                    dtype=torch.bfloat16)
+    k, v = (torch.randn((1, 130, 4, 64), generator=cuda, device="cuda",
+                        dtype=torch.bfloat16).expand(3, 130, 4, 64)
+            for _ in range(2))
+    assert k.stride(0) == 0
+    for causal in (False, True):
+        o, (*_, lse) = fa._flash_fwd_bshd(q, k, v, causal, None, None, None)
+        o2, (*_, lse2) = fa._flash_fwd_bshd(q, k.contiguous(), v.contiguous(),
+                                            causal, None, None, None)
+        assert torch.equal(o, o2) and torch.equal(lse, lse2)
+
+
+def test_refused_launch_and_tensor_map_raise(cuda):
+    """A launch the card refuses (a grid of 65536 batches in y) and a
+    tensor map the driver refuses (rows 8 bytes apart; TMA needs multiples
+    of 16) each reach RuntimeError; nothing runs in their place."""
+    x = torch.zeros((65536, 1, 1, 32), device="cuda", dtype=torch.bfloat16)
+    before = fa.KERNEL_LAUNCHES
+    with pytest.raises(RuntimeError, match="launch failed: CUDA error"):
+        fa._flash_fwd_bshd(x, x, x, False, None, None, None)
+    assert fa.KERNEL_LAUNCHES == before
+    q = torch.zeros((1, 8, 1, 32), device="cuda", dtype=torch.bfloat16)
+    lse = torch.empty((1, 1, 8), device="cuda")
+    strides = (ctypes.c_int64 * 12)(*[256, 4, 32] * 4)
+    with pytest.raises(RuntimeError, match="tensor map refused"):
+        fa._launch("flash_fwd", "flash_fwd_bf16", q.device, q.data_ptr(),
+                   q.data_ptr(), q.data_ptr(), q.data_ptr(), lse.data_ptr(),
+                   1, 1, 8, 32, strides, 1.0, 0, 64, 3, 64)
 
 
 def test_unsupported_inputs_raise(cuda):

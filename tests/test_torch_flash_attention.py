@@ -199,3 +199,46 @@ def test_backward_cuda_request_raises_without_cuda():
     with pytest.raises((RuntimeError, AssertionError)):
         tfa._flash_bwd_bshd(True, None, None, None,
                             tuple(x.to("cuda") for x in res), o.to("cuda"))
+
+
+# (B, H, S) of every forward that chip_smoke.py's kernel phases and the
+# model run (serving B=1 at prompts 16, 64, 127, 500 and 1000 plus up to 7
+# new tokens; training at B=16 and the gradient check at B=4, S=1024) and
+# of tests/test_torch_cuda.py
+PLAN_SHAPES = sorted(
+    {(B, 12, S) for B in (1, 4) for S in (128, 1000, 1024)}
+    | {(1, 32, 2048), (2, 4, 100), (16, 12, 1024), (1, 12, 1000),
+       (1, 4, 100)}
+    | {(1, 12, S) for L in (16, 64, 127, 500, 1000) for S in (L, L + 7)}
+    | {(2, 3, S) for S in (1, 63, 65, 200, 1000)}
+    | {(65536, 1, 1)})
+
+
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("B,H,S", PLAN_SHAPES)
+def test_fwd_plan(B, H, S, D):
+    """The forward kernel's plan: shared memory within Hopper's 227 KB a
+    block; two warpgroups (128 q rows) only where B·H·⌈S/128⌉ blocks still
+    give each of the H100's 132 SMs one; q blocks that cover S and no
+    more; the swizzle that keeps a box row within 128 bytes."""
+    plan = tfa._fwd_plan(B, H, S, D)
+    assert plan.smem_bytes <= tfa.SMEM_PER_BLOCK == 227 * 1024
+    assert plan.block_m == (128 if B * H * -(-S // 128) >= 132 else 64)
+    assert (plan.q_blocks - 1) * plan.block_m < S <= \
+        plan.q_blocks * plan.block_m
+    assert plan.stages in (2, 3)
+    assert plan.swizzle == min(D * 2, 128)
+    q_tiles = plan.block_m * D * 2
+    ring = 2 * plan.stages * 64 * D * 2
+    assert plan.smem_bytes == q_tiles + ring + 8 * (1 + 2 * plan.stages) + 1024
+
+
+def test_fwd_plan_at_the_served_and_training_shapes():
+    """Serving (B=1) gets 96 blocks of 128 rows on 132 SMs, so it takes
+    64-row blocks (192); training (B=16) takes 128 rows (1536 blocks)."""
+    served = tfa._fwd_plan(1, 12, 1024, 64)
+    assert (served.block_m, served.q_blocks) == (64, 16)
+    train = tfa._fwd_plan(16, 12, 1024, 64)
+    assert (train.block_m, train.q_blocks) == (128, 8)
+    # a card with fewer SMs fills sooner
+    assert tfa._fwd_plan(1, 12, 1024, 64, sms=96).block_m == 128
