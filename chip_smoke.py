@@ -7,13 +7,22 @@ Phases; any failure exits non-zero:
 
 1. build — compile every kernel of ``ray_tpu_torch/csrc`` with nvcc (one
    process per source, all at once); print the build seconds, the ptxas
-   register/spill lines, and the card's name and power limit;
+   register/spill lines (a 128-row forward instantiation must have 168
+   registers, the budget its setmaxnreg split redistributes), the counts
+   of TMA loads (UTMALDG), wgmma (HGMMA) and mbarrier operations (SYNCS)
+   in the SASS of each forward instantiation (``cuobjdump``), and the
+   card's name and power limit;
+1b. sm90 — the Hopper primitives of ``csrc/sm90.cuh`` against torch
+   (``csrc/sm90_check.cu``), at D = 32, 64 and 128: a TMA tile load of a
+   strided bshd view with rows past S, an SS and an RS wgmma; exact;
 2. kernels — the flash-attention forward kernel against its plain version
    (``_reference_attention``) on the card in bf16, both layouts, causal on
    and off, at GPT-2 small shapes (B in {1, 4}, H=12, D=64, S in {128,
-   1000, 1024}), at D=128 (H=32, S=2048) and at D=32; max abs errors
-   beside their tolerances, kernel / plain / library times (CUDA events
-   after warm-up) and the kernel's bound;
+   1000, 1024}), at D=128 (H=32, S=2048), at D=32, and at the training
+   shape (B=16, S=1024, bshd); max abs errors beside their tolerances,
+   each case's plan (q rows a block, ring slots), kernel / plain /
+   library times (CUDA events after warm-up) and the kernel's bound; the
+   host time of a launch's tensor-map encodes;
 2b. backward kernels — the dq and dk/dv kernels against the plain
    backward (``_reference_attention_bwd``) on the same (o, lse, do), in
    bf16, both layouts, causal on and off, at the training shape (B=16,
@@ -256,6 +265,7 @@ def phase_build():
     print(f"[build] {len(libs)} kernel libraries in "
           f"{time.perf_counter() - t0:.2f} s: "
           + ", ".join(sorted(libs)), flush=True)
+    regs = {}
     for name, log in sorted(build.BUILD_LOG.items()):
         entry = name
         for line in log.splitlines():
@@ -264,6 +274,15 @@ def phase_build():
                 entry = kernel_name(m.group(1))
             elif "registers" in line or "spill" in line:
                 print(f"[build] {entry}: {line.split(':', 1)[-1].strip()}")
+                n = re.search(r"Used (\d+) registers", line)
+                if n:
+                    regs[entry] = int(n.group(1))
+    # a 128-row forward block (384 threads) must be built at 168 registers
+    # a thread, the budget its setmaxnreg split (24 + 2 x 240) redistributes
+    short = {k: n for k, n in regs.items()
+             if re.match(r"flash_fwd_kernel<\d+,128,", k) and n != 168}
+    if short:
+        fail(f"128-row forward kernels not built at 168 registers: {short}")
     for kernel, ops in sorted(sass_counts(libs["flash_fwd"]).items()):
         print(f"[build] SASS {kernel}: "
               + ", ".join(f"{op} {n}" for op, n in ops.items()), flush=True)

@@ -24,16 +24,24 @@
 // heads' longest causal tiles first.  Warpgroup 0 is the producer: one
 // thread issues TMA loads of the q tile once and of k and v tiles into a
 // ring of kStages slots, each with a `full` mbarrier (transaction bytes)
-// and an `empty` one (every consumer thread arrives when done).  The other
+// and an `empty` one (every consumer thread arrives when done), so the
+// next tiles' loads are in flight while the tensor cores work.  The other
 // one or two warpgroups are consumers of 64 q rows each.  Tiles land
 // swizzled (128-byte rows; 64-byte at D = 32; sm90.cuh); rows past S land
 // as zeros, and are never written.  A causal block stops at its diagonal
-// tile; only the diagonal and ragged tiles are masked.
+// tile; only the diagonal and ragged tiles are masked.  With two
+// consumers, setmaxnreg moves registers from the producer (24) to them
+// (240): the s tile and the o accumulator are 32 + D / 2 f32 registers a
+// thread.  _fwd_plan (ops/flash_attention.py) picks the rows, the ring
+// depth and the swizzle.
 //
-// Consumers: mma.sync.m16n8k16 (bf16 in, f32 accumulate), each warp 16 q
-// rows, operands by ldmatrix at swizzled addresses; the online softmax
-// (running max, running sum, rescaled accumulator) in f32 registers, in
-// base 2 (scores scaled by sm_scale * log2(e) in f32, exp2f).
+// Consumers, per k/v tile: s = q k^T by wgmma m64n64k16 with both
+// operands K-major in shared memory (SS); the online softmax (running max,
+// running sum, rescaled accumulator) in f32 registers, in base 2 (scores
+// scaled by sm_scale * log2(e) in f32, exp2f); p packed to bf16 in place:
+// the accumulator layout of s is the register A layout of the next
+// product; o += p v by wgmma m64nDk16 with p in registers and v MN-major
+// in shared memory (RS, transposed B).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (ray_tpu_torch/native/build.py).
@@ -52,16 +60,6 @@ namespace {
 
 constexpr int kBlockN = 64;  // k/v rows per tile = q rows per consumer
 constexpr float kLn2 = 0.6931471805599453f;
-
-// Four 8x8 b16 matrices; lanes 8i..8i+7 give the row addresses of matrix
-// i, and register i receives matrix i.
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
-                                            const void* smem) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(sm90::smem_u32(smem)));
-}
 
 // Dynamic shared memory, from a 1024-aligned base: the q tiles, the k and v
 // rings, then the barriers (q_full, full[kStages], empty[kStages]).
@@ -112,6 +110,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
   __syncthreads();
 
   if (threadIdx.x < 128) {  // producer warpgroup
+    if constexpr (kConsumers == 2) sm90::setmaxnreg_dec<24>();
     if (threadIdx.x == 0) {
       sm90::mbar_arrive_expect_tx(q_full, kConsumers * T::kBytes);
       for (int c = 0; c < kConsumers; ++c)
@@ -137,10 +136,11 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
   }
 
   // consumer warpgroup wg: q rows q_first .. q_first + 63
+  if constexpr (kConsumers == 2) sm90::setmaxnreg_inc<240>();
   const int wg = threadIdx.x / 128 - 1;
   const int warp = (threadIdx.x / 32) % 4;
   const int lane = threadIdx.x % 32;
-  const int g = lane >> 2;  // fragment row group
+  const int g = lane >> 2;  // accumulator row group
   const int t = lane & 3;   // thread in the group
   const int q_first = m0 + 64 * wg;
   const int row0 = q_first + warp * 16 + g;  // rows row0, row0 + 8
@@ -148,21 +148,12 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
   const int wg_end = causal ? min(n_tiles, diag + 1) : n_tiles;
   const uint8_t* sQ = smem + L::kQ + wg * T::kBytes;
 
-  sm90::mbar_wait(q_full, 0);
-  uint32_t qf[D / 16][4];  // this warp's q rows as A fragments
+  float acc[D / 2];  // o, 64 x D in the wgmma accumulator layout
 #pragma unroll
-  for (int kc = 0; kc < D / 16; ++kc)
-    ldmatrix_x4(qf[kc], sQ + T::offset(warp * 16 + ((lane >> 3) & 1) * 8 +
-                                           (lane & 7),
-                                       kc * 16 + (lane >> 4) * 8));
-
-  float acc[D / 8][4];
-#pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[dt][i] = 0.f;
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
   float m_run[2] = {-INFINITY, -INFINITY};  // running max, base-2 units
   float l_run[2] = {0.f, 0.f};  // this thread's share of the row sums
+  sm90::mbar_wait(q_full, 0);
 
   for (int it = 0; it < n_end; ++it) {
     const int s = it % kStages;
@@ -172,47 +163,39 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
       const uint8_t* sV = smem + L::kV + s * T::kBytes;
       const int n0 = it * kBlockN;
 
-      // s = q k^T: 16 rows x 64 keys per warp, as 8 C fragments; one
-      // ldmatrix gives the B fragments of two 8-key tiles
-      float sc[kBlockN / 8][4];
+      // s = q k^T, 64 rows x 64 keys: SS wgmma, q and k K-major
+      float sc[kBlockN / 2];
 #pragma unroll
-      for (int nt = 0; nt < kBlockN / 8; ++nt)
+      for (int i = 0; i < kBlockN / 2; ++i) sc[i] = 0.f;
+      sm90::fence_regs(sc);
+      sm90::wgmma_fence();
 #pragma unroll
-        for (int i = 0; i < 4; ++i) sc[nt][i] = 0.f;
-#pragma unroll
-      for (int np = 0; np < kBlockN / 16; ++np) {
-#pragma unroll
-        for (int kc = 0; kc < D / 16; ++kc) {
-          uint32_t kf[4];
-          ldmatrix_x4(kf, sK + T::offset(np * 16 + (lane >> 4) * 8 +
-                                             (lane & 7),
-                                         kc * 16 + ((lane >> 3) & 1) * 8));
-          mma_bf16(sc[2 * np], qf[kc], kf[0], kf[1]);
-          mma_bf16(sc[2 * np + 1], qf[kc], kf[2], kf[3]);
-        }
-      }
+      for (int kk = 0; kk < D / 16; ++kk)
+        sm90::wgmma_ss_m64n64k16(sc, T::desc_k_major(sQ, kk),
+                                 T::desc_k_major(sK, kk), 1);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(sc);
 
+      // sc[4j + i]: row row0 (i < 2) or row0 + 8, key n0 + 8j + 2t + i % 2
       const bool masked = (causal && it == diag) || (n0 + kBlockN > S);
 #pragma unroll
-      for (int nt = 0; nt < kBlockN / 8; ++nt) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          sc[nt][i] *= scale_log2;
-          if (masked) {
-            const int col = n0 + nt * 8 + 2 * t + (i & 1);
-            const int row = row0 + (i >= 2 ? 8 : 0);
-            if (col >= S || (causal && col > row)) sc[nt][i] = -INFINITY;
-          }
+      for (int i = 0; i < kBlockN / 2; ++i) {
+        sc[i] *= scale_log2;
+        if (masked) {
+          const int col = n0 + (i / 4) * 8 + 2 * t + (i & 1);
+          const int row = row0 + ((i & 2) ? 8 : 0);
+          if (col >= S || (causal && col > row)) sc[i] = -INFINITY;
         }
       }
 
-      // online softmax: C fragment entries 0,1 are row row0, 2,3 row row0+8
+      // online softmax, one row r of the two at a time
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         float mx = m_run[r];
 #pragma unroll
-        for (int nt = 0; nt < kBlockN / 8; ++nt)
-          mx = fmaxf(mx, fmaxf(sc[nt][2 * r], sc[nt][2 * r + 1]));
+        for (int j = 0; j < kBlockN / 8; ++j)
+          mx = fmaxf(mx, fmaxf(sc[4 * j + 2 * r], sc[4 * j + 2 * r + 1]));
         mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
         mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
         // a row with every score masked so far keeps m = -inf; subtract 0
@@ -222,37 +205,38 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
         m_run[r] = mx;
         float rowsum = 0.f;
 #pragma unroll
-        for (int nt = 0; nt < kBlockN / 8; ++nt) {
-          sc[nt][2 * r] = exp2f(sc[nt][2 * r] - m_use);
-          sc[nt][2 * r + 1] = exp2f(sc[nt][2 * r + 1] - m_use);
-          rowsum += sc[nt][2 * r] + sc[nt][2 * r + 1];
+        for (int j = 0; j < kBlockN / 8; ++j) {
+          float* p = &sc[4 * j + 2 * r];
+          p[0] = exp2f(p[0] - m_use);
+          p[1] = exp2f(p[1] - m_use);
+          rowsum += p[0] + p[1];
         }
         l_run[r] = l_run[r] * alpha + rowsum;
 #pragma unroll
-        for (int dt = 0; dt < D / 8; ++dt) {
-          acc[dt][2 * r] *= alpha;
-          acc[dt][2 * r + 1] *= alpha;
+        for (int j = 0; j < D / 8; ++j) {
+          acc[4 * j + 2 * r] *= alpha;
+          acc[4 * j + 2 * r + 1] *= alpha;
         }
       }
 
-      // acc += p v: p's C fragments become A fragments, 16 keys at a time
+      // o += p v: p packed to bf16 in place of its accumulator is the A
+      // operand (16 keys per k16 step); v MN-major, by RS wgmma
+      uint32_t pa[kBlockN / 16][4];
 #pragma unroll
-      for (int kc = 0; kc < kBlockN / 16; ++kc) {
-        uint32_t pa[4];
-        pa[0] = pack_bf16(sc[2 * kc][0], sc[2 * kc][1]);
-        pa[1] = pack_bf16(sc[2 * kc][2], sc[2 * kc][3]);
-        pa[2] = pack_bf16(sc[2 * kc + 1][0], sc[2 * kc + 1][1]);
-        pa[3] = pack_bf16(sc[2 * kc + 1][2], sc[2 * kc + 1][3]);
-        const int mi = lane >> 3;  // which of the four 8x8 matrices
-        const int key = kc * 16 + (lane & 7) + (mi & 1) * 8;
+      for (int kc = 0; kc < kBlockN / 16; ++kc)
 #pragma unroll
-        for (int dp = 0; dp < D / 16; ++dp) {
-          uint32_t vf[4];
-          ldmatrix_x4_trans(vf, sV + T::offset(key, dp * 16 + (mi >> 1) * 8));
-          mma_bf16(acc[2 * dp], pa, vf[0], vf[1]);
-          mma_bf16(acc[2 * dp + 1], pa, vf[2], vf[3]);
-        }
-      }
+        for (int i = 0; i < 4; ++i)
+          pa[kc][i] = pack_bf16(sc[8 * kc + 2 * i], sc[8 * kc + 2 * i + 1]);
+      sm90::fence_regs(acc);
+#pragma unroll
+      for (int kc = 0; kc < kBlockN / 16; ++kc) sm90::fence_regs(pa[kc]);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < kBlockN / 16; ++kc)
+        sm90::wgmma_rs_k16_tb(acc, pa[kc], T::desc_mn_major(sV, kc), 1);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(acc);
     }
     sm90::mbar_arrive(&empty[s]);
   }
@@ -271,7 +255,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
       for (int dt = 0; dt < D / 8; ++dt) {
         *reinterpret_cast<uint32_t*>(ob + row * o_ss + dt * 8 + 2 * t) =
-            pack_bf16(acc[dt][2 * r] * inv, acc[dt][2 * r + 1] * inv);
+            pack_bf16(acc[4 * dt + 2 * r] * inv, acc[4 * dt + 2 * r + 1] * inv);
       }
       if (t == 0) {
         lse[(static_cast<int64_t>(b) * H + h) * S + row] =

@@ -1,6 +1,6 @@
-// Warp-level tensor-core helpers shared by the flash-attention kernels
-// (flash_fwd.cu, flash_bwd.cu).  mma.sync and ldmatrix exist from sm_80 on;
-// the kernels are built for sm_90a.
+// Warp-level tensor-core helpers of the flash-attention backward kernels
+// (flash_bwd.cu; flash_fwd.cu uses pack_bf16).  mma.sync and ldmatrix
+// exist from sm_80 on; the kernels are built for sm_90a.
 //
 // Fragment layout of mma.sync.m16n8k16 (g = lane / 4, t = lane % 4):
 //   A (16 x 16, row-major)  a[0]: row g,   cols 2t, 2t+1
