@@ -34,6 +34,12 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
+// The first 1024-aligned byte of dynamic shared memory (allocate 1024
+// more): swizzled tiles start on the swizzle pattern's repeat.
+__device__ __forceinline__ uint8_t* align_1024(uint8_t* p) {
+  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
+}
+
 // Byte offset of linear byte `off` of a box with kSwizzle-byte rows.
 template <int kSwizzle>
 __host__ __device__ constexpr uint32_t swizzle(uint32_t off) {
@@ -321,7 +327,7 @@ __device__ __forceinline__ void wgmma_rs_k16_tb(float (&d)[64],
 // ---------------------------------------------------------------------------
 
 // A failed encode returns kEncodeError + its CUresult (+ 0xffff where the
-// driver has no encoder), apart from the CUDA runtime's error codes.
+// encoder is not found), apart from the CUDA runtime's error codes.
 constexpr int kEncodeError = 1 << 16;
 
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,

@@ -27,10 +27,6 @@ namespace {
 
 using sm90::Tile;
 
-__device__ uint8_t* aligned_smem(uint8_t* raw) {
-  return raw + ((1024 - (sm90::smem_u32(raw) & 1023)) & 1023);
-}
-
 // Thread 0 loads `n` tiles of Tile<D, 64> (tile i from map i at rows row0,
 // head h, batch b) into smem one after the other; every thread waits.
 template <int D>
@@ -58,7 +54,7 @@ __global__ void check_tma_kernel(const __grid_constant__ CUtensorMap map,
                                  __nv_bfloat16* out, int row0, int h, int b) {
   using T = Tile<D, 64>;
   extern __shared__ uint8_t smem_raw[];
-  uint8_t* smem = aligned_smem(smem_raw);
+  uint8_t* smem = sm90::align_1024(smem_raw);
   __shared__ uint64_t bar;
   const CUtensorMap* maps[1] = {&map};
   load_tiles<D>(smem, &bar, maps, 1, row0, h, b);
@@ -76,7 +72,7 @@ __global__ void check_ss_kernel(const __grid_constant__ CUtensorMap ma,
                                 float* out) {
   using T = Tile<D, 64>;
   extern __shared__ uint8_t smem_raw[];
-  uint8_t* smem = aligned_smem(smem_raw);
+  uint8_t* smem = sm90::align_1024(smem_raw);
   __shared__ uint64_t bar;
   const CUtensorMap* maps[2] = {&ma, &mb};
   load_tiles<D>(smem, &bar, maps, 2, 0, 0, 0);
@@ -110,7 +106,7 @@ __global__ void check_rs_kernel(const __nv_bfloat16* __restrict__ p,
                                 float* out) {
   using T = Tile<D, 64>;
   extern __shared__ uint8_t smem_raw[];
-  uint8_t* smem = aligned_smem(smem_raw);
+  uint8_t* smem = sm90::align_1024(smem_raw);
   __shared__ uint64_t bar;
   const CUtensorMap* maps[1] = {&mv};
   load_tiles<D>(smem, &bar, maps, 1, 0, 0, 0);

@@ -197,8 +197,8 @@ def _strides(dims, *xs):
         *(x.stride(d) for x in xs for d in dims))
 
 
-#: a C entry point's code for a tensor map that the driver refused: this
-#: plus the CUresult (ray_tpu_torch/csrc/sm90.cuh kEncodeError)
+#: a C entry point's code for a tensor map that cuTensorMapEncodeTiled
+#: refused: this plus the CUresult (csrc/sm90.cuh kEncodeError)
 ENCODE_ERROR = 1 << 16
 
 
@@ -233,11 +233,12 @@ def _fwd_plan(B, H, S, D, sms=H100_SMS):
 
     Two warpgroups (128 rows) only where B·H·⌈S/128⌉ still gives every SM
     a block; else 64 rows, so that more, shorter blocks fill the card.
-    Three slots in the ring, two at D = 128 (a 64-row block then keeps to
-    half an SM's shared memory).  The swizzle is 128 bytes (64 columns of
-    D a box row), 64 at D = 32, whose rows are 64 bytes."""
+    Three slots in the ring: a consumer holds two (the tile whose p·v is
+    in flight and the next), the third keeps a load in flight.  The
+    swizzle is 128 bytes (64 columns of D a box row), 64 at D = 32, whose
+    rows are 64 bytes."""
     block_m = 128 if B * H * -(-S // 128) >= sms else 64
-    stages = 2 if D == 128 else 3
+    stages = 3
     swizzle = 64 if D == 32 else 128
     smem = (block_m + 2 * stages * 64) * D * 2 + 8 * (1 + 2 * stages) + 1024
     return FwdPlan(block_m, stages, swizzle, -(-S // block_m), smem)

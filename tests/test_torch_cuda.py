@@ -108,7 +108,7 @@ def test_zero_stride_inputs(cuda, plan_rows):
 
 def test_refused_launch_and_tensor_map_raise(cuda):
     """A launch the card refuses (a grid of 65536 batches in y) and a
-    tensor map the driver refuses (rows 8 bytes apart; TMA needs multiples
+    tensor map the encoder refuses (rows 8 bytes apart; TMA needs multiples
     of 16) each reach RuntimeError; nothing runs in their place."""
     x = torch.zeros((65536, 1, 1, 32), device="cuda", dtype=torch.bfloat16)
     before = fa.KERNEL_LAUNCHES

@@ -226,7 +226,7 @@ def test_fwd_plan(B, H, S, D):
     assert plan.block_m == (128 if B * H * -(-S // 128) >= 132 else 64)
     assert (plan.q_blocks - 1) * plan.block_m < S <= \
         plan.q_blocks * plan.block_m
-    assert plan.stages in (2, 3)
+    assert plan.stages == 3
     assert plan.swizzle == min(D * 2, 128)
     q_tiles = plan.block_m * D * 2
     ring = 2 * plan.stages * 64 * D * 2
@@ -242,3 +242,17 @@ def test_fwd_plan_at_the_served_and_training_shapes():
     assert (train.block_m, train.q_blocks) == (128, 8)
     # a card with fewer SMs fills sooner
     assert tfa._fwd_plan(1, 12, 1024, 64, sms=96).block_m == 128
+
+
+@pytest.mark.parametrize("name", ["base", "thread_arrive", "exp2f",
+                                  "grid_m_fast", "stages5"])
+def test_flash_fwd_ab_patches_match_the_kernel(name):
+    """flash_fwd_ab.py's variants are text patches of csrc/flash_fwd.cu:
+    each (and the phase counters) still applies exactly once, so the A/B
+    numbers in PERF.md can be remade from the kernel as it is."""
+    import flash_fwd_ab
+
+    src = flash_fwd_ab.variant_source(name, phases=True)
+    assert src.count("TICK(p") == 5 and "fwd_phases" in src
+    if name != "base":
+        assert src != flash_fwd_ab.variant_source("base", phases=True)

@@ -11,7 +11,7 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "cloudpickle", "ray_tpu")
 
 
 def _port_files():
-    out = [os.path.join(ROOT, "chip_smoke.py")]
+    out = [os.path.join(ROOT, f) for f in ("chip_smoke.py", "flash_fwd_ab.py")]
     for dirpath, _, files in os.walk(os.path.join(ROOT, "ray_tpu_torch")):
         out += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
     return sorted(out)
@@ -40,12 +40,14 @@ def test_package_imports_with_jax_and_ray_tpu_blocked():
     mods = sorted(
         os.path.relpath(p, ROOT)[:-3].replace(os.sep, ".")
         .removesuffix(".__init__")
-        for p in _port_files() if not p.endswith("chip_smoke.py"))
+        for p in _port_files()
+        if not p.endswith(("chip_smoke.py", "flash_fwd_ab.py")))
     code = (
         "import sys\n"
         f"for m in {FORBIDDEN!r}: sys.modules[m] = None\n"
         "import importlib\n"
-        f"for m in {mods!r} + ['chip_smoke']: importlib.import_module(m)\n"
+        f"for m in {mods!r} + ['chip_smoke', 'flash_fwd_ab']:\n"
+        "    importlib.import_module(m)\n"
         "assert not any(sys.modules.get(m) for m in "
         f"{FORBIDDEN!r})\n"
         "print('ok', len(sys.modules))\n")
