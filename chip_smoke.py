@@ -7,11 +7,13 @@ Phases; any failure exits non-zero:
 
 1. build — compile every kernel of ``ray_tpu_torch/csrc`` with nvcc (one
    process per source, all at once); print the build seconds, the ptxas
-   register/spill lines (a 128-row forward instantiation must have 168
-   registers, the budget its setmaxnreg split redistributes), the counts
-   of TMA loads (UTMALDG), wgmma (HGMMA) and mbarrier operations (SYNCS)
-   in the SASS of each forward instantiation (``cuobjdump``), and the
-   card's name and power limit;
+   register/spill lines and warnings (a two-consumer forward or dk/dv
+   instantiation must have 168 registers, the budget its setmaxnreg split
+   redistributes; a dk/dv instantiation must not spill), the counts of
+   TMA loads (UTMALDG), wgmma (HGMMA), mbarrier operations (SYNCS) and
+   mma.sync (HMMA) in the SASS of each forward and dk/dv instantiation
+   (``cuobjdump``; a dk/dv one must have the first three and no HMMA),
+   and the card's name and power limit;
 1b. sm90 — the Hopper primitives of ``csrc/sm90.cuh`` against torch
    (``csrc/sm90_check.cu``), at D = 32, 64 and 128: a TMA tile load of a
    strided bshd view with rows past S, an SS and an RS wgmma; exact;
@@ -27,8 +29,9 @@ Phases; any failure exits non-zero:
    backward (``_reference_attention_bwd``) on the same (o, lse, do), in
    bf16, both layouts, causal on and off, at the training shape (B=16,
    H=12, S=1024, D=64), S=1000 (ragged), D=128 (H=32, S=2048) and D=32
-   (H=4, S=100); the largest |err| / tolerance per gradient, each
-   kernel's time, their bound, the plain time and the library's
+   (H=4, S=100); the dk/dv plan of each case (k rows a block, ring
+   slots), the largest |err| / tolerance per gradient, each kernel's
+   time, their bound, the plain time and the library's
    (``scaled_dot_product_attention``'s backward, timed only);
 3. serve — GPT-2 124M (``GPT2_SMALL``, random weights from ``--seed``) in
    the port's ``Replica`` hosting ``Generator``: 4 requests through
@@ -236,10 +239,11 @@ def kernel_name(mangled):
     return f"{m.group(1)}<{','.join(re.findall(r'Li(-?[0-9]+)E', m.group(2)))}>"
 
 
-def sass_counts(lib, pattern="flash_fwd_kernel"):
+def sass_counts(lib, pattern):
     """{kernel: {opcode: count}} of the TMA loads (UTMALDG), wgmma
-    (HGMMA) and mbarrier operations (SYNCS) in the SASS of each kernel of
-    ``lib`` whose name holds ``pattern`` (``cuobjdump --dump-sass``)."""
+    (HGMMA), mbarrier operations (SYNCS) and mma.sync (HMMA) in the SASS
+    of each kernel of ``lib`` whose name holds ``pattern`` (``cuobjdump
+    --dump-sass``)."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "--dump-sass", lib], capture_output=True,
                           text=True, check=True).stdout
@@ -256,7 +260,7 @@ def sass_counts(lib, pattern="flash_fwd_kernel"):
     return counts
 
 
-SASS_OPS = ("UTMALDG", "HGMMA", "SYNCS")
+SASS_OPS = ("UTMALDG", "HGMMA", "SYNCS", "HMMA")
 
 
 def phase_build():
@@ -265,27 +269,45 @@ def phase_build():
     print(f"[build] {len(libs)} kernel libraries in "
           f"{time.perf_counter() - t0:.2f} s: "
           + ", ".join(sorted(libs)), flush=True)
-    regs = {}
+    regs, spills = {}, {}
     for name, log in sorted(build.BUILD_LOG.items()):
         entry = name
         for line in log.splitlines():
             m = re.search(r"Compiling entry function '(\S+)'", line)
             if m:
                 entry = kernel_name(m.group(1))
-            elif "registers" in line or "spill" in line:
+            elif ("registers" in line or "spill" in line
+                  or "warning" in line.lower()):
                 print(f"[build] {entry}: {line.split(':', 1)[-1].strip()}")
                 n = re.search(r"Used (\d+) registers", line)
                 if n:
                     regs[entry] = int(n.group(1))
-    # a 128-row forward block (384 threads) must be built at 168 registers
-    # a thread, the budget its setmaxnreg split (24 + 2 x 240) redistributes
+                n = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                              r"loads", line)
+                if n:
+                    spills[entry] = int(n.group(1)) + int(n.group(2))
+    # a block of two consumer warpgroups (384 threads) must be built at 168
+    # registers a thread, the budget its setmaxnreg split (24 + 2 x 240)
+    # redistributes: the forward's 128-row and the dk/dv kernel's two-
+    # consumer instantiations
     short = {k: n for k, n in regs.items()
-             if re.match(r"flash_fwd_kernel<\d+,128,", k) and n != 168}
+             if re.match(r"flash_fwd_kernel<\d+,128,|"
+                         r"flash_bwd_dkv_kernel<\d+,2,", k) and n != 168}
     if short:
-        fail(f"128-row forward kernels not built at 168 registers: {short}")
-    for kernel, ops in sorted(sass_counts(libs["flash_fwd"]).items()):
-        print(f"[build] SASS {kernel}: "
-              + ", ".join(f"{op} {n}" for op, n in ops.items()), flush=True)
+        fail(f"two-consumer kernels not built at 168 registers: {short}")
+    dkv_spills = {k: n for k, n in spills.items()
+                  if k.startswith("flash_bwd_dkv_kernel<") and n}
+    if dkv_spills:
+        fail(f"dk/dv kernels spill (bytes): {dkv_spills}")
+    for lib, pattern in (("flash_fwd", "flash_fwd_kernel"),
+                         ("flash_bwd", "flash_bwd_dkv_kernel")):
+        for kernel, ops in sorted(sass_counts(libs[lib], pattern).items()):
+            print(f"[build] SASS {kernel}: "
+                  + ", ".join(f"{op} {n}" for op, n in ops.items()),
+                  flush=True)
+            if pattern == "flash_bwd_dkv_kernel" and (
+                    ops["HMMA"] or not all(ops[op] for op in SASS_OPS[:3])):
+                fail(f"{kernel} is not the TMA/mbarrier/wgmma design: {ops}")
     print(f"[build] card: {card_line()}", flush=True)
 
 
@@ -488,6 +510,7 @@ def phase_bwd_kernels(seed):
                 ops = fa._bwd_operands(q, k, v, o, lse, do, layout)
                 dq = fa._launch_bwd_dq(ops, causal, scale, layout)
                 dk, dv = fa._launch_bwd_dkv(ops, causal, scale, layout)
+                plan = fa._bwd_plan(B, H, S, D, fa._sm_count(q.device))
                 qh, kh, vh, oh, doh = (tr(t) for t in (q, k, v, o, do))
                 plain = lambda: fa._reference_attention_bwd(  # noqa: E731
                     qh, kh, vh, oh, lse, doh, scale, causal)
@@ -522,7 +545,8 @@ def phase_bwd_kernels(seed):
                 bounds = {n: attention_bound(B, H, S, D, causal, *w)
                           for n, w in BWD_WORK.items()}
                 print(f"[bwd] B={B} H={H} S={S} D={D} {layout} "
-                      f"causal={int(causal)}: max err/tol dq="
+                      f"causal={int(causal)} dk/dv plan={plan.block_n} rows "
+                      f"x {plan.stages} slots: max err/tol dq="
                       f"{ratios['dq']:.3f} dk={ratios['dk']:.3f} "
                       f"dv={ratios['dv']:.3f} (must be <= 1; max |err| dq="
                       f"{errs['dq']:.3e} dk={errs['dk']:.3e} "

@@ -118,7 +118,8 @@ _SIGNATURES = {
         "flash_fwd_bf16": [_P] * 5 + [_I] * 4 + [_P, _F] + [_I] * 4 + [_P]},
     "flash_bwd": {
         "flash_bwd_dq_bf16": [_P] * 7 + [_I] * 4 + [_P, _F, _F, _I, _P],
-        "flash_bwd_dkv_bf16": [_P] * 8 + [_I] * 4 + [_P, _F, _F, _I, _P]},
+        "flash_bwd_dkv_bf16": [_P] * 8 + [_I] * 4 + [_P, _F, _F] + [_I] * 4
+        + [_P]},
 }
 _libs = {}
 
@@ -215,7 +216,7 @@ def _launch(lib, fn, device, *args):
         raise RuntimeError(f"{fn} launch failed: CUDA error {rc}")
 
 
-#: the H100 SXM's streaming multiprocessors, the default of ``_fwd_plan``
+#: the H100 SXM's streaming multiprocessors, the default of the plans
 H100_SMS = 132
 #: shared memory a block may use on Hopper (227 KB)
 SMEM_PER_BLOCK = 232448
@@ -242,6 +243,36 @@ def _fwd_plan(B, H, S, D, sms=H100_SMS):
     swizzle = 64 if D == 32 else 128
     smem = (block_m + 2 * stages * 64) * D * 2 + 8 * (1 + 2 * stages) + 1024
     return FwdPlan(block_m, stages, swizzle, -(-S // block_m), smem)
+
+
+BwdPlan = collections.namedtuple(
+    "BwdPlan", "block_n stages swizzle k_blocks smem_bytes")
+
+
+def _bwd_plan(B, H, S, D, sms=H100_SMS):
+    """The dk/dv kernel's plan for (B, H, S, D): k rows a block holds (one
+    consumer warpgroup of 64, or two), q/do ring depth, swizzle bytes of a
+    tile row, k blocks along S and dynamic shared memory, as
+    ``csrc/flash_bwd.cu`` lays it out (the block's k and v tiles, the
+    ring's q and do tiles of 64 rows and its f32 lse and delta rows, 8-byte
+    barriers, 1024 bytes of alignment slack).
+
+    Two warpgroups (128 rows) by ``_fwd_plan``'s rule: only where
+    B·H·⌈S/128⌉ still gives every SM a block, else 64 rows, so that more,
+    shorter blocks fill the card; and never at D = 128, where two
+    consumers' dk and dv accumulators (128 registers a thread) do not fit
+    in the 168 registers a thread of a 384-thread block has (ptxas spilled
+    ~330 bytes).  Four slots in the ring: a consumer holds one while the
+    next three load.  The swizzle is 128 bytes, 64 at D = 32, whose rows
+    are 64 bytes."""
+    two = D < 128 and B * H * -(-S // 128) >= sms
+    block_n = 128 if two else 64
+    stages = 4
+    swizzle = 64 if D == 32 else 128
+    tiles = 2 * block_n // 64 + 2 * stages
+    smem = (tiles * 64 * D * 2 + 2 * stages * 64 * 4 + 8 * (1 + 2 * stages)
+            + 1024)
+    return BwdPlan(block_n, stages, swizzle, -(-S // block_n), smem)
 
 
 def _sm_count(device):
@@ -304,13 +335,15 @@ def _launch_bwd_dkv(ops, causal, scale, layout):
     global BWD_DKV_LAUNCHES
     q, k, v, do, lse, delta = ops
     B, H, S, D, dims = _geometry(q, layout)
+    plan = _bwd_plan(B, H, S, D, _sm_count(q.device))
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     _launch("flash_bwd", "flash_bwd_dkv_bf16", q.device,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             B, H, S, D, _strides(dims, q, k, v, do, dk, dv), scale * _LOG2E,
-            scale, int(bool(causal)))
+            scale, int(bool(causal)), plan.block_n, plan.stages,
+            plan.swizzle)
     BWD_DKV_LAUNCHES += 1
     return dk, dv
 

@@ -49,8 +49,9 @@ def _plain(q, k, v, causal, layout):
 
 @pytest.fixture(params=[64, 128], ids=["rows64", "rows128"])
 def plan_rows(request, monkeypatch):
-    """Force the forward's plan: 64-row blocks (a card of many SMs) or
-    128-row blocks, two consumer warpgroups (a card of one SM)."""
+    """Force the forward's and the dk/dv kernel's plans: 64-row blocks (a
+    card of many SMs) or 128-row blocks, two consumer warpgroups (a card
+    of one SM)."""
     sms = 10 ** 9 if request.param == 64 else 1
     monkeypatch.setattr(fa, "_sm_count", lambda device: sms)
     return request.param
@@ -157,11 +158,15 @@ def _bwd_case(cuda, shape, causal, layout):
 @pytest.mark.parametrize("layout", ["bshd", "bhsd"])
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
 @pytest.mark.parametrize("D", [32, 64, 128])
-@pytest.mark.parametrize("S", [1, 63, 65, 200])
-def test_bwd_kernels_match_plain(cuda, S, D, causal, layout):
+@pytest.mark.parametrize("S", [1, 63, 65, 200, 1000])
+def test_bwd_kernels_match_plain(cuda, plan_rows, S, D, causal, layout):
     """dq, dk, dv of the two backward kernels within chip_smoke.py's
-    per-element bound of the plain backward on the same (o, lse, do)."""
+    per-element bound of the plain backward on the same (o, lse, do), at
+    both dk/dv plans (64-row blocks only at D = 128); S = 1000 walks 16 q
+    tiles, round the 4-slot ring four times, the last one ragged."""
     B, H = 2, 3
+    rows = fa._bwd_plan(B, H, S, D, fa._sm_count(None)).block_n
+    assert rows == (64 if D == 128 else plan_rows)
     shape = (B, S, H, D) if layout == "bshd" else (B, H, S, D)
     res, do = _bwd_case(cuda, shape, causal, layout)
     bwd = fa._flash_bwd_bshd if layout == "bshd" else fa._flash_bwd

@@ -213,3 +213,49 @@ def test_jax_grad_through_public_api_matches():
     tq, tk, tv = (torch.from_numpy(x).requires_grad_(True) for x in (q, k, v))
     (tfa.flash_attention(tq, tk, tv, True) ** 2).sum().backward()
     _assert_grads_close((tq.grad, tk.grad, tv.grad), jg, "f32")
+
+
+# (B, H, S, SMs): the training shape and its gradient check (B=4),
+# chip_smoke.py's phase-2b shapes, tests/test_torch_cuda.py's (ragged S,
+# one tile, a ring wrapped many times), and cards of fewer SMs
+BWD_PLAN_SHAPES = [
+    (16, 12, 1024, 132), (4, 12, 1024, 132), (1, 12, 1000, 132),
+    (1, 32, 2048, 132), (1, 4, 100, 132), (2, 3, 1, 132), (2, 3, 63, 132),
+    (2, 3, 65, 132), (2, 3, 200, 132), (2, 3, 1000, 132),
+    (1, 12, 1024, 96), (1, 12, 1000, 66), (16, 12, 1024, 1)]
+
+
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("B,H,S,sms", BWD_PLAN_SHAPES)
+def test_bwd_plan(B, H, S, sms, D):
+    """The dk/dv kernel's plan: shared memory within Hopper's 227 KB a
+    block; two consumer warpgroups (128 k rows) only where B·H·⌈S/128⌉
+    blocks still give each SM one, and not at D = 128 (their accumulators
+    do not fit in 168 registers); k blocks that cover S and no more; four
+    ring slots; the swizzle that keeps a box row within 128 bytes; the
+    layout of csrc/flash_bwd.cu's DkvSmem."""
+    plan = tfa._bwd_plan(B, H, S, D, sms)
+    assert plan.smem_bytes <= tfa.SMEM_PER_BLOCK == 227 * 1024
+    two = D < 128 and B * H * -(-S // 128) >= sms
+    assert plan.block_n == (128 if two else 64)
+    assert (plan.k_blocks - 1) * plan.block_n < S <= \
+        plan.k_blocks * plan.block_n
+    assert plan.stages == 4 and plan.swizzle == min(D * 2, 128)
+    tile = 64 * D * 2
+    k_and_v = 2 * plan.block_n // 64 * tile
+    ring = plan.stages * (2 * tile + 2 * 64 * 4)
+    assert plan.smem_bytes == (k_and_v + ring + 8 * (1 + 2 * plan.stages)
+                               + 1024)
+    if sms == tfa.H100_SMS:
+        assert tfa._bwd_plan(B, H, S, D) == plan
+
+
+def test_bwd_plan_at_the_training_shape():
+    """Training (B=16, S=1024) takes 128-row blocks, 1536 of them; one
+    sequence of 12 heads (96 blocks of 128 rows on 132 SMs) takes 64, as
+    does D = 128 everywhere."""
+    train = tfa._bwd_plan(16, 12, 1024, 64)
+    assert (train.block_n, train.k_blocks) == (128, 8)
+    assert tfa._bwd_plan(16, 12, 1024, 128).block_n == 64
+    assert tfa._bwd_plan(1, 12, 1024, 64).block_n == 64
+    assert tfa._bwd_plan(1, 12, 1024, 64, sms=96).block_n == 128
