@@ -109,28 +109,38 @@ SHAPES = [(1, 12, 1024, 64, True), (1, 12, 1024, 64, False),
           (4, 12, 1024, 64, True), (1, 32, 2048, 128, True)]
 
 
-def variant_source(variant, phases):
-    src = open(SRC).read()
+def patched(path, variant, patches, phases=()):
+    """The source at ``path`` with the patches of ``variant``'s names (and
+    the phase counters) applied; one that does not match exactly once
+    fails the run."""
+    src = open(path).read()
     names = [n for n in variant.split("+") if n not in ("base", "rows64")]
-    edits = [e for n in names for e in PATCHES[n]]
-    for old, new in edits + (PHASES if phases else []):
+    edits = [e for n in names for e in patches[n]]
+    for old, new in edits + list(phases):
         if src.count(old) != 1:
-            sys.exit(f"patch of {variant} does not match flash_fwd.cu: "
-                     f"{old[:60]!r}")
+            sys.exit(f"patch of {variant} does not match "
+                     f"{os.path.basename(path)}: {old[:60]!r}")
         src = src.replace(old, new)
     return src
 
 
-def build_variants(variants, phases):
-    """variant -> loaded library; one nvcc each, all started together."""
+def variant_source(variant, phases):
+    return patched(SRC, variant, PATCHES, PHASES if phases else ())
+
+
+def compile_variants(sources, lib_name, entry, phases):
+    """{variant: source} -> {variant: loaded library with ``entry`` bound
+    as in ``_SIGNATURES[lib_name]``}; one nvcc each, all started
+    together."""
     os.makedirs(OUT, exist_ok=True)
     procs = {}
-    for v in variants:
-        tag = v.replace("+", "_") + ("_phases" if phases else "")
+    for v, text in sources.items():
+        tag = (f"{lib_name}_{v.replace('+', '_')}"
+               + ("_phases" if phases else ""))
         src, lib = os.path.join(OUT, f"{tag}.cu"), os.path.join(OUT,
                                                                 f"{tag}.so")
         with open(src, "w") as f:
-            f.write(variant_source(v, phases))
+            f.write(text)
         cmd = [build._nvcc(), *build.NVCC_FLAGS, "-I", build.CSRC_DIR, "-o",
                lib, src]
         procs[v] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -141,11 +151,19 @@ def build_variants(variants, phases):
         log, _ = proc.communicate()
         if proc.returncode:
             sys.exit(f"nvcc failed for {v}:\n{log}")
+        for line in log.splitlines():
+            if "warning" in line.lower():
+                print(f"[ab] {v}: {line.strip()}", flush=True)
         libs[v] = ctypes.CDLL(lib)
-        libs[v].flash_fwd_bf16.argtypes = fa._SIGNATURES["flash_fwd"][
-            "flash_fwd_bf16"]
-        libs[v].flash_fwd_bf16.restype = ctypes.c_int
+        getattr(libs[v], entry).argtypes = fa._SIGNATURES[lib_name][entry]
+        getattr(libs[v], entry).restype = ctypes.c_int
     return libs
+
+
+def build_variants(variants, phases):
+    """variant -> loaded library of the forward kernel."""
+    return compile_variants({v: variant_source(v, phases) for v in variants},
+                            "flash_fwd", "flash_fwd_bf16", phases)
 
 
 def launcher(lib, variant, q, k, v, causal):

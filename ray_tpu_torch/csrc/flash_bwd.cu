@@ -30,43 +30,51 @@
 // flash_bwd_dkv_kernel: TMA, mbarriers and wgmma (csrc/sm90.cuh).  One
 // block per (64 c k rows, head, batch): c = 1 or 2 consumer warpgroups of
 // 64 k rows, and a producer warpgroup; _bwd_plan (ops/flash_attention.py)
-// picks c, the ring depth and the swizzle.  c = 1 at D = 128: ptxas keeps
-// every warpgroup of a 384-thread block within 168 registers a thread,
-// setmaxnreg or not, and two consumers' dk and dv accumulators are 128 of
-// them (that build spilled ~330 bytes).  The producer loads the block's
-// k and v tiles once by TMA, then walks the q tiles of 64 rows through a
-// ring of slots, each one q and one do tile by TMA (the forward's 4-d
-// strided maps: bshd, bhsd and zero leading strides read as they are) and
-// the tile's lse * log2(e) and delta by plain loads of one producer warp,
-// +inf and 0 past S (a (b, h) row of lse starts on a 4-byte boundary when
-// S % 4 != 0, too fine for a bulk copy).  A slot's `full` mbarrier waits
-// for the TMA bytes and two arrivals of that warp (before the TMA and
-// after the rows); its `empty` one for one arrival per consumer warp.  A
-// consumer warpgroup, per q tile, for its 64 k rows:
+// picks c, the ring depth and the swizzle.  The producer loads the
+// block's k and v tiles once by TMA, then walks the q tiles of 64 rows
+// through a ring of slots: one q and one do tile by TMA (the forward's 4-d
+// strided maps, so bshd, bhsd and zero leading strides are read as they
+// are), and the tile's lse * log2(e) and delta by plain loads of one
+// producer warp, +inf and 0 past S (a (b, h) row of lse starts on a
+// 4-byte boundary when S % 4 != 0, too fine for a bulk copy).  A slot's
+// `full` mbarrier waits for the TMA bytes and two arrivals of that warp
+// (before the TMA and after the rows); its `empty` one for one arrival
+// per consumer warp.  A consumer warpgroup, per q tile, for its 64 k rows:
 //   s^T  = k q^T       SS wgmma m64n64k16, k and q K-major;
-//   dp^T = v do^T      SS, issued with s^T (at D = 128 after p^T: beside
-//                      the dk and dv accumulators, 128 registers a thread,
-//                      s^T and dp^T together would pass the 255 a thread
-//                      may have);
+//   dp^T = v do^T      SS, issued with s^T;
 //   p^T  = 2^(s^T sm_scale log2 e - lse log2 e), masked (q < k) on the
-//          diagonal tile only; rows of q past S have lse = +inf, so p = 0;
-//          rounded to bf16 and packed in place, the accumulator layout
-//          being the register A layout of the next product;
+//          diagonal tile only (q rows past S have lse = +inf, so p = 0),
+//          computed while dp^T is in flight, rounded to bf16 and packed
+//          in place: the accumulator layout is the register A layout;
 //   dv  += p^T do      RS wgmma m64nDk16, do MN-major (the same swizzled
 //                      tile, read the other way);
 //   ds^T = p^T (dp^T - delta), computed while p^T do is in flight,
 //          rounded to bf16 and packed;
-//   dk  += ds^T q      RS, q MN-major;
-// then it releases the slot.  A causal block starts at the q tile of its
-// diagonal, and blocks go out longest first.  With two consumers,
-// setmaxnreg splits the block's registers 40 / 232 / 232 (a 24-register
-// producer spilled its lse loop).  Each
-// block writes only its own dk and dv rows: no atomics, so the gradients
-// are the same bit for bit from run to run.  dk is scaled by sm_scale at
-// the end; rows >= S are never written.  What bounds it is the tensor
-// cores' four products and the 4096 exponentials of a tile, in series
-// within a warpgroup; two consumers share each q/do tile, halving its
-// traffic, and their phases overlap on the SM.
+//   dk  += ds^T q      RS, q MN-major, issued together with the next
+//                      tile's s^T and dp^T, so the tensor cores go on
+//                      from one tile to the next without draining (a
+//                      warpgroup holds two slots).
+// A causal block starts at the q tile of its diagonal, and blocks go out
+// longest first.  Each block writes only its own dk and dv rows: no
+// atomics, so the gradients are the same bit for bit from run to run.  dk
+// is scaled by sm_scale at the end; rows >= S are never written.
+//
+// Registers: ptxas keeps every warpgroup of a 384-thread block within 168
+// registers a thread, setmaxnreg or not; two consumers' dk and dv
+// accumulators at D = 128 are 128 of them, and that build spilled ~330
+// bytes, so D = 128 takes one consumer (221 registers), and issues dp^T
+// after p^T (s^T and dp^T together would pass the 255 a thread may have).
+// Two-consumer builds split the block's registers 40 / 232 / 232 with
+// setmaxnreg (a 24-register producer spilled its lse loop).
+//
+// What bounds it: the four products of a tile are 16 wgmma m64n64k16 at
+// D = 64, ~500 cycles of the SM's tensor cores, and its 4096
+// exponentials ~256 cycles of the MUFU; inside a warpgroup the
+// exponentials and ds^T wait for their products, so the design overlaps
+// them with the products still in flight (dp^T, p^T do, the next tile's)
+// and with the other consumer's; two consumers share each q/do tile,
+// halving its traffic.  PERF.md has the cycles per phase
+// (flash_bwd_ab.py --phases).
 //
 // flash_bwd_dq_kernel: mma.sync, written to be right, not fast (no wgmma,
 // no TMA or cp.async pipelining).  One block per (64 q rows, head, batch),
@@ -449,8 +457,10 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
 
   const int h = blockIdx.x;
   const int b = blockIdx.y;
-  const int n0 = blockIdx.z * kTile * kConsumers;  // first k row; causal:
-  const int m_tiles = (S + kTile - 1) / kTile;     // the longest go first
+  // first k row; blockIdx.z = 0 goes out first, so causal blocks longest
+  // first
+  const int n0 = blockIdx.z * kTile * kConsumers;
+  const int m_tiles = (S + kTile - 1) / kTile;
   const int m_start = causal ? n0 / kTile : 0;
   const int n_iter = m_tiles - m_start;
 

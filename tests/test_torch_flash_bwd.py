@@ -259,3 +259,20 @@ def test_bwd_plan_at_the_training_shape():
     assert tfa._bwd_plan(16, 12, 1024, 128).block_n == 64
     assert tfa._bwd_plan(1, 12, 1024, 64).block_n == 64
     assert tfa._bwd_plan(1, 12, 1024, 64, sms=96).block_n == 128
+
+
+@pytest.mark.parametrize("name", ["base", "pipeline", "dp_late", "stages3",
+                                  "stages5", "grid_n_fast"])
+def test_flash_bwd_ab_patches_match_the_kernel(name):
+    """flash_bwd_ab.py's variants are text patches of csrc/flash_bwd.cu:
+    each applies exactly once (the phase counters to the kernel as it is,
+    and with every patch but "pipeline", which moves their last anchor),
+    so the A/B numbers in PERF.md can be remade from the kernel as it
+    is."""
+    import flash_bwd_ab
+
+    phases = name != "pipeline"
+    src = flash_bwd_ab.variant_source(name, phases)
+    assert src.count("TICK(p") == 7 * phases
+    if name != "base":
+        assert src != flash_bwd_ab.variant_source("base", phases)

@@ -8,10 +8,12 @@ import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "cloudpickle", "ray_tpu")
+# the port's scripts at the repo root
+SCRIPTS = ("chip_smoke.py", "flash_fwd_ab.py", "flash_bwd_ab.py")
 
 
 def _port_files():
-    out = [os.path.join(ROOT, f) for f in ("chip_smoke.py", "flash_fwd_ab.py")]
+    out = [os.path.join(ROOT, f) for f in SCRIPTS]
     for dirpath, _, files in os.walk(os.path.join(ROOT, "ray_tpu_torch")):
         out += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
     return sorted(out)
@@ -41,12 +43,12 @@ def test_package_imports_with_jax_and_ray_tpu_blocked():
         os.path.relpath(p, ROOT)[:-3].replace(os.sep, ".")
         .removesuffix(".__init__")
         for p in _port_files()
-        if not p.endswith(("chip_smoke.py", "flash_fwd_ab.py")))
+        if not p.endswith(SCRIPTS))
     code = (
         "import sys\n"
         f"for m in {FORBIDDEN!r}: sys.modules[m] = None\n"
         "import importlib\n"
-        f"for m in {mods!r} + ['chip_smoke', 'flash_fwd_ab']:\n"
+        f"for m in {mods + [s[:-3] for s in SCRIPTS]!r}:\n"
         "    importlib.import_module(m)\n"
         "assert not any(sys.modules.get(m) for m in "
         f"{FORBIDDEN!r})\n"
