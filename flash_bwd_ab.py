@@ -19,8 +19,8 @@ of a sum.  Then all are timed with CUDA events in turns (in order, then
 reversed, twice) and the best turn is printed beside the library's time
 (the gradient of ``scaled_dot_product_attention`` with respect to k and
 v).  ``--phases`` adds per-phase cycle counters (``clock64``, one thread a
-consumer warpgroup, per tile of its loop): waiting for the slot, s^T and
-dp^T issued until s^T is in, p^T and its packing, p^T do issued until
+consumer warpgroup, per tile of its loop): waiting for the slot, s^T
+issued until it is in, p^T and its packing, p^T do and dp^T issued until
 dp^T is in, ds^T and its packing, dk += ds^T q issued and waited for; the
 counters' own atomics slow the kernel, so those runs are not timed
 against the others.  Every build prints what ptxas warns of (wgmma
@@ -67,29 +67,54 @@ PATCHES = {
          "  fence_a(pa);\n  fence_a(da);\n  __syncwarp();\n"
          "  if (lane == 0)\n"
          "    sm90::mbar_arrive(&empty[(n_iter - 1) % kStages]);\n")],
-    # dp^T issued after p^T at every D (with s^T below D = 128)
-    "dp_late": [
-        ("  constexpr bool kDpWithS = D < 128;",
-         "  constexpr bool kDpWithS = false;")],
+    # dp^T issued with s^T below D = 128 (after p^T, with p^T do, in the
+    # kernel)
+    "dp_with_s": [
+        ("      ss(st, sK, sQ);\n      sm90::wgmma_wait<0>();  // s^T is in\n",
+         "      ss(st, sK, sQ);\n"
+         "      if constexpr (D < 128) ss(dpt, sV, sDo);\n"
+         "      sm90::wgmma_wait<(D < 128) ? 1 : 0>();  // s^T is in\n"),
+        ("      rs(dv_acc, pa, sDo);  // dv += p^T do\n"
+         "      ss(dpt, sV, sDo);     // dp^T = v do^T\n"
+         "      sm90::wgmma_wait<0>();  // dp^T is in\n",
+         "      rs(dv_acc, pa, sDo);  // dv += p^T do\n"
+         "      if constexpr (D == 128) ss(dpt, sV, sDo);\n"
+         "      sm90::wgmma_wait<(D < 128) ? 1 : 0>();  // dp^T is in\n")],
+    # dp^T issued before p^T do, and ds^T computed while p^T do runs
+    "dp_first": [
+        ("      rs(dv_acc, pa, sDo);  // dv += p^T do\n"
+         "      ss(dpt, sV, sDo);     // dp^T = v do^T\n"
+         "      sm90::wgmma_wait<0>();  // dp^T is in\n",
+         "      ss(dpt, sV, sDo);     // dp^T = v do^T\n"
+         "      rs(dv_acc, pa, sDo);  // dv += p^T do\n"
+         "      sm90::wgmma_wait<1>();  // dp^T is in\n")],
     # ring depth (four slots in the kernel)
     "stages3": [("constexpr int kDkvStages = 4;",
                  "constexpr int kDkvStages = 3;")],
     "stages5": [("constexpr int kDkvStages = 4;",
                  "constexpr int kDkvStages = 5;")],
-    # grid (n, H, B): a head's k blocks side by side, longest first
+    # grid (H, B, n): all heads' longest causal blocks first, a head's k
+    # blocks far apart (grid (H, n, B) in the kernel)
+    "grid_hbn": [
+        ("  const int b = blockIdx.z;\n  const int n0 = blockIdx.y * ",
+         "  const int b = blockIdx.y;\n  const int n0 = blockIdx.z * "),
+        ("  const dim3 grid(H, (S + rows - 1) / rows, B);",
+         "  const dim3 grid(H, B, (S + rows - 1) / rows);")],
+    # grid (n, H, B): a head's k blocks side by side, longest first only
+    # within a head
     "grid_n_fast": [
-        ("  const int h = blockIdx.x;\n  const int b = blockIdx.y;\n",
-         "  const int h = blockIdx.y;\n  const int b = blockIdx.z;\n"),
-        ("  const int n0 = blockIdx.z * kTile * kConsumers;",
-         "  const int n0 = blockIdx.x * kTile * kConsumers;"),
-        ("  const dim3 grid(H, B, (S + rows - 1) / rows);",
+        ("  const int h = blockIdx.x;\n  const int b = blockIdx.z;\n"
+         "  const int n0 = blockIdx.y * ",
+         "  const int h = blockIdx.y;\n  const int b = blockIdx.z;\n"
+         "  const int n0 = blockIdx.x * "),
+        ("  const dim3 grid(H, (S + rows - 1) / rows, B);",
          "  const dim3 grid((S + rows - 1) / rows, H, B);")],
 }
 STAGES = {"stages3": 3, "stages5": 5}
 
 # per-phase counters of a consumer's loop (of the kernel as it is, not with
-# "pipeline"): g[0] waiting for the slot, g[1] s^T and dp^T issued until s^T
-# is in, g[2] p^T, g[3] p^T do issued until dp^T is in, g[4] ds^T, g[5]
+# "pipeline"): g[0] waiting for the slot, g[1] s^T issued until it is in,
+# g[2] p^T, g[3] p^T do and dp^T issued until dp^T is in, g[4] ds^T, g[5]
 # dk += ds^T q issued and waited for, g[6] tiles; each summed over one
 # thread a warpgroup
 PHASES = [
@@ -102,11 +127,9 @@ PHASES = [
      "    const bool rec = threadIdx.x % 128 == 0;\n    TICK(p0);\n"
      "    sm90::mbar_wait(&full[s], (it / kStages) & 1);\n    TICK(p1);\n"
      "    if (rec) ADD(0, p1 - p0);\n    // a causal"),
-    ("      sm90::wgmma_wait<kDpWithS ? 1 : 0>();  // s^T is in\n"
-     "      sm90::fence_regs(st);\n",
-     "      sm90::wgmma_wait<kDpWithS ? 1 : 0>();  // s^T is in\n"
+    ("      sm90::fence_regs(st);\n\n      // p^T",
      "      sm90::fence_regs(st);\n      TICK(p2);\n"
-     "      if (rec) ADD(1, p2 - p1);\n"),
+     "      if (rec) ADD(1, p2 - p1);\n\n      // p^T"),
     ("      pack(pa, st);\n      fence_a(pa);\n",
      "      pack(pa, st);\n      fence_a(pa);\n      TICK(p3);\n"
      "      if (rec) ADD(2, p3 - p2);\n"),

@@ -41,40 +41,38 @@
 // (before the TMA and after the rows); its `empty` one for one arrival
 // per consumer warp.  A consumer warpgroup, per q tile, for its 64 k rows:
 //   s^T  = k q^T       SS wgmma m64n64k16, k and q K-major;
-//   dp^T = v do^T      SS, issued with s^T;
 //   p^T  = 2^(s^T sm_scale log2 e - lse log2 e), masked (q < k) on the
 //          diagonal tile only (q rows past S have lse = +inf, so p = 0),
-//          computed while dp^T is in flight, rounded to bf16 and packed
-//          in place: the accumulator layout is the register A layout;
+//          rounded to bf16 and packed in place: the accumulator layout
+//          is the register A layout;
 //   dv  += p^T do      RS wgmma m64nDk16, do MN-major (the same swizzled
-//                      tile, read the other way);
-//   ds^T = p^T (dp^T - delta), computed while p^T do is in flight,
-//          rounded to bf16 and packed;
-//   dk  += ds^T q      RS, q MN-major, issued together with the next
-//                      tile's s^T and dp^T, so the tensor cores go on
-//                      from one tile to the next without draining (a
-//                      warpgroup holds two slots).
-// A causal block starts at the q tile of its diagonal, and blocks go out
-// longest first.  Each block writes only its own dk and dv rows: no
-// atomics, so the gradients are the same bit for bit from run to run.  dk
-// is scaled by sm_scale at the end; rows >= S are never written.
+//                      tile, read the other way), issued with
+//   dp^T = v do^T      SS;
+//   ds^T = p^T (dp^T - delta), rounded to bf16 and packed;
+//   dk  += ds^T q      RS, q MN-major;
+// then it waits for its products and releases the slot (leaving dk in
+// flight while the next tile's s^T is issued was slower: flash_bwd_ab.py
+// pipeline, PERF.md).  A causal block starts at the q tile of its
+// diagonal.  The grid is (H, k blocks, B): within a batch the longest
+// blocks go out first, and a head's blocks run side by side, reading its
+// q and do tiles from L2.  Each block writes only its own dk and dv rows:
+// no atomics, so the gradients are the same bit for bit from run to run.
+// dk is scaled by sm_scale at the end; rows >= S are never written.
 //
 // Registers: ptxas keeps every warpgroup of a 384-thread block within 168
 // registers a thread, setmaxnreg or not; two consumers' dk and dv
 // accumulators at D = 128 are 128 of them, and that build spilled ~330
-// bytes, so D = 128 takes one consumer (221 registers), and issues dp^T
-// after p^T (s^T and dp^T together would pass the 255 a thread may have).
-// Two-consumer builds split the block's registers 40 / 232 / 232 with
-// setmaxnreg (a 24-register producer spilled its lse loop).
+// bytes, so D = 128 takes one consumer.  Two-consumer builds split the
+// block's registers 40 / 232 / 232 with setmaxnreg (a 24-register
+// producer spilled its lse loop).
 //
 // What bounds it: the four products of a tile are 16 wgmma m64n64k16 at
 // D = 64, ~500 cycles of the SM's tensor cores, and its 4096
-// exponentials ~256 cycles of the MUFU; inside a warpgroup the
-// exponentials and ds^T wait for their products, so the design overlaps
-// them with the products still in flight (dp^T, p^T do, the next tile's)
-// and with the other consumer's; two consumers share each q/do tile,
-// halving its traffic.  PERF.md has the cycles per phase
-// (flash_bwd_ab.py --phases).
+// exponentials ~256 cycles of the MUFU.  Inside a warpgroup these run in
+// series (the exponentials wait for s^T, ds^T for dp^T), so the design
+// leans on the other consumer's products running meanwhile; the two
+// share each q/do tile, halving its traffic.  PERF.md has the cycles of
+// each phase (flash_bwd_ab.py --phases).
 //
 // flash_bwd_dq_kernel: mma.sync, written to be right, not fast (no wgmma,
 // no TMA or cp.async pipelining).  One block per (64 q rows, head, batch),
@@ -445,8 +443,6 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
                      float sm_scale, int causal) {
   using L = DkvSmem<D, kConsumers, kStages>;
   using T = typename L::T;
-  // dp^T with s^T, or after p^T where the accumulators leave no room
-  constexpr bool kDpWithS = D < 128;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = sm90::align_1024(smem_raw);
   uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + L::kBar);
@@ -455,11 +451,12 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
   float* sLse = reinterpret_cast<float*>(smem + L::kLse);
   float* sDelta = reinterpret_cast<float*>(smem + L::kDelta);
 
+  // grid (H, k blocks, B): within a batch the longest causal blocks go
+  // first, and a head's k blocks run side by side, reading its q and do
+  // tiles from L2
   const int h = blockIdx.x;
-  const int b = blockIdx.y;
-  // first k row; blockIdx.z = 0 goes out first, so causal blocks longest
-  // first
-  const int n0 = blockIdx.z * kTile * kConsumers;
+  const int b = blockIdx.z;
+  const int n0 = blockIdx.y * kTile * kConsumers;  // first k row
   const int m_tiles = (S + kTile - 1) / kTile;
   const int m_start = causal ? n0 / kTile : 0;
   const int n_iter = m_tiles - m_start;
@@ -586,8 +583,7 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
       sm90::fence_regs(dpt);
       sm90::wgmma_fence();
       ss(st, sK, sQ);
-      if constexpr (kDpWithS) ss(dpt, sV, sDo);
-      sm90::wgmma_wait<kDpWithS ? 1 : 0>();  // s^T is in
+      sm90::wgmma_wait<0>();  // s^T is in
       sm90::fence_regs(st);
 
       // p^T; on the diagonal tile q row 8j + 2t + i % 2 < k row is masked
@@ -607,8 +603,8 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
       fence_a(pa);
       sm90::wgmma_fence();
       rs(dv_acc, pa, sDo);  // dv += p^T do
-      if constexpr (!kDpWithS) ss(dpt, sV, sDo);
-      sm90::wgmma_wait<kDpWithS ? 1 : 0>();  // dp^T is in
+      ss(dpt, sV, sDo);     // dp^T = v do^T
+      sm90::wgmma_wait<0>();  // dp^T is in
       sm90::fence_regs(dpt);
 
       // ds^T = p^T (dp^T - delta), p^T as rounded to bf16
@@ -679,7 +675,7 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dO,
     sized[dev] = true;
   }
   const int rows = kTile * kConsumers;
-  const dim3 grid(H, B, (S + rows - 1) / rows);
+  const dim3 grid(H, (S + rows - 1) / rows, B);
   kernel<<<grid, 128 * (1 + kConsumers), kSmem, stream>>>(
       maps[0], maps[1], maps[2], maps[3], lse, delta,
       static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), H, S,
