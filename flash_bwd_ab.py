@@ -88,6 +88,25 @@ PATCHES = {
          "      ss(dpt, sV, sDo);     // dp^T = v do^T\n"
          "      rs(dv_acc, pa, sDo);  // dv += p^T do\n"
          "      sm90::wgmma_wait<1>();  // dp^T is in\n")],
+    # the second consumer of a block starts its first tile once the first
+    # has issued p^T do (an mbarrier after the ring's), so that one's
+    # exponentials run under the other's products
+    "offset": [
+        ("  static constexpr int kBytes = kBar + 8 * (1 + 2 * kStages)",
+         "  static constexpr int kBytes = kBar + 8 * (2 + 2 * kStages)"),
+        ("    sm90::mbar_init(kv_full, 1);\n",
+         "    sm90::mbar_init(kv_full, 1);\n"
+         "    sm90::mbar_init(full + 2 * kStages, 4);\n"),
+        ("    if (mt >= wg_start) {\n",
+         "    if (mt >= wg_start) {\n"
+         "      if (wg == 1 && mt == wg_start)\n"
+         "        sm90::mbar_wait(full + 2 * kStages, 0);\n"),
+        ("      ss(dpt, sV, sDo);     // dp^T = v do^T\n",
+         "      ss(dpt, sV, sDo);     // dp^T = v do^T\n"
+         "      if (wg == 0 && mt == wg_start) {\n"
+         "        __syncwarp();\n"
+         "        if (lane == 0) sm90::mbar_arrive(full + 2 * kStages);\n"
+         "      }\n")],
     # ring depth (four slots in the kernel)
     "stages3": [("constexpr int kDkvStages = 4;",
                  "constexpr int kDkvStages = 3;")],

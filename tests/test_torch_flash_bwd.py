@@ -262,8 +262,8 @@ def test_bwd_plan_at_the_training_shape():
 
 
 @pytest.mark.parametrize("name", ["base", "pipeline", "dp_with_s",
-                                  "dp_first", "stages3", "stages5",
-                                  "grid_hbn", "grid_n_fast"])
+                                  "dp_first", "offset", "stages3",
+                                  "stages5", "grid_hbn", "grid_n_fast"])
 def test_flash_bwd_ab_patches_match_the_kernel(name):
     """flash_bwd_ab.py's variants are text patches of csrc/flash_bwd.cu:
     each applies exactly once (the phase counters to the kernel as it is,
