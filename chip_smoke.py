@@ -287,9 +287,9 @@ def phase_build():
                 if n:
                     spills[entry] = int(n.group(1)) + int(n.group(2))
     # a block of two consumer warpgroups (384 threads) must be built at 168
-    # registers a thread, the budget its setmaxnreg split (24 + 2 x 240)
-    # redistributes: the forward's 128-row and the dk/dv kernel's two-
-    # consumer instantiations
+    # registers a thread, the budget its setmaxnreg split redistributes
+    # (24 + 2 x 240 in the forward's 128-row instantiations, 40 + 2 x 232
+    # in the dk/dv kernel's two-consumer ones)
     short = {k: n for k, n in regs.items()
              if re.match(r"flash_fwd_kernel<\d+,128,|"
                          r"flash_bwd_dkv_kernel<\d+,2,", k) and n != 168}
