@@ -7,13 +7,13 @@ Phases; any failure exits non-zero:
 
 1. build — compile every kernel of ``ray_tpu_torch/csrc`` with nvcc (one
    process per source, all at once); print the build seconds, the ptxas
-   register/spill lines and warnings (a two-consumer forward or dk/dv
+   register/spill lines and warnings (a two-consumer forward, dq or dk/dv
    instantiation must have 168 registers, the budget its setmaxnreg split
-   redistributes; a dk/dv instantiation must not spill), the counts of
-   TMA loads (UTMALDG), wgmma (HGMMA), mbarrier operations (SYNCS) and
-   mma.sync (HMMA) in the SASS of each forward and dk/dv instantiation
-   (``cuobjdump``; a dk/dv one must have the first three and no HMMA),
-   and the card's name and power limit;
+   redistributes; a dq or dk/dv instantiation must not spill), the counts
+   of TMA loads (UTMALDG), wgmma (HGMMA), mbarrier operations (SYNCS) and
+   mma.sync (HMMA) in the SASS of each forward, dq and dk/dv
+   instantiation (``cuobjdump``; each must have the first three and no
+   HMMA), and the card's name and power limit;
 1b. sm90 — the Hopper primitives of ``csrc/sm90.cuh`` against torch
    (``csrc/sm90_check.cu``), at D = 32, 64 and 128: a TMA tile load of a
    strided bshd view with rows past S, an SS and an RS wgmma; exact;
@@ -29,10 +29,11 @@ Phases; any failure exits non-zero:
    backward (``_reference_attention_bwd``) on the same (o, lse, do), in
    bf16, both layouts, causal on and off, at the training shape (B=16,
    H=12, S=1024, D=64), S=1000 (ragged), D=128 (H=32, S=2048) and D=32
-   (H=4, S=100); the dk/dv plan of each case (k rows a block, ring
+   (H=4, S=100); the dq and dk/dv plans of each case (rows a block, ring
    slots), the largest |err| / tolerance per gradient, each kernel's
    time, their bound, the plain time and the library's
-   (``scaled_dot_product_attention``'s backward, timed only);
+   (``scaled_dot_product_attention``'s backward, timed only: the whole
+   backward, its gradient with respect to q alone and to k and v);
 3. serve — GPT-2 124M (``GPT2_SMALL``, random weights from ``--seed``) in
    the port's ``Replica`` hosting ``Generator``: 4 requests through
    ``handle_request`` (prompts of 16, 127, 500 and 1000 tokens, 8 new
@@ -288,25 +289,24 @@ def phase_build():
                     spills[entry] = int(n.group(1)) + int(n.group(2))
     # a block of two consumer warpgroups (384 threads) must be built at 168
     # registers a thread, the budget its setmaxnreg split redistributes
-    # (24 + 2 x 240 in the forward's 128-row instantiations, 40 + 2 x 232
-    # in the dk/dv kernel's two-consumer ones)
+    # (24 + 2 x 240 in the forward's 128-row and the dq kernel's
+    # two-consumer instantiations, 40 + 2 x 232 in the dk/dv kernel's)
     short = {k: n for k, n in regs.items()
              if re.match(r"flash_fwd_kernel<\d+,128,|"
-                         r"flash_bwd_dkv_kernel<\d+,2,", k) and n != 168}
+                         r"flash_bwd_(dq|dkv)_kernel<\d+,2,", k)
+             and n != 168}
     if short:
         fail(f"two-consumer kernels not built at 168 registers: {short}")
-    dkv_spills = {k: n for k, n in spills.items()
-                  if k.startswith("flash_bwd_dkv_kernel<") and n}
-    if dkv_spills:
-        fail(f"dk/dv kernels spill (bytes): {dkv_spills}")
-    for lib, pattern in (("flash_fwd", "flash_fwd_kernel"),
-                         ("flash_bwd", "flash_bwd_dkv_kernel")):
-        for kernel, ops in sorted(sass_counts(libs[lib], pattern).items()):
+    bwd_spills = {k: n for k, n in spills.items()
+                  if k.startswith("flash_bwd_") and n}
+    if bwd_spills:
+        fail(f"backward kernels spill (bytes): {bwd_spills}")
+    for lib in ("flash_fwd", "flash_bwd"):
+        for kernel, ops in sorted(sass_counts(libs[lib], lib).items()):
             print(f"[build] SASS {kernel}: "
                   + ", ".join(f"{op} {n}" for op, n in ops.items()),
                   flush=True)
-            if pattern == "flash_bwd_dkv_kernel" and (
-                    ops["HMMA"] or not all(ops[op] for op in SASS_OPS[:3])):
+            if ops["HMMA"] or not all(ops[op] for op in SASS_OPS[:3]):
                 fail(f"{kernel} is not the TMA/mbarrier/wgmma design: {ops}")
     print(f"[build] card: {card_line()}", flush=True)
 
@@ -511,6 +511,7 @@ def phase_bwd_kernels(seed):
                 dq = fa._launch_bwd_dq(ops, causal, scale, layout)
                 dk, dv = fa._launch_bwd_dkv(ops, causal, scale, layout)
                 plan = fa._bwd_plan(B, H, S, D, fa._sm_count(q.device))
+                dq_plan = fa._dq_plan(B, H, S, D, fa._sm_count(q.device))
                 qh, kh, vh, oh, doh = (tr(t) for t in (q, k, v, o, do))
                 plain = lambda: fa._reference_attention_bwd(  # noqa: E731
                     qh, kh, vh, oh, lse, doh, scale, causal)
@@ -545,8 +546,9 @@ def phase_bwd_kernels(seed):
                 bounds = {n: attention_bound(B, H, S, D, causal, *w)
                           for n, w in BWD_WORK.items()}
                 print(f"[bwd] B={B} H={H} S={S} D={D} {layout} "
-                      f"causal={int(causal)} dk/dv plan={plan.block_n} rows "
-                      f"x {plan.stages} slots: max err/tol dq="
+                      f"causal={int(causal)} dq plan={dq_plan.block_m} rows "
+                      f"x {dq_plan.stages} slots, dk/dv plan={plan.block_n} "
+                      f"rows x {plan.stages} slots: max err/tol dq="
                       f"{ratios['dq']:.3f} dk={ratios['dk']:.3f} "
                       f"dv={ratios['dv']:.3f} (must be <= 1; max |err| dq="
                       f"{errs['dq']:.3e} dk={errs['dk']:.3e} "
@@ -556,7 +558,8 @@ def phase_bwd_kernels(seed):
                       f"dkv={bounds['dkv'][0]:.4f} "
                       f"pair={bounds['pair'][0]:.4f} "
                       f"({bounds['pair'][1]}) plain_ms={plain_ms:.3f} "
-                      f"library_ms={lib['all']:.4f}"
+                      f"library_ms={lib['all']:.4f} (dq only "
+                      f"{lib['dq']:.4f}, dk/dv only {lib['dkv']:.4f})"
                       f"{'' if ok else '  <-- OUT OF TOLERANCE'}",
                       flush=True)
                 if not ok:

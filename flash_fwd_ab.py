@@ -27,6 +27,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import os
+import re
 import subprocess
 import sys
 
@@ -131,11 +132,11 @@ def variant_source(variant, phases):
 def compile_variants(sources, lib_name, entry, phases):
     """{variant: source} -> {variant: loaded library with ``entry`` bound
     as in ``_SIGNATURES[lib_name]``}; one nvcc each, all started
-    together."""
+    together, each named by its entry and variant."""
     os.makedirs(OUT, exist_ok=True)
     procs = {}
     for v, text in sources.items():
-        tag = (f"{lib_name}_{v.replace('+', '_')}"
+        tag = (f"{entry}_{v.replace('+', '_')}"
                + ("_phases" if phases else ""))
         src, lib = os.path.join(OUT, f"{tag}.cu"), os.path.join(OUT,
                                                                 f"{tag}.so")
@@ -151,9 +152,15 @@ def compile_variants(sources, lib_name, entry, phases):
         log, _ = proc.communicate()
         if proc.returncode:
             sys.exit(f"nvcc failed for {v}:\n{log}")
+        kernel = None
         for line in log.splitlines():
-            if "warning" in line.lower():
-                print(f"[ab] {v}: {line.strip()}", flush=True)
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                kernel = cs.kernel_name(m.group(1))
+            elif "warning" in line.lower() or re.search(
+                    r"Used \d+ registers|[1-9]\d* bytes spill", line):
+                print(f"[ab] {v}: {kernel}: {line.split(':', 1)[-1].strip()}",
+                      flush=True)
         libs[v] = ctypes.CDLL(lib)
         getattr(libs[v], entry).argtypes = fa._SIGNATURES[lib_name][entry]
         getattr(libs[v], entry).restype = ctypes.c_int

@@ -56,13 +56,13 @@
 
 #include <chrono>
 
-#include "mma.cuh"
 #include "sm90.cuh"
 
 namespace {
 
 constexpr int kBlockN = 64;  // k/v rows per tile = q rows per consumer
 constexpr float kLn2 = 0.6931471805599453f;
+using sm90::pack_bf16;
 
 // 2^x as one MUFU op (ex2.approx, ~2^-22 relative); results below 2^-126
 // flush to zero, far below what the bf16 p keeps.  exp2f's accurate

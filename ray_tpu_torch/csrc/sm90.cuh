@@ -21,6 +21,7 @@
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums (types only)
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -229,6 +230,12 @@ __device__ __forceinline__ void setmaxnreg_dec() {
 // fragment repeated N / 8 times.  The register A operand has mma.sync's
 // m16n8k16 A layout per warp: packed to bf16 pairs, accumulator columns
 // 16c .. 16c + 15 are the A fragment of k16 step c.
+
+// Two floats as one bf16x2 word of an A operand; `lo` is the lower column.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
 
 // d[32] += a (64x16, smem) * b (16x64, smem, K-major); scale_d = 0 overwrites d.
 __device__ __forceinline__ void wgmma_ss_m64n64k16(float (&d)[32], uint64_t a,

@@ -117,7 +117,8 @@ _SIGNATURES = {
     "flash_fwd": {
         "flash_fwd_bf16": [_P] * 5 + [_I] * 4 + [_P, _F] + [_I] * 4 + [_P]},
     "flash_bwd": {
-        "flash_bwd_dq_bf16": [_P] * 7 + [_I] * 4 + [_P, _F, _F, _I, _P],
+        "flash_bwd_dq_bf16": [_P] * 7 + [_I] * 4 + [_P, _F, _F] + [_I] * 4
+        + [_P],
         "flash_bwd_dkv_bf16": [_P] * 8 + [_I] * 4 + [_P, _F, _F] + [_I] * 4
         + [_P]},
 }
@@ -275,6 +276,35 @@ def _bwd_plan(B, H, S, D, sms=H100_SMS):
     return BwdPlan(block_n, stages, swizzle, -(-S // block_n), smem)
 
 
+DqPlan = collections.namedtuple(
+    "DqPlan", "block_m stages swizzle q_blocks smem_bytes")
+
+
+def _dq_plan(B, H, S, D, sms=H100_SMS):
+    """The dq kernel's plan for (B, H, S, D): q rows a block holds (one
+    consumer warpgroup of 64, or two), k/v ring depth, swizzle bytes of a
+    tile row, q blocks along S and dynamic shared memory, as
+    ``csrc/flash_bwd.cu`` lays it out (the block's q and do tiles, the
+    ring's k and v tiles of 64 rows, 8-byte barriers, 1024 bytes of
+    alignment slack).
+
+    Two warpgroups (128 rows) only at D = 128, and by ``_fwd_plan``'s
+    rule: where B·H·⌈S/128⌉ still gives every SM a block, else 64 rows, so
+    that more, shorter blocks fill the card.  Below D = 128 one consumer
+    always: its build fits two blocks an SM, faster than one two-consumer
+    block at GPT-2 training shapes; at D = 128 it fits one block an SM and
+    is slower (``flash_bwd_ab.py`` rows64, PERF.md).  Four slots in the
+    ring: a consumer holds one while the next three load.  The swizzle is
+    128 bytes, 64 at D = 32, whose rows are 64 bytes."""
+    two = D == 128 and B * H * -(-S // 128) >= sms
+    block_m = 128 if two else 64
+    stages = 4
+    swizzle = 64 if D == 32 else 128
+    tiles = 2 * block_m // 64 + 2 * stages
+    smem = tiles * 64 * D * 2 + 8 * (1 + 2 * stages) + 1024
+    return DqPlan(block_m, stages, swizzle, -(-S // block_m), smem)
+
+
 def _sm_count(device):
     return torch.cuda.get_device_properties(device).multi_processor_count
 
@@ -320,12 +350,13 @@ def _launch_bwd_dq(ops, causal, scale, layout):
     global BWD_DQ_LAUNCHES
     q, k, v, do, lse, delta = ops
     B, H, S, D, dims = _geometry(q, layout)
+    plan = _dq_plan(B, H, S, D, _sm_count(q.device))
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _launch("flash_bwd", "flash_bwd_dq_bf16", q.device,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), B, H, S, D,
             _strides(dims, q, k, v, do, dq), scale * _LOG2E, scale,
-            int(bool(causal)))
+            int(bool(causal)), plan.block_m, plan.stages, plan.swizzle)
     BWD_DQ_LAUNCHES += 1
     return dq
 

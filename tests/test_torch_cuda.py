@@ -49,9 +49,9 @@ def _plain(q, k, v, causal, layout):
 
 @pytest.fixture(params=[64, 128], ids=["rows64", "rows128"])
 def plan_rows(request, monkeypatch):
-    """Force the forward's and the dk/dv kernel's plans: 64-row blocks (a
-    card of many SMs) or 128-row blocks, two consumer warpgroups (a card
-    of one SM)."""
+    """Force the forward's, the dq kernel's and the dk/dv kernel's plans:
+    64-row blocks (a card of many SMs) or 128-row blocks, two consumer
+    warpgroups (a card of one SM)."""
     sms = 10 ** 9 if request.param == 64 else 1
     monkeypatch.setattr(fa, "_sm_count", lambda device: sms)
     return request.param
@@ -162,10 +162,15 @@ def _bwd_case(cuda, shape, causal, layout):
 def test_bwd_kernels_match_plain(cuda, plan_rows, S, D, causal, layout):
     """dq, dk, dv of the two backward kernels within chip_smoke.py's
     per-element bound of the plain backward on the same (o, lse, do), at
-    both dk/dv plans (64-row blocks only at D = 128); S = 1000 walks 16 q
-    tiles, round the 4-slot ring four times, the last one ragged."""
+    both plans of each (dq: 128-row blocks only at D = 128, dk/dv: only
+    below it); S = 1000
+    walks 16 tiles, round each 4-slot ring four times, the last one
+    ragged."""
     B, H = 2, 3
-    rows = fa._bwd_plan(B, H, S, D, fa._sm_count(None)).block_n
+    sms = fa._sm_count(None)
+    assert fa._dq_plan(B, H, S, D, sms).block_m == (
+        plan_rows if D == 128 else 64)
+    rows = fa._bwd_plan(B, H, S, D, sms).block_n
     assert rows == (64 if D == 128 else plan_rows)
     shape = (B, S, H, D) if layout == "bshd" else (B, H, S, D)
     res, do = _bwd_case(cuda, shape, causal, layout)
@@ -187,6 +192,37 @@ def test_bwd_kernels_match_plain(cuda, plan_rows, S, D, causal, layout):
         assert g.dtype == torch.bfloat16 and g.shape == shape
         tol = G_RTOL * r.float().abs() + G_PTOL[name] * m
         assert ((tr(g).float() - r.float()).abs() <= tol).all(), name
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_bwd_mask_past_s_with_overflowing_lse(cuda, plan_rows, D):
+    """Scores near -100 (natural log) everywhere, so lse ~ -100 and
+    2^(-lse log2 e) overflows f32: the k rows past S of the last tile
+    (S % 64 != 0), read as zeros with s = 0, must be masked, or inf * 0
+    turns dq into NaN.  Gradients finite and within their bound."""
+    B, H, S = 2, 3, 100
+    g = cuda
+    q = (2.5 + 0.1 * torch.randn((B, S, H, D), generator=g, device="cuda"))
+    k = (-5.0 + 0.1 * torch.randn((B, S, H, D), generator=g, device="cuda"))
+    q, k = (x * (100.0 / 12.5 / D ** 0.5) ** 0.5 for x in (q, k))
+    v, do = (torch.randn((B, S, H, D), generator=g, device="cuda")
+             for _ in range(2))
+    q, k, v, do = (x.to(torch.bfloat16) for x in (q, k, v, do))
+    for causal in (False, True):
+        o, res = fa._flash_fwd_bshd(q, k, v, causal, None, None, None)
+        lse = res[4]
+        assert lse.max().item() < -90
+        grads = fa._flash_bwd_bshd(causal, None, None, None, res, do)
+        qh, kh, vh, oh, doh = (t.transpose(1, 2) for t in (q, k, v, o, do))
+        scale = D ** -0.5
+        ref = fa._reference_attention_bwd(qh, kh, vh, oh, lse, doh, scale,
+                                          causal)
+        mags = bwd_magnitudes(qh, kh, vh, oh, lse, doh, scale, causal)
+        for name, gr, r, m in zip(("dq", "dk", "dv"), grads, ref, mags):
+            assert torch.isfinite(gr).all(), name
+            tol = G_RTOL * r.float().abs() + G_PTOL[name] * m
+            diff = (gr.transpose(1, 2).float() - r.float()).abs()
+            assert (diff <= tol).all(), name
 
 
 def test_bwd_given_lse_and_delta_are_used(cuda):

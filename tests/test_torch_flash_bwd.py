@@ -261,6 +261,44 @@ def test_bwd_plan_at_the_training_shape():
     assert tfa._bwd_plan(1, 12, 1024, 64, sms=96).block_n == 128
 
 
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("B,H,S,sms", BWD_PLAN_SHAPES)
+def test_dq_plan(B, H, S, sms, D):
+    """The dq kernel's plan: shared memory within Hopper's 227 KB a block;
+    two consumer warpgroups (128 q rows) only at D = 128 and where
+    B·H·⌈S/128⌉ blocks still give each SM one; q blocks that cover S and
+    no more; four ring slots; the swizzle that keeps a box row within 128
+    bytes; the layout of csrc/flash_bwd.cu's DqSmem (the block's q and do tiles, the ring's
+    k and v tiles, the barriers, 1024 bytes of alignment slack)."""
+    plan = tfa._dq_plan(B, H, S, D, sms)
+    assert plan.smem_bytes <= tfa.SMEM_PER_BLOCK == 227 * 1024
+    two = D == 128 and B * H * -(-S // 128) >= sms
+    assert plan.block_m == (128 if two else 64)
+    assert (plan.q_blocks - 1) * plan.block_m < S <= \
+        plan.q_blocks * plan.block_m
+    assert plan.stages == 4 and plan.swizzle == min(D * 2, 128)
+    tile = 64 * D * 2
+    q_and_do = 2 * plan.block_m // 64 * tile
+    ring = plan.stages * 2 * tile
+    assert plan.smem_bytes == (q_and_do + ring + 8 * (1 + 2 * plan.stages)
+                               + 1024)
+    if sms == tfa.H100_SMS:
+        assert tfa._dq_plan(B, H, S, D) == plan
+
+
+def test_dq_plan_at_the_training_shape():
+    """Training (B=16, S=1024, D=64) takes 64-row blocks, 16 q blocks a
+    (batch, head): two blocks share an SM.  At D = 128 one sequence of 32
+    heads takes 128-row blocks (512 of them), and one of 8 heads (64 on
+    132 SMs) 64-row ones, 128 again on a card of 64 SMs."""
+    train = tfa._dq_plan(16, 12, 1024, 64)
+    assert (train.block_m, train.q_blocks) == (64, 16)
+    assert tfa._dq_plan(1, 12, 1024, 64, sms=1).block_m == 64
+    assert tfa._dq_plan(1, 32, 2048, 128).block_m == 128
+    assert tfa._dq_plan(1, 8, 1024, 128).block_m == 64
+    assert tfa._dq_plan(1, 8, 1024, 128, sms=64).block_m == 128
+
+
 @pytest.mark.parametrize("name", ["base", "pipeline", "dp_with_s",
                                   "dp_first", "offset", "stages3",
                                   "stages5", "grid_hbn", "grid_n_fast"])
@@ -277,3 +315,18 @@ def test_flash_bwd_ab_patches_match_the_kernel(name):
     assert src.count("TICK(p") == 7 * phases
     if name != "base":
         assert src != flash_bwd_ab.variant_source("base", phases)
+
+
+@pytest.mark.parametrize("name", ["base", "mask_select", "dp_with_s",
+                                  "stages3", "stages5", "grid_m_fast",
+                                  "grid_hbm"])
+def test_flash_bwd_ab_dq_patches_match_the_kernel(name):
+    """flash_bwd_ab.py's dq variants apply to csrc/flash_bwd.cu exactly
+    once, with and without the dq phase counters."""
+    import flash_bwd_ab
+
+    for phases in (False, True):
+        src = flash_bwd_ab.variant_source(name, phases, "dq")
+        assert src.count("TICK(p") == 7 * phases
+        if name != "base":
+            assert src != flash_bwd_ab.variant_source("base", phases, "dq")
