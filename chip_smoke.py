@@ -20,8 +20,9 @@ Phases; any failure exits non-zero:
 2. kernels — the flash-attention forward kernel against its plain version
    (``_reference_attention``) on the card in bf16, both layouts, causal on
    and off, at GPT-2 small shapes (B in {1, 4}, H=12, D=64, S in {128,
-   1000, 1024}), at D=128 (H=32, S=2048), at D=32, and at the training
-   shape (B=16, S=1024, bshd); max abs errors beside their tolerances,
+   1000, 1024}), at D=128 (H=32, S=2048), at D=32, at the training
+   shape (B=16, S=1024, bshd) and at Llama-2's full context (B=1, H=32,
+   S=4096, D=128, bshd); max abs errors beside their tolerances,
    each case's plan (q rows a block, ring slots), kernel / plain /
    library times (CUDA events after warm-up) and the kernel's bound; the
    host time of a launch's tensor-map encodes;
@@ -46,13 +47,27 @@ Phases; any failure exits non-zero:
    B=4, S=1024 with the kernels against ``attention="dense"``; then one
    warm-up step and 10 timed steps at B=16, S=1024 on one batch, whose
    losses must be finite and fall, with exactly ``n_layer`` launches of
-   each kernel per step; ms per step, tokens/s, MFU and peak memory.
+   each kernel per step; ms per step, tokens/s, MFU and peak memory;
+5. llama — Llama-2 7B (``LLAMA_7B``: 32 layers, E=4096, 32 heads of
+   D=128, vocab 32000, max_seq 4096; random weights from ``--seed``, cast
+   once by ``serving_params``) in the port's ``Replica`` hosting
+   ``LlamaServer``: the logits of the uncached forward (the kernel,
+   ``n_layer`` launches, each layer's output held against the plain
+   version on the same q, k, v) against the dense cached branch of the
+   same module at S=2048; greedy requests with prompts of 128 and 2000 tokens
+   (32 new tokens each) and a seeded one at temperature 0.8, all through
+   ``generate``, which must launch no kernel (its attention is the dense
+   cached branch, as in the reference); per request the prefill ms (a
+   one-token request), ms per decoded token and tokens/s, beside the
+   decode step's memory bound; the uncached forward at S=2048 and 4096
+   and a decode step, as issued and as device work (the decode step's
+   from a profiler trace); peak memory.
 
 The last two lines are a JSON object of per-kernel numbers and the
 result line ``{"ok": true, "device": {...}}``.  ``--profile`` adds
 ``torch.profiler`` tables of device time by kernel for a forward at
-S=1024 and a train step, each with the device's idle share over the
-traced calls.
+S=1024, a train step, a Llama forward at S=2048 and a Llama decode step,
+each with the device's idle share over the traced calls.
 
 Precision: TF32 is off for matmuls and cuDNN
 (``torch.backends.cuda.matmul.allow_tf32 = False``,
@@ -65,7 +80,9 @@ head) run in full f32 and bf16 GEMMs accumulate in f32, as the JAX model's
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
+import gc
 import json
 import math
 import re
@@ -78,7 +95,7 @@ from dataclasses import replace
 import torch
 import torch.nn.functional as F
 
-from ray_tpu_torch.models import gpt2
+from ray_tpu_torch.models import gpt2, llama
 from ray_tpu_torch.native import build
 from ray_tpu_torch.ops import flash_attention as fa
 from ray_tpu_torch.serve import Replica
@@ -125,6 +142,16 @@ G_PTOL = {"dq": 2.0 ** -6, "dk": 2.0 ** -6, "dv": 2.0 ** -7}
 # is held with ~4x room or more.
 TRAIN_LOSS_TOL = 1e-3        # absolute, on a loss of ~11
 TRAIN_GRAD_REL_TOL = 5e-2    # ||g - g_dense|| / ||g_dense|| per leaf
+# Llama-2 7B logits at S=2048, the kernel (uncached forward) vs the dense
+# cached branch.  32 bf16 layers amplify any change in how attention
+# rounds: on the card the plain attention in f32, uncached, parts from the
+# dense cached branch by ||diff|| / ||logits|| 4.0e-2 and max |diff| 0.31
+# (this phase prints it), the kernel, which also rounds p to bf16, by
+# 5.3e-2 and 0.43.  Held with ~2x room.  The kernel's own error is held per
+# layer, on the model's q, k, v, against the plain version with phase 2's
+# o tolerance.
+LLAMA_LOGITS_REL_TOL = 0.1
+LLAMA_LOGITS_TOL = 1.0
 
 
 def set_precision():
@@ -166,6 +193,41 @@ class Generator:
         for _ in range(int((request or {}).get("max_tokens", 8))):
             tokens.append(self._next_token(tokens))
             yield {"token": tokens[-1]}
+
+
+class LlamaServer:
+    """Llama generation behind a Serve replica — port of the deployment
+    in ``tests/test_serve.py`` (``test_llama_generate_deployment``).  A
+    request ``{"prompt_tokens": [...], "max_new_tokens": n,
+    "temperature": t, "seed": s}`` returns ``{"tokens": prompt + n new
+    tokens}`` from ``llama.generate`` (static KV cache, B=1); a request at
+    ``temperature > 0`` samples with a generator seeded from ``seed``.
+    Weights are random from ``seed`` and cast once by
+    ``serving_params``."""
+
+    def __init__(self, cfg_name: str = "7b", device: str = "cuda",
+                 seed: int = 0):
+        if torch.device(device).type == "cuda":
+            set_precision()
+        self.cfg = getattr(llama, f"LLAMA_{cfg_name.upper()}")
+        self.device = device
+        gen = torch.Generator(device=device).manual_seed(seed)
+        self.params = llama.serving_params(
+            llama.init_params(gen, self.cfg, device=device), self.cfg)
+
+    def __call__(self, request):
+        prompt = torch.tensor([request["prompt_tokens"]], dtype=torch.long,
+                              device=self.device)
+        temperature = float(request.get("temperature", 0.0))
+        gen = None
+        if temperature > 0.0:
+            gen = torch.Generator(device=self.device).manual_seed(
+                int(request.get("seed", 0)))
+        toks = llama.generate(
+            self.params, prompt, self.cfg,
+            max_new_tokens=int(request.get("max_new_tokens", 4)),
+            temperature=temperature, generator=gen)
+        return {"tokens": toks[0].tolist()}
 
 
 # ---------------------------------------------------------------------------
@@ -214,6 +276,8 @@ BWD_WORK = {"dq": (3, 5, 2), "dkv": (4, 6, 2), "pair": (5, 7, 2)}
 
 #: (B, H, S, D) of a GPT-2 124M train step at B=16, S=1024
 TRAIN_SHAPE = (16, 12, 1024, 64)
+#: (B, H, S, D) of a Llama-2 7B forward at its full context
+LLAMA_SHAPE = (1, 32, 4096, 128)
 
 
 def card_line() -> str:
@@ -383,7 +447,7 @@ def phase_kernels(seed):
              for layout in ("bshd", "bhsd")]
     cases += [(1, 32, 2048, 128, layout) for layout in ("bshd", "bhsd")]
     cases += [(2, 4, 100, 32, layout) for layout in ("bshd", "bhsd")]
-    cases += [TRAIN_SHAPE + ("bshd",)]
+    cases += [TRAIN_SHAPE + ("bshd",), LLAMA_SHAPE + ("bshd",)]
     served = None
     worst = 0.0
     for B, H, S, D, layout in cases:
@@ -444,8 +508,9 @@ def phase_kernels(seed):
                       f"({bound_by}); tensor-map encode "
                       f"{encode_us(q, k, v, layout):.3f} us of host "
                       f"time per launch (3 maps)", flush=True)
-            if (B, H, S, D) == TRAIN_SHAPE:
-                print(f"[kernel] training shape, causal={int(causal)}: "
+            if (B, H, S, D) in (TRAIN_SHAPE, LLAMA_SHAPE):
+                label = "training" if (B, H, S, D) == TRAIN_SHAPE else "llama"
+                print(f"[kernel] {label} shape, causal={int(causal)}: "
                       f"kernel_ms={ms:.4f} library_ms={lib_ms:.4f} "
                       f"bound_ms={bound:.5f} ({bound_by})", flush=True)
     served["max_abs_err"] = worst
@@ -826,6 +891,233 @@ def phase_train(seed, profile):
     return launches
 
 
+def tree_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size()
+
+
+def decode_bound(params, cfg):
+    """(least ms of one decode step at B=1, the same with the reference's
+    f32 copy of the cache): every weight read once but the embedding
+    table, of which one row; the whole bf16 k/v cache read once, as the
+    dense branch attends over every slot; the reference's arithmetic also
+    writes and reads an f32 copy of the cache."""
+    emb = params["embed_tokens"]["embedding"]
+    weights = (tree_bytes(params) - emb.numel() * emb.element_size()
+               + emb.shape[1] * emb.element_size())
+    cache = 2 * cfg.n_layer * cfg.max_seq * cfg.n_kv_head * cfg.head_dim * 2
+    t = (weights + cache) / PEAK_BYTES_PER_S * 1e3
+    return t, t + 2 * (2 * cache) / PEAK_BYTES_PER_S * 1e3
+
+
+def llama_forward_flops(cfg, n_params, S):
+    """Operations of one uncached forward over S tokens: 2 per matmul
+    weight and token (the embedding is a gather) and the causal attention
+    products (2 x 2 S^2 E / 2 a layer)."""
+    matmul = n_params - cfg.vocab_size * cfg.n_embd
+    return 2 * matmul * S + 2 * cfg.n_layer * S * S * cfg.n_embd
+
+
+def plain_bshd(q, k, v, causal):
+    """The kernel's plain version over (B, S, H, D)."""
+    tr, scale = fa._tr, q.shape[-1] ** -0.5
+    return tr(fa._reference_attention(tr(q), tr(k), tr(v), scale,
+                                      causal)[0])
+
+
+@contextlib.contextmanager
+def llama_attention(fn):
+    """Llama's uncached branch calls ``fn`` in place of
+    ``flash_attention_bshd`` inside the block; yields the kernel's
+    wrapper."""
+    kernel = llama.flash_attention_bshd
+    llama.flash_attention_bshd = fn
+    try:
+        yield kernel
+    finally:
+        llama.flash_attention_bshd = kernel
+
+
+def llama_forward_checked(params, tokens, cfg):
+    """An uncached forward (the kernel in every layer) whose every
+    attention output is also held against the plain version on the same
+    q, k, v with phase 2's o tolerance: (logits, largest err / tol)."""
+    worst = 0.0
+
+    def checked(q, k, v, causal):
+        nonlocal worst
+        o = kernel(q, k, v, causal)
+        ref = plain_bshd(q, k, v, causal)
+        mag = plain_bshd(q, k, v.abs(), causal)
+        tol = O_RTOL * ref.float().abs() + O_PTOL * mag.float()
+        worst = max(worst, ((o.float() - ref.float()).abs() / tol).max()
+                    .item())
+        return o
+
+    with llama_attention(checked) as kernel:
+        logits, _ = llama.forward(params, tokens, cfg)
+    return logits, worst
+
+
+def logits_distance(a, b):
+    """(max |a - b|, ||a - b|| / ||b||, share of positions whose argmax
+    agrees)."""
+    return ((a - b).abs().max().item(), ((a - b).norm() / b.norm()).item(),
+            (a.argmax(-1) == b.argmax(-1)).float().mean().item())
+
+
+def phase_llama(seed, profile):
+    """Llama-2 7B in Replica; returns the forward kernel's launches in the
+    phase's main path (the kernel check's uncached forward, the cached
+    forward and the requests)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[llama] device memory in use before the model: "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    cfg = llama.LLAMA_7B
+    t0 = time.perf_counter()
+    replica = Replica(LlamaServer, ("7b", "cuda", seed), {})
+    srv = replica._callable
+    params = srv.params
+    torch.cuda.synchronize()
+    n = llama.num_params(params)
+    print(f"[llama] LLAMA_7B: {n} params, {tree_bytes(params) / 1e9:.2f} GB "
+          f"as served (bf16, lm head f32), replica up in "
+          f"{time.perf_counter() - t0:.2f} s; memory in use "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB, peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB (the f32 tree "
+          f"before the cast)", flush=True)
+
+    rng = torch.Generator().manual_seed(seed + 4)
+    V, S = cfg.vocab_size, 2048
+    tokens = torch.randint(0, V, (1, S), generator=rng).to("cuda")
+    prompts = {L: torch.randint(0, V, (L,), generator=rng).tolist()
+               for L in (16, 128, 2000)}
+
+    # the kernel (uncached forward, each layer's attention held against
+    # the plain version) against the dense cached branch, and the plain
+    # attention's own distance from that branch
+    reset_launches()
+    with torch.inference_mode():
+        lk, o_ratio = llama_forward_checked(params, tokens, cfg)
+        uncached = fa.KERNEL_LAUNCHES
+        caches = llama.init_cache(cfg, 1)
+        cache_gb = 2 * sum(c[0].numel() * 2 for c in caches) / 1e9
+        ld, _ = llama.forward(params, tokens, cfg, caches, 0)
+        cached = fa.KERNEL_LAUNCHES - uncached
+        del caches
+        with llama_attention(plain_bshd):
+            lp, _ = llama.forward(params, tokens, cfg)
+    torch.cuda.synchronize()
+    if (lk.shape != (1, S, V) or not torch.isfinite(lk).all()
+            or not torch.isfinite(ld).all()):
+        fail(f"llama logits malformed: {tuple(lk.shape)}")
+    err, rel, agree = logits_distance(lk, ld)
+    p_err, p_rel, p_agree = logits_distance(lp, ld)
+    print(f"[llama] forward S={S}: the kernel's output in each of the "
+          f"{cfg.n_layer} layers vs the plain version on the same q, k, v: "
+          f"max o_err/tol {o_ratio:.3f} (tol {O_RTOL}*|o| + 2^-8*P@|v|, "
+          f"must be <= 1)", flush=True)
+    print(f"[llama] forward S={S}: logits kernel (uncached) vs dense cached "
+          f"branch ({cache_gb:.2f} GB bf16 cache): max abs err {err:.4e} "
+          f"(tol {LLAMA_LOGITS_TOL}), ||diff|| / ||logits|| {rel:.4e} (tol "
+          f"{LLAMA_LOGITS_REL_TOL}), argmax agrees at {agree:.2%} of "
+          f"positions; plain f32 attention (uncached) vs the same: "
+          f"{p_err:.4e}, {p_rel:.4e}, {p_agree:.2%}; |logits| max "
+          f"{ld.abs().max().item():.3f} std {ld.std().item():.3f}; kernel "
+          f"launches: uncached {uncached} (n_layer {cfg.n_layer}), cached "
+          f"{cached}", flush=True)
+    del lk, ld, lp
+    if o_ratio > 1:
+        fail("the kernel disagrees with the plain version inside the model")
+    if err > LLAMA_LOGITS_TOL or rel > LLAMA_LOGITS_REL_TOL:
+        fail("llama logits with the kernel disagree with the dense branch")
+    if uncached != cfg.n_layer or cached:
+        fail("the uncached forward did not launch the kernel once per "
+             "layer, or the cached one launched it")
+
+    # serving through Replica + generate (dense cached attention)
+    replica.handle_request({"prompt_tokens": prompts[16],
+                            "max_new_tokens": 2})          # warm-up
+    before = fa.KERNEL_LAUNCHES
+
+    def request(L, n_new, extra):
+        t = time.perf_counter()
+        out = replica.handle_request({"prompt_tokens": prompts[L],
+                                      "max_new_tokens": n_new, **extra})
+        dt = time.perf_counter() - t
+        toks = out["tokens"]
+        if (len(toks) != L + n_new or toks[:L] != prompts[L]
+                or not all(0 <= x < V for x in toks[L:])):
+            fail(f"llama request with a {L}-token prompt returned "
+                 f"{toks[L:]}")
+        return toks, dt
+
+    bound, bound_f32 = decode_bound(params, cfg)
+    sampled = {"temperature": 0.8, "seed": seed}
+    for label, L, extra in (("greedy", 128, {}), ("greedy", 2000, {}),
+                            ("temperature 0.8", 128, sampled)):
+        _, prefill = request(L, 1, extra)
+        toks, dt = request(L, 32, extra)
+        per_token = (dt - prefill) / 31
+        print(f"[llama] {label}, prompt {L}: prefill {prefill * 1e3:.1f} ms "
+              f"(a one-token request), 32 tokens in {dt * 1e3:.1f} ms = "
+              f"{32 / dt:.2f} tokens/s, {per_token * 1e3:.2f} ms per decoded "
+              f"token (memory bound {bound:.2f} ms; {bound_f32:.2f} ms with "
+              f"the reference's f32 copy of the cache); new tokens "
+              f"{toks[L:L + 8]}...", flush=True)
+        if extra:
+            again, _ = request(L, 32, extra)
+            print(f"[llama] temperature 0.8, seed {seed}: the same tokens "
+                  f"again: {again == toks}", flush=True)
+            if again != toks:
+                fail("sampled generate is not reproducible under one seed")
+    launches = fa.KERNEL_LAUNCHES
+    print(f"[llama] kernel launches in generate: {launches - before} (must "
+          f"be 0: dense cached attention); in the phase's main path: "
+          f"{launches}; replica stats {replica.stats()}", flush=True)
+    if launches != before:
+        fail("generate launched the flash kernel")
+
+    # the uncached forward and a decode step, as issued and as device work
+    with torch.inference_mode():
+        for S in (2048, 4096):
+            x = torch.randint(0, V, (1, S), generator=rng).to("cuda")
+            fwd = lambda: llama.forward(params, x, cfg)  # noqa: E731
+            wall_ms = time_ms(fwd, iters=5, warmup=2, hold_ms=0)
+            dev_ms = time_ms(fwd, iters=5, warmup=1, hold_ms=250)
+            tflops = llama_forward_flops(cfg, n, S) / dev_ms / 1e9
+            print(f"[llama] uncached forward S={S}, B=1: {wall_ms:.3f} ms as "
+                  f"issued, {dev_ms:.3f} ms of device work (CUDA events); "
+                  f"device idle {1 - dev_ms / wall_ms:.1%} of the issued "
+                  f"time; {tflops:.1f} TFLOP/s", flush=True)
+        caches = llama.init_cache(cfg, 1)
+        tok = torch.randint(0, V, (1, 1), generator=rng).to("cuda")
+        pos = torch.full((1, 1), 2000, device="cuda")
+
+        def step():
+            return llama.forward(params, tok, cfg, caches, 2000, pos)
+
+        wall_ms = time_ms(step, iters=10, hold_ms=0)
+        # ~2,500 launches a step outrun a held stream: device time from
+        # the profiler's trace instead
+        dev_ms = print_profile(step, 15 if profile else 0,
+                               "llama decode step B=1", calls=3)
+        print(f"[llama] decode step (S=1 at position 2000, B=1): "
+              f"{wall_ms:.3f} ms as issued (CUDA events), {dev_ms:.3f} ms of "
+              f"device work (profiler); memory bound {bound:.3f} ms "
+              f"({bound_f32:.3f} with the f32 cache copy)", flush=True)
+        if profile:
+            print_profile(lambda: llama.forward(params, x[:, :2048], cfg),
+                          15, "llama forward S=2048 B=1", calls=2)
+        del caches
+    print(f"[llama] peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f}"
+          f" GB; card {card_line()}", flush=True)
+    return launches
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -844,12 +1136,14 @@ def main():
     bwd = phase_bwd_kernels(args.seed)
     serve_launches = phase_serve(args.seed, args.profile)
     train = phase_train(args.seed, args.profile)
+    llama_launches = phase_llama(args.seed, args.profile)
     print(card_line())
     src = "ray_tpu/ops/flash_attention.py"
     rows = [
         ("flash_fwd", "flash_fwd.cu", f"{src}:443", [f"{src}:192"], kern,
-         serve_launches + train["flash_fwd"],
-         {"serve": serve_launches, "train": train["flash_fwd"]}),
+         serve_launches + train["flash_fwd"] + llama_launches,
+         {"serve": serve_launches, "train": train["flash_fwd"],
+          "llama": llama_launches}),
         ("flash_bwd_dq", "flash_bwd.cu", f"{src}:213",
          [f"{src}:203", f"{src}:463"], bwd["dq"], train["flash_bwd_dq"],
          {"train": train["flash_bwd_dq"]}),

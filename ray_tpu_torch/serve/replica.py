@@ -2,10 +2,11 @@
 
 Port of ``ray_tpu/serve/replica.py``: admission against
 ``max_ongoing_requests``, ``handle_request`` and its streaming variant,
-``stats``, ``reconfigure`` and ``check_health``.  The deployment
-definition is the class or function itself, or bytes made by the stdlib
-``pickle`` (not cloudpickle).  The telemetry, tracing and chaos hooks of
-the JAX replica are not ported yet (ROADMAP).
+``stats``, ``multiplexed_model_ids``, ``reconfigure`` and
+``check_health``.  The deployment definition is the class or function
+itself, or bytes made by the stdlib ``pickle`` (not cloudpickle).  The
+telemetry, tracing and chaos hooks of the JAX replica are not ported yet
+(ROADMAP).
 """
 
 from __future__ import annotations
@@ -92,6 +93,18 @@ class Replica:
         finally:
             _model_id_ctx.reset(token)
             self._release()
+
+    def multiplexed_model_ids(self) -> list:
+        """Model ids currently loaded by any @multiplexed method on this
+        replica (the reference broadcasts these to the router for
+        affinity)."""
+        out = []
+        cal = self._callable
+        for name in dir(type(cal)):
+            attr = getattr(type(cal), name, None)
+            if callable(attr) and getattr(attr, "_serve_multiplexed", False):
+                out.extend(attr._serve_model_ids(cal))
+        return out
 
     # ------------------------------------------------------------- control
 

@@ -1,5 +1,6 @@
 """The CUDA flash-attention kernels on the card, against their plain
-versions, and a GPT-2 train step through them.
+versions, a GPT-2 train step through them, and a small Llama whose
+uncached forward runs the forward kernel.
 
 Marked ``cuda``: every test skips where there is no CUDA device.  On a
 machine with one (no JAX needed, hence ``--noconftest``):
@@ -14,8 +15,8 @@ from dataclasses import replace
 import pytest
 import torch
 
-from chip_smoke import G_PTOL, G_RTOL, bwd_magnitudes
-from ray_tpu_torch.models import gpt2
+from chip_smoke import G_PTOL, G_RTOL, LOGITS_TOL, bwd_magnitudes
+from ray_tpu_torch.models import gpt2, llama
 from ray_tpu_torch.ops import flash_attention as fa
 
 pytestmark = pytest.mark.cuda
@@ -295,3 +296,30 @@ def test_gpt2_tiny_train_step_on_card(cuda):
     after = (fa.KERNEL_LAUNCHES, fa.BWD_DQ_LAUNCHES, fa.BWD_DKV_LAUNCHES)
     assert [a - b for a, b in zip(after, before)] == [5 * cfg.n_layer] * 3
     assert all(map(math.isfinite, losses)) and losses[-1] < losses[0]
+
+
+def test_llama_d128_gqa_kernel_matches_dense_branch(cuda):
+    """A 2-layer Llama at D = 128 with 4 query heads on 2 kv heads: the
+    uncached forward (the kernel, once a layer, on RoPE'd q and repeated
+    k, v) against the dense cached branch of the same module, and no
+    launch in the cached forward or in ``generate``.  Tolerance: GPT-2's
+    kernel-vs-dense logits bound (bf16 layers; a CPU emulation of the
+    kernel's bf16 p gave 0.018-0.020 on logits of max ~2)."""
+    cfg = llama.LlamaConfig(vocab_size=512, n_layer=2, n_head=4,
+                            n_kv_head=2, n_embd=512, intermediate=1024,
+                            max_seq=256)
+    params = llama.serving_params(llama.init_params(cuda, cfg), cfg)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 200), generator=cuda,
+                           device="cuda")
+    before = fa.KERNEL_LAUNCHES
+    flash, _ = llama.forward(params, tokens, cfg)
+    assert fa.KERNEL_LAUNCHES == before + cfg.n_layer
+    dense, caches = llama.forward(params, tokens, cfg,
+                                  llama.init_cache(cfg, 2), 0)
+    assert flash.shape == (2, 200, cfg.vocab_size)
+    assert torch.isfinite(flash).all() and torch.isfinite(dense).all()
+    assert (flash - dense).abs().max().item() <= LOGITS_TOL
+    out = llama.generate(params, tokens[:, :50], cfg, 8)
+    assert fa.KERNEL_LAUNCHES == before + cfg.n_layer
+    assert out.shape == (2, 58) and torch.equal(out[:, :50], tokens[:, :50])
+    assert ((out >= 0) & (out < cfg.vocab_size)).all()
