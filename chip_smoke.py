@@ -21,16 +21,18 @@ Phases; any failure exits non-zero:
    (``_reference_attention``) on the card in bf16, both layouts, causal on
    and off, at GPT-2 small shapes (B in {1, 4}, H=12, D=64, S in {128,
    1000, 1024}), at D=128 (H=32, S=2048), at D=32, at the training
-   shape (B=16, S=1024, bshd) and at Llama-2's full context (B=1, H=32,
-   S=4096, D=128, bshd); max abs errors beside their tolerances,
+   shape (B=16, S=1024, bshd), at GPT-2 XL's (B=16, H=25, S=1024, bshd)
+   and at Llama-2's full context (B=1, H=32, S=4096, D=128, bshd); max abs
+   errors beside their tolerances,
    each case's plan (q rows a block, ring slots), kernel / plain /
    library times (CUDA events after warm-up) and the kernel's bound; the
    host time of a launch's tensor-map encodes;
 2b. backward kernels — the dq and dk/dv kernels against the plain
    backward (``_reference_attention_bwd``) on the same (o, lse, do), in
    bf16, both layouts, causal on and off, at the training shape (B=16,
-   H=12, S=1024, D=64), S=1000 (ragged), D=128 (H=32, S=2048) and D=32
-   (H=4, S=100); the dq and dk/dv plans of each case (rows a block, ring
+   H=12, S=1024, D=64), GPT-2 XL's (B=16, H=25, S=1024, D=64), S=1000
+   (ragged), D=128 (H=32, S=2048) and D=32 (H=4, S=100); the dq and dk/dv
+   plans of each case (rows a block, ring
    slots), the largest |err| / tolerance per gradient, each kernel's
    time, their bound, the plain time and the library's
    (``scaled_dot_product_attention``'s backward, timed only: the whole
@@ -61,13 +63,33 @@ Phases; any failure exits non-zero:
    one-token request), ms per decoded token and tokens/s, beside the
    decode step's memory bound; the uncached forward at S=2048 and 4096
    and a decode step, as issued and as device work (the decode step's
-   from a profiler trace); peak memory.
+   from a profiler trace); peak memory;
+6. moe — GPT-2 124M widths with 8 experts, top-2, capacity factor 1.5
+   (``replace(GPT2_SMALL, moe_experts=8)``, random from ``--seed``): served
+   through ``Replica`` hosting ``Generator`` (phase 3's four requests;
+   ``n_layer`` launches a forward); loss and every leaf's gradient at B=4
+   with the kernels against dense attention, the kernels' run repeated
+   (bit for bit or not) and the share of token-choices routed otherwise
+   in the dense run; 10 AdamW steps at B=16, S=1024 after a warm-up, with
+   ``n_layer`` launches of each kernel per step and falling losses: ms
+   per step, tokens/s, peak memory, each step's aux loss and share of
+   token-choices dropped at capacity;
+7. xl — GPT-2 XL (``GPT2_XL``: 48 layers, E=1600, 25 heads, 1.56B
+   parameters, random from ``--seed``) with ``remat=True``: at B=1 the
+   loss and every leaf's gradient against the same without remat, and
+   with ``xent_chunks=8`` against the dense head; 3 timed AdamW steps at
+   B=16, S=1024 after a warm-up with the dense head, then 3 with
+   ``xent_chunks=8`` (launches 2 x 48 of the forward and 48 of each
+   backward kernel per step; falling losses; peak memory below the
+   card's): ms per step, tokens/s, MFU, peak memory; then one step at B=4
+   without remat and its peak memory.
 
 The last two lines are a JSON object of per-kernel numbers and the
 result line ``{"ok": true, "device": {...}}``.  ``--profile`` adds
 ``torch.profiler`` tables of device time by kernel for a forward at
-S=1024, a train step, a Llama forward at S=2048 and a Llama decode step,
-each with the device's idle share over the traced calls.
+S=1024, a train step, a Llama forward at S=2048, a Llama decode step, an
+MoE forward at S=1000 and train step, and an XL train step with each
+head, each with the device's idle share over the traced calls.
 
 Precision: TF32 is off for matmuls and cuDNN
 (``torch.backends.cuda.matmul.allow_tf32 = False``,
@@ -142,6 +164,29 @@ G_PTOL = {"dq": 2.0 ** -6, "dk": 2.0 ** -6, "dv": 2.0 ** -7}
 # is held with ~4x room or more.
 TRAIN_LOSS_TOL = 1e-3        # absolute, on a loss of ~11
 TRAIN_GRAD_REL_TOL = 5e-2    # ||g - g_dense|| / ||g_dense|| per leaf
+# GPT-2 124M with 8 experts, kernels vs dense attention at B=4 (bf16).  A
+# token whose top-2 router probabilities lie within the two attentions'
+# rounding of each other routes to another expert in one run, and that
+# token's residual then differs by a whole expert's output, which moves
+# further routes downstream: on the card 0.16% of token-choices in layer 0
+# and 9.6% in layer 11 routed otherwise, and gradients parted by up to
+# 0.49 per leaf (phase 6 prints the share).  So the dense run replays the
+# kernels' run's expert choices (``pinned_routes``; the choices carry no
+# gradient) and the two are held as phase 4 holds the dense FFN.
+MOE_LOSS_TOL = TRAIN_LOSS_TOL
+MOE_GRAD_REL_TOL = TRAIN_GRAD_REL_TOL
+# GPT-2 XL with remat against without, both through the kernels: the
+# forward is the same arithmetic and the backward recomputes each block on
+# the same inputs, so both agree to the last bit where every kernel of the
+# step is deterministic; held to 1e-3 per leaf.
+REMAT_LOSS_TOL = 1e-6
+REMAT_GRAD_REL_TOL = 1e-3
+# GPT-2 XL, xent_chunks=8 against the dense head (both with remat): the
+# head's f32 products over 128-row chunks sum in another order, and a
+# gradient rounded to bf16 otherwise at one element moves on through 48
+# bf16 layers; held as the kernels-vs-dense gradients are.
+CHUNK_LOSS_TOL = 1e-4
+CHUNK_GRAD_REL_TOL = 5e-2
 # Llama-2 7B logits at S=2048, the kernel (uncached forward) vs the dense
 # cached branch.  32 bf16 layers amplify any change in how attention
 # rounds: on the card the plain attention in f32, uncached, parts from the
@@ -163,13 +208,15 @@ def set_precision():
 class Generator:
     """Greedy next-token generator over GPT-2 with no KV cache — port of
     the deployment in ``examples/serve_llm.py``: each token is one full
-    ``forward`` over the sequence so far."""
+    ``forward`` over the sequence so far; ``moe_experts > 0`` serves the
+    mixture-of-experts model of the same widths."""
 
     def __init__(self, cfg_name: str = "small", device: str = "cuda",
-                 seed: int = 0):
+                 seed: int = 0, moe_experts: int = 0):
         if torch.device(device).type == "cuda":
             set_precision()
-        self.cfg = getattr(gpt2, f"GPT2_{cfg_name.upper()}")
+        self.cfg = replace(getattr(gpt2, f"GPT2_{cfg_name.upper()}"),
+                           moe_experts=moe_experts)
         self.device = device
         gen = torch.Generator(device=device).manual_seed(seed)
         self.params = gpt2.init_params(gen, self.cfg, device=device)
@@ -276,6 +323,8 @@ BWD_WORK = {"dq": (3, 5, 2), "dkv": (4, 6, 2), "pair": (5, 7, 2)}
 
 #: (B, H, S, D) of a GPT-2 124M train step at B=16, S=1024
 TRAIN_SHAPE = (16, 12, 1024, 64)
+#: (B, H, S, D) of a GPT-2 XL train step at B=16, S=1024
+XL_SHAPE = (16, 25, 1024, 64)
 #: (B, H, S, D) of a Llama-2 7B forward at its full context
 LLAMA_SHAPE = (1, 32, 4096, 128)
 
@@ -447,7 +496,8 @@ def phase_kernels(seed):
              for layout in ("bshd", "bhsd")]
     cases += [(1, 32, 2048, 128, layout) for layout in ("bshd", "bhsd")]
     cases += [(2, 4, 100, 32, layout) for layout in ("bshd", "bhsd")]
-    cases += [TRAIN_SHAPE + ("bshd",), LLAMA_SHAPE + ("bshd",)]
+    cases += [TRAIN_SHAPE + ("bshd",), XL_SHAPE + ("bshd",),
+              LLAMA_SHAPE + ("bshd",)]
     served = None
     worst = 0.0
     for B, H, S, D, layout in cases:
@@ -508,8 +558,9 @@ def phase_kernels(seed):
                       f"({bound_by}); tensor-map encode "
                       f"{encode_us(q, k, v, layout):.3f} us of host "
                       f"time per launch (3 maps)", flush=True)
-            if (B, H, S, D) in (TRAIN_SHAPE, LLAMA_SHAPE):
-                label = "training" if (B, H, S, D) == TRAIN_SHAPE else "llama"
+            label = {TRAIN_SHAPE: "training", XL_SHAPE: "xl",
+                     LLAMA_SHAPE: "llama"}.get((B, H, S, D))
+            if label:
                 print(f"[kernel] {label} shape, causal={int(causal)}: "
                       f"kernel_ms={ms:.4f} library_ms={lib_ms:.4f} "
                       f"bound_ms={bound:.5f} ({bound_by})", flush=True)
@@ -556,7 +607,7 @@ def phase_bwd_kernels(seed):
     training-shape records of the dq and dk/dv kernels."""
     gen = torch.Generator(device="cuda").manual_seed(seed + 2)
     train_shape = TRAIN_SHAPE
-    cases = [train_shape, (1, 12, 1000, 64), (1, 32, 2048, 128),
+    cases = [train_shape, XL_SHAPE, (1, 12, 1000, 64), (1, 32, 2048, 128),
              (1, 4, 100, 32)]
     worst = {"dq": 0.0, "dkv": 0.0}
     rec = {}
@@ -630,16 +681,19 @@ def phase_bwd_kernels(seed):
                 if not ok:
                     fail(f"backward kernels disagree with plain at B={B} "
                          f"H={H} S={S} D={D} {layout} causal={causal}")
-                if (B, H, S, D) == train_shape and layout == "bshd" \
-                        and causal:
-                    for n, t in (("dq", dq_ms), ("dkv", dkv_ms)):
-                        rec[n] = {"ms": t, "plain_ms": plain_ms,
-                                  "bound_ms": bounds[n][0],
-                                  "bound_by": bounds[n][1],
-                                  "library_ms": lib[n]}
-                    print(f"[bwd] training shape: dq bound "
+                label = {train_shape: "training", XL_SHAPE: "xl"}.get(
+                    (B, H, S, D))
+                if label and layout == "bshd" and causal:
+                    if label == "training":
+                        for n, t in (("dq", dq_ms), ("dkv", dkv_ms)):
+                            rec[n] = {"ms": t, "plain_ms": plain_ms,
+                                      "bound_ms": bounds[n][0],
+                                      "bound_by": bounds[n][1],
+                                      "library_ms": lib[n]}
+                    print(f"[bwd] {label} shape: dq {dq_ms:.4f} ms, bound "
                           f"{bounds['dq'][0]:.4f} ms ({bounds['dq'][1]}), "
-                          f"dk/dv bound {bounds['dkv'][0]:.4f} ms "
+                          f"dk/dv {dkv_ms:.4f} ms, bound "
+                          f"{bounds['dkv'][0]:.4f} ms "
                           f"({bounds['dkv'][1]}); library grad wrt q "
                           f"{lib['dq']:.4f} ms, wrt k, v {lib['dkv']:.4f} ms",
                           flush=True)
@@ -666,10 +720,8 @@ def phase_serve(seed, profile):
     print(f"[serve] GPT2_SMALL: {gpt2.num_params(gen_obj.params)} params, "
           f"replica up in {time.perf_counter() - t0:.2f} s", flush=True)
 
-    rng = torch.Generator().manual_seed(seed)
-    vocab = 50257  # GPT-2's real vocabulary; the padded rows stay reachable
-    prompts = {L: torch.randint(0, vocab, (L,), generator=rng).tolist()
-               for L in (16, 127, 500, 1000, 64)}
+    rng, prompts = serve_prompts(seed)
+    vocab = 50257
 
     # first forward: kernel vs plain (dense) attention
     x = torch.tensor([prompts[500]], dtype=torch.long, device="cuda")
@@ -686,23 +738,7 @@ def phase_serve(seed, profile):
     if l_err > LOGITS_TOL:
         fail("logits with the kernel disagree with dense attention")
 
-    replica.handle_request({"prompt": prompts[16], "max_tokens": 2})  # warm
-
-    reset_launches()
-    f0 = gen_obj.forwards
-    results = {}
-    for L in (16, 127, 500, 1000):
-        t = time.perf_counter()
-        out = replica.handle_request({"prompt": prompts[L], "max_tokens": 8})
-        dt = time.perf_counter() - t
-        toks = out["tokens"]
-        if (len(toks) != L + 8 or toks[:L] != prompts[L]
-                or not all(0 <= x < cfg.vocab_size for x in toks[L:])):
-            fail(f"request with a {L}-token prompt returned {toks[L:]}")
-        results[L] = toks
-        print(f"[serve] prompt {L}: 8 tokens in {dt * 1e3:.1f} ms = "
-              f"{8 / dt:.1f} tokens/s, {dt / 8 * 1e3:.3f} ms per forward "
-              f"(S={L}..{L + 7}); new tokens {toks[L:]}", flush=True)
+    f0, results = serve_requests(replica, gen_obj, prompts, "serve")
     t = time.perf_counter()
     items = list(replica.handle_request_stream(
         {"prompt": prompts[64], "max_tokens": 8}, method="stream"))
@@ -738,6 +774,39 @@ def phase_serve(seed, profile):
     if profile:
         profile_forward(gen_obj.params, x, cfg)
     return launches
+
+
+def serve_prompts(seed):
+    """Phase 3's prompts of 16, 127, 500, 1000 (and 64) tokens."""
+    rng = torch.Generator().manual_seed(seed)
+    vocab = 50257  # GPT-2's real vocabulary; the padded rows stay reachable
+    return rng, {L: torch.randint(0, vocab, (L,), generator=rng).tolist()
+                 for L in (16, 127, 500, 1000, 64)}
+
+
+def serve_requests(replica, gen_obj, prompts, tag):
+    """A warm-up request, then one of 8 new tokens at each prompt of 16,
+    127, 500 and 1000 tokens through ``handle_request``, each checked and
+    printed with its tokens/s; the launch counts are set to 0 after the
+    warm-up.  Returns (forwards before the four, tokens by prompt)."""
+    cfg = gen_obj.cfg
+    replica.handle_request({"prompt": prompts[16], "max_tokens": 2})  # warm
+    reset_launches()
+    f0 = gen_obj.forwards
+    results = {}
+    for L in (16, 127, 500, 1000):
+        t = time.perf_counter()
+        out = replica.handle_request({"prompt": prompts[L], "max_tokens": 8})
+        dt = time.perf_counter() - t
+        toks = out["tokens"]
+        if (len(toks) != L + 8 or toks[:L] != prompts[L]
+                or not all(0 <= x < cfg.vocab_size for x in toks[L:])):
+            fail(f"request with a {L}-token prompt returned {toks[L:]}")
+        results[L] = toks
+        print(f"[{tag}] prompt {L}: 8 tokens in {dt * 1e3:.1f} ms = "
+              f"{8 / dt:.1f} tokens/s, {dt / 8 * 1e3:.3f} ms per forward "
+              f"(S={L}..{L + 7}); new tokens {toks[L:]}", flush=True)
+    return f0, results
 
 
 def profile_forward(params, x, cfg):
@@ -808,57 +877,58 @@ def read_launches():
             "flash_bwd_dkv": fa.BWD_DKV_LAUNCHES}
 
 
-def train_grad_check(params, batch, cfg):
-    """Loss and every leaf's gradient with the kernels vs dense attention,
-    at full width."""
-    names, leaves = zip(*gpt2.named_leaves(params))
+def loss_and_grads(params, batch, cfg, xent_chunks=0):
+    """(loss, gradient of every leaf) of ``loss_fn`` through the cast."""
+    leaves = gpt2.param_leaves(params)
+    loss = gpt2.loss_fn(gpt2._cast_weights(params, cfg.compute_dtype), batch,
+                        cfg, xent_chunks)
+    return loss.item(), torch.autograd.grad(loss, leaves)
 
-    def loss_and_grads(c):
-        loss = gpt2.loss_fn(gpt2._cast_weights(params, c.compute_dtype),
-                            batch, c)
-        return loss.item(), torch.autograd.grad(loss, leaves)
 
-    lf, gf = loss_and_grads(cfg)
-    ld, gd = loss_and_grads(replace(cfg, attention="dense"))
-    rel = [((a - b).norm() / b.norm()).item() for a, b in zip(gf, gd)]
+def compare_grads(tag, what, names, a, b, loss_tol=None, rel_tol=None):
+    """Hold two (loss, gradients) against each other: |loss diff| <=
+    loss_tol and, per leaf, ||g_a - g_b|| / ||g_b|| <= rel_tol; without
+    tolerances, print the distance only."""
+    (la, ga), (lb, gb) = a, b
+    rel = [((x - y).norm() / y.norm()).item() for x, y in zip(ga, gb)]
     i = max(range(len(rel)), key=rel.__getitem__)
-    B, S = batch["tokens"].shape
-    print(f"[train] gradient check B={B} S={S - 1}: loss kernels {lf:.6f} "
-          f"dense {ld:.6f} |diff| {abs(lf - ld):.3e} (tol "
-          f"{TRAIN_LOSS_TOL}); largest ||g - g_dense|| / ||g_dense|| "
-          f"{rel[i]:.3e} at {names[i]} (tol {TRAIN_GRAD_REL_TOL}); median "
-          f"{sorted(rel)[len(rel) // 2]:.3e}", flush=True)
-    if not all(map(torch.isfinite, (torch.tensor(lf), torch.tensor(ld)))):
-        fail("train loss not finite")
-    if abs(lf - ld) > TRAIN_LOSS_TOL or rel[i] > TRAIN_GRAD_REL_TOL:
-        fail("gradients with the kernels disagree with dense attention")
+    print(f"[{tag}] {what}: loss {la:.6f} vs {lb:.6f} |diff| "
+          f"{abs(la - lb):.3e} (tol {loss_tol}); largest ||g - g_ref|| / "
+          f"||g_ref|| {rel[i]:.3e} at {names[i]} (tol {rel_tol}); median "
+          f"{sorted(rel)[len(rel) // 2]:.3e}; bit for bit: "
+          f"{all(torch.equal(x, y) for x, y in zip(ga, gb))}", flush=True)
+    if not (math.isfinite(la) and math.isfinite(lb)):
+        fail(f"{tag}: loss not finite")
+    if loss_tol is not None and (abs(la - lb) > loss_tol
+                                 or rel[i] > rel_tol):
+        fail(f"{tag}: {what} disagree")
 
 
-def phase_train(seed, profile):
-    """GPT-2 124M train steps at B=16, S=1024; returns the launches of the
-    10 timed steps."""
-    cfg = gpt2.GPT2_SMALL
-    B, S, steps = 16, 1024, 10
+def train_setup(cfg, seed, B, S):
+    """f32 master parameters from ``seed`` (every leaf requiring grad) and
+    a (B, S+1) batch of tokens of GPT-2's vocabulary."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     params = gpt2.init_params(gen, cfg, device="cuda")
-    leaves = gpt2.param_leaves(params)
-    for leaf in leaves:
+    for leaf in gpt2.param_leaves(params):
         leaf.requires_grad_(True)
     rng = torch.Generator().manual_seed(seed + 1)
     tokens = torch.randint(0, 50257, (B, S + 1), generator=rng).to("cuda")
-    batch = {"tokens": tokens}
+    return params, tokens
 
-    train_grad_check(params, {"tokens": tokens[:4]}, cfg)
 
-    opt = torch.optim.AdamW(leaves, lr=3e-4, betas=(0.9, 0.999), eps=1e-8,
-                            weight_decay=0.1)
-    step = gpt2.make_train_step(cfg, opt)
-    torch.cuda.reset_peak_memory_stats()
+def adamw(params, lr=3e-4):
+    """``bench.py``'s optimizer (lr 3e-4, weight decay 0.1), for torch."""
+    return torch.optim.AdamW(gpt2.param_leaves(params), lr=lr,
+                             betas=(0.9, 0.999), eps=1e-8, weight_decay=0.1)
+
+
+def timed_steps(step, params, batch, steps):
+    """A warm-up step, then ``steps`` steps between CUDA events with the
+    launch counts set to 0 first: (losses with the warm-up's first, ms per
+    step, launches of the timed steps, the warm-up's seconds)."""
     t0 = time.perf_counter()
-    first = step(params, batch)["loss"].item()   # warm-up
-    print(f"[train] warm-up step: loss {first:.4f} in "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
-
+    first = step(params, batch)["loss"].item()
+    warm_s = time.perf_counter() - t0
     reset_launches()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -866,9 +936,32 @@ def phase_train(seed, profile):
     out = [step(params, batch)["loss"] for _ in range(steps)]
     end.record()
     torch.cuda.synchronize()
-    launches = read_launches()
-    ms = start.elapsed_time(end) / steps
-    losses = [first] + [x.item() for x in out]
+    return ([first] + [x.item() for x in out],
+            start.elapsed_time(end) / steps, read_launches(), warm_s)
+
+
+def phase_train(seed, profile):
+    """GPT-2 124M train steps at B=16, S=1024; returns the launches of the
+    10 timed steps."""
+    cfg = gpt2.GPT2_SMALL
+    B, S, steps = 16, 1024, 10
+    params, tokens = train_setup(cfg, seed, B, S)
+    batch = {"tokens": tokens}
+
+    # loss and every leaf's gradient, kernels vs dense attention
+    small = {"tokens": tokens[:4]}
+    compare_grads("train", f"gradient check B=4 S={S}, kernels vs dense",
+                  [n for n, _ in gpt2.named_leaves(params)],
+                  loss_and_grads(params, small, cfg),
+                  loss_and_grads(params, small,
+                                 replace(cfg, attention="dense")),
+                  TRAIN_LOSS_TOL, TRAIN_GRAD_REL_TOL)
+
+    step = gpt2.make_train_step(cfg, adamw(params))
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms, launches, warm_s = timed_steps(step, params, batch, steps)
+    print(f"[train] warm-up step: loss {losses[0]:.4f} in {warm_s:.2f} s",
+          flush=True)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     tok_s = B * S / (ms / 1e3)
     mfu = tok_s * gpt2.count_flops_per_token(cfg, S) / PEAK_BF16_FLOPS
@@ -967,15 +1060,21 @@ def logits_distance(a, b):
             (a.argmax(-1) == b.argmax(-1)).float().mean().item())
 
 
+def free_memory(tag):
+    """Release what earlier phases left cached, print what stays in use
+    and set the peak to 0."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[{tag}] device memory in use before the model: "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+
+
 def phase_llama(seed, profile):
     """Llama-2 7B in Replica; returns the forward kernel's launches in the
     phase's main path (the kernel check's uncached forward, the cached
     forward and the requests)."""
-    gc.collect()
-    torch.cuda.empty_cache()
-    print(f"[llama] device memory in use before the model: "
-          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB", flush=True)
-    torch.cuda.reset_peak_memory_stats()
+    free_memory("llama")
     cfg = llama.LLAMA_7B
     t0 = time.perf_counter()
     replica = Replica(LlamaServer, ("7b", "cuda", seed), {})
@@ -1118,6 +1217,199 @@ def phase_llama(seed, profile):
     return launches
 
 
+@contextlib.contextmanager
+def moe_probe():
+    """Records each MoE FFN call's aux loss, expert choices (T, k) and
+    share of token-choices kept within capacity, as device tensors."""
+    rec = {"aux": [], "idx": [], "kept": []}
+    route, mlp = gpt2._moe_route, gpt2._moe_mlp
+
+    def route_spy(xt, router, cfg):
+        out = route(xt, router, cfg)
+        _, _, idx, pos, capacity = out
+        rec["idx"].append(idx)
+        rec["kept"].append((pos < capacity).float().mean())
+        return out
+
+    def mlp_spy(x, p, cfg):
+        y, aux = mlp(x, p, cfg)
+        rec["aux"].append(aux.detach())
+        return y, aux
+
+    gpt2._moe_route, gpt2._moe_mlp = route_spy, mlp_spy
+    try:
+        yield rec
+    finally:
+        gpt2._moe_route, gpt2._moe_mlp = route, mlp
+
+
+@contextlib.contextmanager
+def pinned_routes(choices):
+    """Each MoE FFN call takes the next of ``choices`` (a list of (T, k)
+    expert indices, one per call of an earlier run) in place of its own
+    top-k: gate values, capacity and the aux loss follow from them."""
+    top_k = gpt2._top_k
+    replay = iter(choices)
+    gpt2._top_k = lambda probs, k: next(replay)
+    try:
+        yield
+    finally:
+        gpt2._top_k = top_k
+
+
+def phase_moe(seed, profile):
+    """GPT-2 124M widths with 8 experts: served in Replica, then trained;
+    returns the launches of the requests and of the 10 timed steps."""
+    free_memory("moe")
+    replica = Replica(Generator, ("small", "cuda", seed), {"moe_experts": 8})
+    gen_obj = replica._callable
+    cfg = gen_obj.cfg
+    print(f"[moe] GPT2_SMALL with {cfg.moe_experts} experts, top-"
+          f"{cfg.moe_top_k}, capacity factor {cfg.moe_capacity_factor}: "
+          f"{gpt2.num_params(gen_obj.params)} params", flush=True)
+    _, prompts = serve_prompts(seed)
+    f0, _ = serve_requests(replica, gen_obj, prompts, "moe")
+    serve_launches = fa.KERNEL_LAUNCHES
+    forwards = gen_obj.forwards - f0
+    print(f"[moe] kernel launches {serve_launches} = n_layer {cfg.n_layer} "
+          f"x forwards {forwards}: "
+          f"{serve_launches == cfg.n_layer * forwards}", flush=True)
+    if forwards != 32 or serve_launches != cfg.n_layer * forwards:
+        fail("the MoE model's requests did not run the kernel once per "
+             "layer per forward")
+    if profile:
+        x = torch.tensor([prompts[1000]], device="cuda")
+        with torch.inference_mode():
+            print_profile(lambda: gpt2.forward(gen_obj.params, x, cfg), 15,
+                          "moe forward S=1000 B=1", calls=3)
+    del replica, gen_obj
+
+    B, S, steps = 16, 1024, 10
+    params, tokens = train_setup(cfg, seed, B, S)
+    names = [n for n, _ in gpt2.named_leaves(params)]
+    small = {"tokens": tokens[:4]}
+    dense_cfg = replace(cfg, attention="dense")
+    with moe_probe() as kernel_rec:
+        kernels = loss_and_grads(params, small, cfg)
+    with torch.no_grad(), moe_probe() as dense_rec:
+        gpt2.loss_fn(gpt2._cast_weights(params, cfg.compute_dtype), small,
+                     dense_cfg)
+    moved = torch.stack([(a != b).float().mean() for a, b in
+                         zip(kernel_rec["idx"], dense_rec["idx"])])
+    print(f"[moe] token-choices routed to another expert with dense "
+          f"attention, per layer: "
+          f"{' '.join(f'{x:.4f}' for x in moved.tolist())}", flush=True)
+    compare_grads("moe", f"determinism, B=4 S={S}: kernels vs the same "
+                  "again", names, kernels, loss_and_grads(params, small, cfg))
+    with pinned_routes(kernel_rec["idx"]):
+        dense = loss_and_grads(params, small, dense_cfg)
+    compare_grads("moe", f"gradient check B=4 S={S}, kernels vs dense with "
+                  "the kernels' expert choices", names, kernels, dense,
+                  MOE_LOSS_TOL, MOE_GRAD_REL_TOL)
+    del kernels, dense
+
+    step = gpt2.make_train_step(cfg, adamw(params))
+    torch.cuda.reset_peak_memory_stats()
+    with moe_probe() as rec:
+        losses, ms, launches, _ = timed_steps(step, params,
+                                              {"tokens": tokens}, steps)
+    L = cfg.n_layer
+    aux = torch.stack(rec["aux"]).view(steps + 1, L).mean(1).tolist()
+    dropped = (1 - torch.stack(rec["kept"]).view(steps + 1, L).mean(1)
+               ).tolist()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    tok_s = B * S / (ms / 1e3)
+    print(f"[moe] losses {' '.join(f'{x:.4f}' for x in losses)}; aux loss "
+          f"(mean over layers) {' '.join(f'{x:.4f}' for x in aux)}; "
+          f"token-choices dropped at capacity "
+          f"{' '.join(f'{x:.4f}' for x in dropped)}", flush=True)
+    print(f"[moe] B={B} S={S}: {ms:.3f} ms per step (CUDA events over "
+          f"{steps} steps), {tok_s:.1f} tokens/s, peak memory {peak_gb:.2f} "
+          f"GB; launches {launches} (n_layer {L} x {steps} each); card "
+          f"{card_line()}", flush=True)
+    if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
+        fail(f"MoE train losses not finite or not falling: {losses}")
+    if any(n != L * steps for n in launches.values()):
+        fail("an MoE train step did not launch each kernel once per layer")
+    if profile:
+        print_profile(lambda: step(params, {"tokens": tokens}), 30,
+                      f"moe train step B={B} S={S}", calls=2)
+    return serve_launches, launches
+
+
+def phase_xl(seed, profile):
+    """GPT-2 XL with remat: its gates at B=1, then timed steps at B=16,
+    S=1024 with the dense head and with 8 chunks, then one step at B=4
+    without remat; returns the launches of the timed steps."""
+    free_memory("xl")
+    cfg = replace(gpt2.GPT2_XL, remat=True)
+    B, S, steps = 16, 1024, 3
+    params, tokens = train_setup(cfg, seed, B, S)
+    names = [n for n, _ in gpt2.named_leaves(params)]
+    total_gb = torch.cuda.get_device_properties(0).total_memory / 1e9
+    print(f"[xl] GPT2_XL: {gpt2.num_params(params)} params, remat on; "
+          f"memory in use {torch.cuda.memory_allocated() / 1e9:.2f} GB of "
+          f"{total_gb:.2f}", flush=True)
+    one = {"tokens": tokens[:1]}
+    remat = loss_and_grads(params, one, cfg)
+    compare_grads("xl", f"B=1 S={S}, remat vs no remat", names, remat,
+                  loss_and_grads(params, one, replace(cfg, remat=False)),
+                  REMAT_LOSS_TOL, REMAT_GRAD_REL_TOL)
+    compare_grads("xl", f"B=1 S={S}, xent_chunks=8 vs the dense head",
+                  names, loss_and_grads(params, one, cfg, 8), remat,
+                  CHUNK_LOSS_TOL, CHUNK_GRAD_REL_TOL)
+    del remat
+
+    # a fresh AdamW moves every weight by ~lr a step, without warm-up; the
+    # 124M step at 3e-4 already rises once in its first 4 steps (phase 4),
+    # and GPT-3 trained its 1.3B model at 2e-4: XL takes 1e-4
+    opt = adamw(params, lr=1e-4)
+    L, launches = cfg.n_layer, {}
+    flops = gpt2.count_flops_per_token(cfg, S)
+    for chunks in (0, 8):
+        step = gpt2.make_train_step(cfg, opt, xent_chunks=chunks)
+        gc.collect()
+        torch.cuda.reset_peak_memory_stats()
+        losses, ms, run, warm_s = timed_steps(step, params,
+                                              {"tokens": tokens}, steps)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        tok_s = B * S / (ms / 1e3)
+        head = f"xent_chunks={chunks}" if chunks else "dense head"
+        print(f"[xl] {head}: losses {' '.join(f'{x:.4f}' for x in losses)} "
+              f"(warm-up {warm_s:.2f} s); B={B} S={S}: {ms:.3f} ms per step "
+              f"(CUDA events over {steps} steps), {tok_s:.1f} tokens/s, MFU "
+              f"{tok_s * flops / PEAK_BF16_FLOPS:.4f}, peak memory "
+              f"{peak_gb:.2f} GB; launches {run}; card {card_line()}",
+              flush=True)
+        if not all(math.isfinite(x) for x in losses) \
+                or losses[-1] >= losses[0]:
+            fail(f"XL losses not finite or not falling: {losses}")
+        if run != {"flash_fwd": 2 * L * steps, "flash_bwd_dq": L * steps,
+                   "flash_bwd_dkv": L * steps}:
+            fail("an XL step under remat did not launch the forward twice "
+                 "and each backward kernel once per layer")
+        if peak_gb >= total_gb:
+            fail("XL peak memory is not below the card's")
+        launches = {k: launches.get(k, 0) + n for k, n in run.items()}
+        if profile:
+            print_profile(lambda: step(params, {"tokens": tokens}), 30,
+                          f"xl train step, {head}, B={B} S={S}")
+
+    step = gpt2.make_train_step(replace(cfg, remat=False), opt)
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    try:
+        loss = f"{step(params, {'tokens': tokens[:4]})['loss'].item():.4f}"
+    except torch.cuda.OutOfMemoryError:
+        loss = "out of memory"
+    print(f"[xl] one step without remat at B=4 S={S}: loss {loss}, peak "
+          f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB, "
+          f"{held_gb:.2f} GB of it held between steps (f32 weights and "
+          f"AdamW moments)", flush=True)
+    return launches
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1137,28 +1429,32 @@ def main():
     serve_launches = phase_serve(args.seed, args.profile)
     train = phase_train(args.seed, args.profile)
     llama_launches = phase_llama(args.seed, args.profile)
+    moe_serve, moe_train = phase_moe(args.seed, args.profile)
+    xl_train = phase_xl(args.seed, args.profile)
     print(card_line())
     src = "ray_tpu/ops/flash_attention.py"
+    trained = {"train": train, "moe_train": moe_train, "xl_train": xl_train}
+    paths = {
+        "flash_fwd": {"serve": serve_launches, "llama": llama_launches,
+                      "moe_serve": moe_serve},
+        "flash_bwd_dq": {}, "flash_bwd_dkv": {}}
+    for name, by_path in paths.items():
+        by_path.update({path: run[name] for path, run in trained.items()})
     rows = [
-        ("flash_fwd", "flash_fwd.cu", f"{src}:443", [f"{src}:192"], kern,
-         serve_launches + train["flash_fwd"] + llama_launches,
-         {"serve": serve_launches, "train": train["flash_fwd"],
-          "llama": llama_launches}),
+        ("flash_fwd", "flash_fwd.cu", f"{src}:443", [f"{src}:192"], kern),
         ("flash_bwd_dq", "flash_bwd.cu", f"{src}:213",
-         [f"{src}:203", f"{src}:463"], bwd["dq"], train["flash_bwd_dq"],
-         {"train": train["flash_bwd_dq"]}),
+         [f"{src}:203", f"{src}:463"], bwd["dq"]),
         ("flash_bwd_dkv", "flash_bwd.cu", f"{src}:268",
-         [f"{src}:203", f"{src}:463"], bwd["dkv"], train["flash_bwd_dkv"],
-         {"train": train["flash_bwd_dkv"]}),
+         [f"{src}:203", f"{src}:463"], bwd["dkv"]),
     ]
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda",
         "source": f"ray_tpu_torch/csrc/{source}", "replaces": replaces,
-        "also_replaces": also, "launches": launches,
-        "launches_by_path": by_path, "max_abs_err": r["max_abs_err"],
+        "also_replaces": also, "launches": sum(paths[name].values()),
+        "launches_by_path": paths[name], "max_abs_err": r["max_abs_err"],
         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
-        for name, source, replaces, also, r, launches, by_path in rows]}))
+        for name, source, replaces, also, r in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -14,15 +14,21 @@ Attention goes through ``flash_attention_bshd`` (``attention="flash"``,
 the CUDA kernel on the card) or the plain dense version
 (``attention="dense"``).
 
-Training: ``loss_fn`` (next-token cross-entropy through the dense tied
-head) and ``make_train_step`` (f32 master weights cast once to
-``compute_dtype`` per step, as the JAX ``_cast_weights`` does, and a
-``torch.optim`` optimizer such as AdamW over ``param_leaves``).  Gradients
-of attention go through the flash backward kernels on the card.
+``moe_experts > 0`` swaps every block's dense FFN for the top-k routed
+mixture of experts (``_moe_mlp``: the reference's capacity dispatch,
+computed with index gathers in place of its dense one-hot tensors), whose
+Switch load-balancing loss ``loss_fn`` adds.
 
-MoE, ring/ulysses attention, pipeline-stacked ``blocks``, remat and the
-chunked cross-entropy are not ported yet (ROADMAP.md); a config that
-selects one of the first four raises ``NotImplementedError``.
+Training: ``loss_fn`` (next-token cross-entropy through the dense tied
+head, or ``_chunked_xent`` over token chunks with ``xent_chunks > 0``) and
+``make_train_step`` (f32 master weights cast once to ``compute_dtype`` per
+step, as the JAX ``_cast_weights`` does, and a ``torch.optim`` optimizer
+such as AdamW over ``param_leaves``).  ``remat=True`` checkpoints each
+block (``torch.utils.checkpoint``), so the backward recomputes it.
+Gradients of attention go through the flash backward kernels on the card.
+
+Ring/ulysses attention and pipeline-stacked ``blocks`` are not ported yet
+(ROADMAP.md) and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ from typing import Any, Dict, List, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch.ops.flash_attention import (_reference_attention,
                                                flash_attention_bshd)
@@ -47,8 +54,12 @@ class GPT2Config:
     n_embd: int = 768
     compute_dtype: Any = torch.bfloat16
     attention: str = "flash"  # flash | dense (ring | ulysses: not ported)
-    remat: bool = False       # checkpoint each block: not ported
-    moe_experts: int = 0      # >0 selects the MoE FFN: not ported
+    remat: bool = False       # checkpoint each block (trade FLOPs for memory)
+    # MoE: >0 swaps every block's dense FFN for a top-k routed mixture
+    moe_experts: int = 0
+    moe_top_k: int = 2
+    moe_capacity_factor: float = 1.5
+    moe_aux_weight: float = 0.01
 
     @property
     def head_dim(self) -> int:
@@ -68,21 +79,16 @@ def _check_ported(cfg: GPT2Config):
         raise NotImplementedError(
             f"attention={cfg.attention!r} is not ported yet (ROADMAP.md: "
             "ring/ulysses attention)")
-    if cfg.moe_experts > 0:
-        raise NotImplementedError(
-            "the MoE FFN is not ported yet (ROADMAP.md: GPT-2 MoE)")
-    if cfg.remat:
-        raise NotImplementedError(
-            "remat is not ported yet (ROADMAP.md: remat and the chunked "
-            "cross-entropy)")
 
 
 def init_params(generator: torch.Generator, cfg: GPT2Config,
                 device="cuda") -> Dict[str, Any]:
     """Random f32 parameters with the JAX initialiser's distributions
     (normal std 0.02, wpe 0.01, residual projections 0.02/sqrt(2L), zero
-    biases, unit LN scales).  ``generator`` draws every tensor on its own
-    device; the result lives on ``device``."""
+    biases, unit LN scales; with ``moe_experts`` an ``moe`` FFN of a
+    router and stacked expert weights in place of ``mlp``).  ``generator``
+    draws every tensor on its own device; the result lives on
+    ``device``."""
     _check_ported(cfg)
     std = 0.02
     proj_std = std / math.sqrt(2 * cfg.n_layer)
@@ -104,8 +110,9 @@ def init_params(generator: torch.Generator, cfg: GPT2Config,
         "wpe": {"embedding": normal((cfg.block_size, E), 0.01)},
         "ln_f": {"scale": ones(E), "bias": zeros(E)},
     }
+    n = cfg.moe_experts
     for i in range(cfg.n_layer):
-        params[f"h_{i}"] = {
+        block = {
             "ln_1": {"scale": ones(E), "bias": zeros(E)},
             "attn": {
                 "c_attn": {"kernel": normal((E, 3 * E)),
@@ -114,12 +121,20 @@ def init_params(generator: torch.Generator, cfg: GPT2Config,
                            "bias": zeros(E)},
             },
             "ln_2": {"scale": ones(E), "bias": zeros(E)},
-            "mlp": {
+        }
+        if n > 0:
+            block["moe"] = {
+                "router": {"kernel": normal((E, n))},
+                "wi": normal((n, E, 4 * E)),
+                "wo": normal((n, 4 * E, E), proj_std),
+            }
+        else:
+            block["mlp"] = {
                 "c_fc": {"kernel": normal((E, 4 * E)), "bias": zeros(4 * E)},
                 "c_proj": {"kernel": normal((4 * E, E), proj_std),
                            "bias": zeros(E)},
-            },
-        }
+            }
+        params[f"h_{i}"] = block
     return params
 
 
@@ -172,16 +187,125 @@ def _mlp(x, p):
     return _linear(h, p["c_proj"])
 
 
-def _block(x, p, cfg: GPT2Config):
+class _RowGather(torch.autograd.Function):
+    """``out = src[fwd_idx]`` over rows, where index ``len(src)`` reads a
+    zero row, with a backward that is a gather too: ``bwd_idx`` maps each
+    row of ``src`` to the rows of ``out`` copied from it (the row count of
+    ``out`` where there is none), and a row's gradient is the f32 sum of
+    theirs, rounded once, as the reference's one-hot einsum accumulates
+    it.  No scatter, so no atomics and no order among them."""
+
+    @staticmethod
+    def forward(ctx, src, fwd_idx, bwd_idx):
+        ctx.save_for_backward(bwd_idx)
+        return _pad_row(src)[fwd_idx]
+
+    @staticmethod
+    def backward(ctx, grad):
+        (bwd_idx,) = ctx.saved_tensors
+        g = _pad_row(grad.reshape(-1, grad.shape[-1]))[bwd_idx]
+        if bwd_idx.dim() == 2:
+            g = g.float().sum(1).to(grad.dtype)
+        return g, None, None
+
+
+def _pad_row(x):
+    return torch.cat([x, x.new_zeros((1, x.shape[-1]))])
+
+
+def _top_k(probs, k):
+    """Indices of each row's k largest entries, largest first and ties to
+    the lower index, as ``jax.lax.top_k`` orders them (``torch.topk``
+    promises no order among ties on CUDA; a stable sort does)."""
+    return torch.sort(probs, dim=-1, descending=True, stable=True)[1][:, :k]
+
+
+def _moe_route(xt, router, cfg: GPT2Config):
+    """Top-k routing with capacity, as the reference computes it.  xt (T,
+    E) -> (probs (T, n) f32, gate (T, k) f32, idx (T, k), pos (T, k),
+    capacity): each token's experts in order of probability (ties: lower
+    index first, as ``jax.lax.top_k``), their gate values divided by their
+    sum + 1e-9, and each choice's slot in its expert's buffer.  Slots go to
+    choice 0 of every token in token order, then choice 1, ...: a choice's
+    position counts the earlier tokens with the same expert at that choice
+    and every token's earlier choices of it."""
+    T = xt.shape[0]
+    k, n = cfg.moe_top_k, cfg.moe_experts
+    probs = torch.softmax((xt @ router.to(xt.dtype)).float(), dim=-1)
+    idx = _top_k(probs, k)
+    gate = probs.gather(1, idx)
+    gate = gate / (gate.sum(-1, keepdim=True) + 1e-9)
+    capacity = max(k, int(cfg.moe_capacity_factor * T * k / n))
+    # (k, n, T), tokens innermost: a cumsum over the outer dim of (T, k, n)
+    # scans 16 columns of 16,384 rows, 14% of the MoE train step at B=16,
+    # S=1024 on an H100
+    onehot = F.one_hot(idx.T, n).transpose(1, 2).contiguous()
+    per_choice = onehot.sum(-1)                                 # (k, n)
+    earlier = (per_choice.cumsum(0) - per_choice)[..., None]
+    pos = (onehot.cumsum(-1) - 1 + earlier).gather(1, idx.T[:, None])[:, 0]
+    return probs, gate, idx, pos.T, capacity
+
+
+def _moe_mlp(x, p, cfg: GPT2Config):
+    """Top-k routed mixture-of-experts FFN (the reference's GShard/Switch
+    capacity dispatch) -> (y, aux load-balancing loss).  A choice past its
+    expert's capacity is dropped (no renormalisation; a token with every
+    choice dropped gets y = 0).  The reference builds (T, k, n, C) one-hot
+    dispatch and combine tensors (6.4 GB a layer at B=16, S=1024, 8
+    experts); here the same function runs on index maps: each expert's
+    (C, E) buffer gets its tokens' rows copied exactly (empty slots zero),
+    the expert products are batched matmuls over every slot as there, and
+    each token sums its kept choices' outputs, weighted by the gate value
+    rounded to ``x.dtype``."""
+    B, S, E = x.shape
+    T = B * S
+    k, n = cfg.moe_top_k, cfg.moe_experts
+    xt = x.reshape(T, E)
+    probs, gate, idx, pos, C = _moe_route(xt, p["router"]["kernel"], cfg)
+    keep = pos < C
+    slot = torch.where(keep, idx * C + pos, n * C)              # (T, k)
+    # the choice (t * k + j) each slot holds, T * k where it is empty
+    owner = torch.full((n * C + 1,), T * k, dtype=slot.dtype,
+                       device=x.device)
+    owner[slot.reshape(-1)] = torch.arange(T * k, device=x.device)
+    owner = owner[:n * C]
+    expert_in = _RowGather.apply(xt, owner // k, slot)          # (nC, E)
+    h = F.gelu(torch.bmm(expert_in.view(n, C, E), p["wi"].to(x.dtype)),
+               approximate="tanh")
+    out = torch.bmm(h, p["wo"].to(x.dtype)).view(n * C, E)
+    picked = _RowGather.apply(out, slot, owner)                 # (T, k, E)
+    weight = (gate * keep).to(x.dtype)
+    y = (picked.float() * weight.float()[..., None]).sum(1).to(x.dtype)
+    # load-balancing aux (Switch eq. 4): fraction routed x router prob
+    frac = F.one_hot(idx[:, 0], n).float().mean(0)
+    aux = n * (frac * probs.mean(0)).sum()
+    return y.reshape(B, S, E), aux
+
+
+def _block(x, p, cfg: GPT2Config, aux_acc=None):
     x = x + _attention(_layer_norm(x, p["ln_1"]), p["attn"], cfg)
+    if "moe" in p:
+        y, aux = _moe_mlp(_layer_norm(x, p["ln_2"]), p["moe"], cfg)
+        if aux_acc is not None:
+            aux_acc.append(aux)
+        return x + y
     return x + _mlp(_layer_norm(x, p["ln_2"]), p["mlp"])
 
 
-def _trunk(params, tokens, cfg: GPT2Config):
+def _block_with_aux(x, p, cfg: GPT2Config):
+    acc: list = []
+    x = _block(x, p, cfg, acc)
+    return x, (acc[0] if acc else torch.zeros((), device=x.device))
+
+
+def _trunk(params, tokens, cfg: GPT2Config, aux_acc=None):
     """Embedding + transformer blocks + final LN -> (B, S, E) in
     compute_dtype.  The embedding sum runs in the dtype of the tables: f32
     when serving, ``compute_dtype`` in training, where ``_cast_weights``
-    has cast them, as in the JAX model."""
+    has cast them, as in the JAX model.  MoE blocks append their aux loss
+    to ``aux_acc``.  With ``cfg.remat`` each block runs under
+    ``checkpoint``: its activations are dropped after the forward and
+    recomputed in the backward (the flash forward kernel runs again)."""
     _check_ported(cfg)
     if "blocks" in params:
         raise NotImplementedError(
@@ -194,7 +318,14 @@ def _trunk(params, tokens, cfg: GPT2Config):
     x = params["wte"]["embedding"][tokens] + params["wpe"]["embedding"][:S][None]
     x = x.to(cfg.compute_dtype)
     for i in range(cfg.n_layer):
-        x = _block(x, params[f"h_{i}"], cfg)
+        if cfg.remat:
+            # the blocks draw no random numbers: no RNG state to restore
+            x, aux = checkpoint(_block_with_aux, x, params[f"h_{i}"], cfg,
+                                use_reentrant=False, preserve_rng_state=False)
+            if aux_acc is not None and cfg.moe_experts > 0:
+                aux_acc.append(aux)
+        else:
+            x = _block(x, params[f"h_{i}"], cfg, aux_acc)
     x = _layer_norm(x.float(), params["ln_f"])
     return x.to(cfg.compute_dtype)
 
@@ -208,22 +339,62 @@ def _lm_head(x, wte):
     return torch.matmul(x.float(), wte.float().T)
 
 
-def forward(params, tokens, cfg: GPT2Config):
+def forward(params, tokens, cfg: GPT2Config, aux_acc=None):
     """tokens (B, S) int64 -> logits (B, S, vocab) f32."""
-    x = _trunk(params, tokens, cfg)
+    x = _trunk(params, tokens, cfg, aux_acc)
     return _lm_head(x, params["wte"]["embedding"].to(cfg.compute_dtype))
 
 
-def loss_fn(params, batch, cfg: GPT2Config):
+def _xent_sum(x, wf, targets):
+    """Summed cross-entropy of one chunk: ``_lm_head``'s f32 logits, then
+    lse - target logit."""
+    logits = torch.matmul(x.float(), wf.T)
+    lse = torch.logsumexp(logits, dim=-1)
+    return (lse - logits.gather(-1, targets[:, None])[:, 0]).sum()
+
+
+def _chunked_xent(x, wte, targets, n_chunks: int):
+    """Linear + softmax cross-entropy over token chunks, each under
+    ``checkpoint``: the backward recomputes a chunk's logits and contracts
+    them at once, so the (N, V) f32 logits never exist (3.3 GB at B=16,
+    S=1024).  x: (N, E) compute dtype; wte: (V, E); targets: (N,).  The
+    chunk count falls to the nearest divisor of N, as in the reference.
+    Returns the summed loss (f32)."""
+    N = x.shape[0]
+    n_chunks = max(1, min(n_chunks, N))
+    while N % n_chunks:
+        n_chunks -= 1
+    wf = wte.float()  # once for every chunk: 322 MB at GPT-2 XL
+    total = torch.zeros((), device=x.device)
+    for xi, ti in zip(x.chunk(n_chunks), targets.chunk(n_chunks)):
+        total = total + checkpoint(_xent_sum, xi, wf, ti, use_reentrant=False,
+                                   preserve_rng_state=False)
+    return total
+
+
+def loss_fn(params, batch, cfg: GPT2Config, xent_chunks: int = 0):
     """batch: {"tokens": (B, S+1) int64} -> mean next-token cross-entropy
-    (f32 scalar) through the tied head's f32 logits."""
+    (f32 scalar) through the tied head's f32 logits, plus ``moe_aux_weight``
+    x the mean of the blocks' load-balancing losses for a mixture.
+    ``xent_chunks > 0`` takes ``_chunked_xent``, which never holds the
+    (B, S, V) logits."""
     tokens = batch["tokens"]
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
-    x = _trunk(params, inputs, cfg)
-    logits = _lm_head(x, params["wte"]["embedding"].to(cfg.compute_dtype))
-    lse = torch.logsumexp(logits, dim=-1)
-    tgt = logits.gather(-1, targets[..., None])[..., 0]
-    return (lse - tgt).mean()
+    aux_acc: list = []
+    x = _trunk(params, inputs, cfg, aux_acc)
+    B, S, E = x.shape
+    wte = params["wte"]["embedding"].to(cfg.compute_dtype)
+    if xent_chunks > 0:
+        loss = _chunked_xent(x.reshape(B * S, E), wte,
+                             targets.reshape(B * S), xent_chunks) / (B * S)
+    else:
+        logits = _lm_head(x, wte)
+        lse = torch.logsumexp(logits, dim=-1)
+        tgt = logits.gather(-1, targets[..., None])[..., 0]
+        loss = (lse - tgt).mean()
+    if aux_acc:
+        loss = loss + cfg.moe_aux_weight * sum(aux_acc) / len(aux_acc)
+    return loss
 
 
 def _cast_weights(params, dtype):
@@ -254,7 +425,7 @@ def param_leaves(params) -> List[torch.Tensor]:
     return [t for _, t in named_leaves(params)]
 
 
-def make_train_step(cfg: GPT2Config, optimizer):
+def make_train_step(cfg: GPT2Config, optimizer, xent_chunks: int = 0):
     """Returns ``train_step(params, batch) -> {"loss": tensor}``.
 
     ``params`` are the f32 master leaves, each with ``requires_grad``;
@@ -264,10 +435,12 @@ def make_train_step(cfg: GPT2Config, optimizer):
     backpropagates through the cast (so the gradients are f32), steps the
     optimizer and clears the gradients.  Unlike the JAX step, which
     returns new parameter and optimizer-state trees, this one updates the
-    parameters and the optimizer's state in place."""
+    parameters and the optimizer's state in place.  ``xent_chunks`` goes to
+    ``loss_fn``."""
 
     def train_step(params, batch):
-        loss = loss_fn(_cast_weights(params, cfg.compute_dtype), batch, cfg)
+        loss = loss_fn(_cast_weights(params, cfg.compute_dtype), batch, cfg,
+                       xent_chunks)
         loss.backward()
         optimizer.step()
         optimizer.zero_grad(set_to_none=True)

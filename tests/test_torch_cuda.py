@@ -323,3 +323,108 @@ def test_llama_d128_gqa_kernel_matches_dense_branch(cuda):
     assert fa.KERNEL_LAUNCHES == before + cfg.n_layer
     assert out.shape == (2, 58) and torch.equal(out[:, :50], tokens[:, :50])
     assert ((out >= 0) & (out < cfg.vocab_size)).all()
+
+
+MOE_TINY = replace(gpt2.GPT2_TINY, moe_experts=4)
+
+
+def _moe_inputs(gen, device, case="drawn"):
+    """x (2, 100, 64) f32 and one MoE FFN's weights, drawn on the CPU from
+    ``gen``; ``tied`` router kernels make experts 0 and 3 tie for every
+    token, ``all_tied`` all four."""
+    p = gpt2.init_params(gen, MOE_TINY, device="cpu")["h_0"]["moe"]
+    x = torch.randn((2, 100, 64), generator=gen)
+    w = p["router"]["kernel"]
+    if case == "tied":
+        w[:, 3] = w[:, 0]
+    elif case == "all_tied":
+        w[:] = w[:, :1]
+    to = lambda t: t.to(device).requires_grad_(True)  # noqa: E731
+    return to(x), {"router": {"kernel": to(w)}, "wi": to(p["wi"]),
+                   "wo": to(p["wo"])}
+
+
+@pytest.mark.parametrize("case", ["drawn", "tied", "all_tied"])
+def test_moe_mlp_on_card_matches_cpu(cuda, case):
+    """The MoE FFN in f32 (TF32 off) on CUDA tensors against the same on
+    the CPU: routing equal, including the reference's order among forced
+    ties (a stable sort; torch.topk promises none on CUDA), y and aux and
+    the gradients of x and every weight within f32 summation-order noise
+    (1e-5 of each one's largest element), at a capacity that drops
+    choices."""
+    cfg = replace(MOE_TINY, compute_dtype=torch.float32,
+                  moe_capacity_factor=0.5)
+    out = {}
+    for device in ("cpu", "cuda"):
+        x, p = _moe_inputs(torch.Generator().manual_seed(3), device, case)
+        _, _, idx, pos, C = gpt2._moe_route(
+            x.detach().reshape(200, 64), p["router"]["kernel"].detach(), cfg)
+        y, aux = gpt2._moe_mlp(x, p, cfg)
+        leaves = [x, p["router"]["kernel"], p["wi"], p["wo"]]
+        grads = torch.autograd.grad((y.square().sum() + aux), leaves)
+        out[device] = [t.cpu() for t in (idx, pos, y.detach(), aux.detach(),
+                                         *grads)]
+    (ci, cp, *cv), (gi, gp, *gv) = out["cpu"], out["cuda"]
+    assert torch.equal(ci, gi) and torch.equal(cp, gp)
+    assert (cp >= C).any()   # choices dropped at capacity
+    if case == "all_tied":
+        assert (gi == torch.tensor([0, 1])).all()
+    if case == "tied":
+        assert not ((gi[:, 0] == 3) & (gi[:, 1] == 0)).any()
+    for a, b in zip(gv, cv):
+        assert (a - b).abs().max().item() <= 1e-5 * b.abs().max().item()
+
+
+def test_moe_mlp_backward_is_deterministic_on_card(cuda):
+    """Two backward passes of the bf16 MoE FFN on the card give the same
+    gradients bit for bit: both directions of the dispatch and combine are
+    gathers, with no atomics."""
+    x, p = _moe_inputs(torch.Generator().manual_seed(4), "cuda")
+    x = x.detach().to(torch.bfloat16).requires_grad_(True)
+    leaves = [x, p["router"]["kernel"], p["wi"], p["wo"]]
+    runs = []
+    for _ in range(2):
+        y, aux = gpt2._moe_mlp(x, p, MOE_TINY)
+        runs.append(torch.autograd.grad(y.float().square().sum() + aux,
+                                        leaves))
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+def test_gpt2_moe_train_step_on_card_matches_cpu(cuda):
+    """3 AdamW steps of MOE_TINY (bf16, remat on and off, dense and chunked
+    head) through the kernels on the card against the same steps on the
+    CPU (the plain versions): n_layer launches of each kernel per step (2
+    n_layer of the forward under remat), losses within 2e-3 (bf16
+    activations and attention rounded otherwise on each side, and a route
+    that this may flip), parameters within 2 lr a step (Adam's bound on
+    two runs whatever their gradients)."""
+    steps, lr = 3, 1e-3
+    tokens = torch.randint(0, 512, (2, 101), generator=torch.Generator()
+                           .manual_seed(5))
+    for remat, chunks in ((False, 0), (True, 4)):
+        cfg = replace(MOE_TINY, remat=remat)
+        out = {}
+        for device in ("cpu", "cuda"):
+            params = gpt2.init_params(torch.Generator().manual_seed(6), cfg,
+                                      device=device)
+            leaves = gpt2.param_leaves(params)
+            for leaf in leaves:
+                leaf.requires_grad_(True)
+            step = gpt2.make_train_step(cfg, torch.optim.AdamW(
+                leaves, lr=lr, weight_decay=0.1), chunks)
+            before = (fa.KERNEL_LAUNCHES, fa.BWD_DQ_LAUNCHES,
+                      fa.BWD_DKV_LAUNCHES)
+            losses = [step(params, {"tokens": tokens.to(device)})["loss"]
+                      .item() for _ in range(steps)]
+            after = (fa.KERNEL_LAUNCHES, fa.BWD_DQ_LAUNCHES,
+                     fa.BWD_DKV_LAUNCHES)
+            if device == "cuda":
+                per_step = [(a - b) / steps for a, b in zip(after, before)]
+                n = cfg.n_layer
+                assert per_step == [(2 if remat else 1) * n, n, n]
+            out[device] = losses, [t.detach().cpu() for t in leaves]
+        (cl, cp), (gl, gp) = out["cpu"], out["cuda"]
+        assert all(map(math.isfinite, gl)) and gl[-1] < gl[0]
+        assert gl == pytest.approx(cl, rel=2e-3)
+        for a, b in zip(gp, cp):
+            assert (a - b).abs().max().item() <= 2 * lr * steps

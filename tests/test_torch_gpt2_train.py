@@ -1,6 +1,7 @@
 """The training half of ray_tpu_torch.models.gpt2 against ray_tpu.models.gpt2
 at GPT2_TINY: loss, gradients of every leaf, AdamW steps and the FLOP
-count.
+count; remat (with the dense FFN and with MoE) and the chunked
+cross-entropy (``xent_chunks``).
 
 Parameters come from the JAX ``init_params`` and cross as numpy arrays
 (``params_from_numpy``); tokens come from numpy with a fixed seed.  S = 100
@@ -43,6 +44,10 @@ GRAD_REL = {"f32": 1e-5, "bf16": 5e-2}
 STEPS, LR = 3, 1e-3
 PARAM_ATOL = {"f32": 5e-5, "bf16": 2 * LR * STEPS}
 PARAM_NORM_REL_F32 = 1e-4
+# gradients of the MoE model in bf16, per leaf by norm: a few tokens route
+# to other experts on the two sides (tests/test_torch_gpt2_moe.py, which
+# states the measurement)
+GRAD_NORM_REL_MOE_BF16 = 0.15
 
 
 @pytest.fixture(scope="module")
@@ -55,11 +60,11 @@ def tokens():
     return np.random.default_rng(0).integers(0, JCFG.vocab_size, (B, S + 1))
 
 
-def _cfgs(dtype):
+def _cfgs(dtype, **kw):
     jdt, tdt = {"f32": (jnp.float32, torch.float32),
                 "bf16": (jnp.bfloat16, torch.bfloat16)}[dtype]
-    jc = jg.GPT2Config(**{**JCFG.__dict__, "compute_dtype": jdt})
-    return jc, replace(tg.GPT2_TINY, compute_dtype=tdt)
+    jc = jg.GPT2Config(**{**JCFG.__dict__, "compute_dtype": jdt, **kw})
+    return jc, replace(tg.GPT2_TINY, compute_dtype=tdt, **kw)
 
 
 def _master(jax_params, tc):
@@ -70,11 +75,32 @@ def _master(jax_params, tc):
     return params
 
 
-def _port_loss_and_grads(params, tokens, tc):
+def _port_loss_and_grads(params, tokens, tc, xent_chunks=0):
     loss = tg.loss_fn(tg._cast_weights(params, tc.compute_dtype),
-                      {"tokens": torch.from_numpy(tokens)}, tc)
+                      {"tokens": torch.from_numpy(tokens)}, tc, xent_chunks)
     loss.backward()
     return loss.item(), [p.grad for p in tg.param_leaves(params)]
+
+
+def _jax_loss_and_grads(jax_params, tokens, jc, xent_chunks=0):
+    batch = {"tokens": jnp.asarray(tokens, jnp.int32)}
+    loss, grads = jax.value_and_grad(lambda p: jg.loss_fn(
+        jg._cast_weights(p, jc.compute_dtype), batch, jc,
+        xent_chunks=xent_chunks))(jax_params)
+    return float(loss), [np.asarray(g, np.float32)
+                         for g in jax.tree.leaves(grads)]
+
+
+def _assert_grads_close(names, grads, refs, dtype, moe=False):
+    for name, g, ref in zip(names, grads, refs):
+        g = g.numpy() if isinstance(g, torch.Tensor) else g
+        if dtype == "bf16" and moe:
+            assert (np.linalg.norm(g - ref)
+                    <= GRAD_NORM_REL_MOE_BF16 * np.linalg.norm(ref)), name
+        else:
+            np.testing.assert_allclose(
+                g, ref, rtol=0, atol=GRAD_REL[dtype] * np.abs(ref).max(),
+                err_msg=name)
 
 
 def test_param_leaves_follow_jax_tree_order(jax_params):
@@ -116,30 +142,28 @@ def test_loss_and_grads_match_jax(jax_params, tokens, dtype):
             atol=GRAD_REL[dtype] * np.abs(ref).max(), err_msg=name)
 
 
-def test_remat_raises_not_implemented(jax_params, tokens):
-    """remat is not ported: a train step that asks for it raises before it
-    touches the parameters or the optimizer."""
-    tc = replace(tg.GPT2_TINY, compute_dtype=torch.float32, remat=True)
-    params = _master(jax_params, replace(tc, remat=False))
-    opt = torch.optim.AdamW(tg.param_leaves(params), lr=LR)
-    before = [t.detach().clone() for t in tg.param_leaves(params)]
-    with pytest.raises(NotImplementedError, match="remat"):
-        tg.make_train_step(tc, opt)(params,
-                                    {"tokens": torch.from_numpy(tokens)})
-    assert all(torch.equal(a, b)
-               for a, b in zip(before, tg.param_leaves(params)))
-    assert not opt.state
-
-
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 def test_adamw_steps_match_optax(jax_params, tokens, dtype):
     """3 steps of make_train_step with torch.optim.AdamW against 3 of the
     JAX make_train_step with optax.adamw(1e-3): the same update rule
     (bias-corrected moments, decay of the pre-update parameter), optax's
     defaults spelled out for torch (weight_decay 1e-4, eps 1e-8)."""
-    jc, tc = _cfgs(dtype)
+    _adamw_steps_match_optax(jax_params, tokens, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_remat_chunked_adamw_steps_match_optax(jax_params, tokens, dtype):
+    """The same 3 steps with remat=True and xent_chunks=4 on both sides:
+    make_train_step passes xent_chunks to loss_fn."""
+    _adamw_steps_match_optax(jax_params, tokens, dtype, xent_chunks=4,
+                             remat=True)
+
+
+def _adamw_steps_match_optax(jax_params, tokens, dtype, xent_chunks=0,
+                             **kw):
+    jc, tc = _cfgs(dtype, **kw)
     opt = optax.adamw(LR)
-    jstep = jax.jit(jg.make_train_step(jc, opt))
+    jstep = jax.jit(jg.make_train_step(jc, opt, xent_chunks=xent_chunks))
     batch = {"tokens": jnp.asarray(tokens, jnp.int32)}
     jp, state, jlosses = jax_params, opt.init(jax_params), []
     for _ in range(STEPS):
@@ -149,7 +173,7 @@ def test_adamw_steps_match_optax(jax_params, tokens, dtype):
     params = _master(jax_params, tc)
     topt = torch.optim.AdamW(tg.param_leaves(params), lr=LR,
                              betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4)
-    step = tg.make_train_step(tc, topt)
+    step = tg.make_train_step(tc, topt, xent_chunks)
     tbatch = {"tokens": torch.from_numpy(tokens)}
     losses = [step(params, tbatch)["loss"].item() for _ in range(STEPS)]
     assert losses == pytest.approx(jlosses, rel=LOSS_TOL[dtype])
@@ -171,6 +195,79 @@ def test_adamw_steps_match_optax(jax_params, tokens, dtype):
             a, b = np.delete(a, np.s_[E:2 * E]), np.delete(b, np.s_[E:2 * E])
         assert (np.linalg.norm(a - b) <= PARAM_NORM_REL_F32
                 * np.linalg.norm(b)), name
+
+
+@pytest.mark.parametrize("moe", [0, 4], ids=["mlp", "moe"])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_remat_matches_jax_and_no_remat(dtype, moe, tokens):
+    """remat=True (each block under torch.utils.checkpoint) against the JAX
+    model with remat=True (jax.checkpoint), loss and every leaf's gradient
+    held as without remat; and against the port without remat, equal bit
+    for bit: the backward recomputes each block by the same arithmetic on
+    the same inputs."""
+    jax_params = jg.init_params(jax.random.PRNGKey(0),
+                                replace(JCFG, moe_experts=moe))
+    jc, tc = _cfgs(dtype, moe_experts=moe, remat=True)
+    jl, jgrads = _jax_loss_and_grads(jax_params, tokens, jc)
+    params = _master(jax_params, tc)
+    loss, grads = _port_loss_and_grads(params, tokens, tc)
+    assert loss == pytest.approx(jl, rel=LOSS_TOL[dtype])
+    names = [n for n, _ in tg.named_leaves(params)]
+    _assert_grads_close(names, grads, jgrads, dtype, moe > 0)
+
+    plain = _master(jax_params, tc)
+    loss0, grads0 = _port_loss_and_grads(plain, tokens,
+                                         replace(tc, remat=False))
+    assert loss == loss0
+    for name, g, g0 in zip(names, grads, grads0):
+        assert torch.equal(g, g0), name
+
+
+@pytest.mark.parametrize("chunks", [1, 4, 7])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_chunked_xent_matches_jax(jax_params, tokens, dtype, chunks):
+    """loss_fn(xent_chunks=) and every leaf's gradient against JAX's
+    loss_fn(xent_chunks=), and against the port's dense head, with the
+    tolerances of the dense head.  N = B * S = 200: 7 chunks fall to 5."""
+    jc, tc = _cfgs(dtype)
+    jl, jgrads = _jax_loss_and_grads(jax_params, tokens, jc, chunks)
+    params = _master(jax_params, tc)
+    loss, grads = _port_loss_and_grads(params, tokens, tc, chunks)
+    assert loss == pytest.approx(jl, rel=LOSS_TOL[dtype])
+    names = [n for n, _ in tg.named_leaves(params)]
+    _assert_grads_close(names, grads, jgrads, dtype)
+    dense_loss, dense = _port_loss_and_grads(_master(jax_params, tc),
+                                             tokens, tc)
+    assert loss == pytest.approx(dense_loss, rel=LOSS_TOL[dtype])
+    _assert_grads_close(names, grads, [g.numpy() for g in dense], dtype)
+
+
+def test_chunked_xent_falls_to_a_divisor(monkeypatch):
+    """7 chunks of N = 200 rows fall to 5 of 40, each under checkpoint, and
+    the summed loss is the dense one's."""
+    rows = []
+    real = tg.checkpoint
+
+    def spy(fn, x, *args, **kw):
+        rows.append(x.shape[0])
+        return real(fn, x, *args, **kw)
+
+    monkeypatch.setattr(tg, "checkpoint", spy)
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn((200, 16), generator=g, requires_grad=True)
+    wte = torch.randn((32, 16), generator=g, requires_grad=True)
+    t = torch.randint(0, 32, (200,), generator=g)
+    total = tg._chunked_xent(x, wte, t, 7)
+    assert rows == [40] * 5
+    logits = x @ wte.T
+    dense = (torch.logsumexp(logits, -1) - logits[torch.arange(200), t]).sum()
+    assert total.item() == pytest.approx(dense.item(), rel=1e-6)
+    # gradients: f32 sums over the rows of five chunks in place of one
+    # (measured 4e-7 of the largest element of wte's, ~24)
+    for got, want in zip(torch.autograd.grad(total, (x, wte)),
+                         torch.autograd.grad(dense, (x, wte))):
+        torch.testing.assert_close(got, want, rtol=0,
+                                   atol=1e-6 * want.abs().max().item())
 
 
 def test_count_flops_per_token_matches_jax():
