@@ -82,7 +82,28 @@ Phases; any failure exits non-zero:
    ``xent_chunks=8`` (launches 2 x 48 of the forward and 48 of each
    backward kernel per step; falling losses; peak memory below the
    card's): ms per step, tokens/s, MFU, peak memory; then one step at B=4
-   without remat and its peak memory.
+   without remat and its peak memory;
+8. sp — sequence parallelism over ranks that share the card: each ring
+   step's kernels on the chunks of q, k, v (B=16, H=12, S=1024, D=64,
+   bf16, from ``--seed``) at sp = 2 and 4 against their plain versions
+   (the diagonal step causal, an earlier one full, the backward with the
+   whole attention's lse, o and delta); then, for 2 and then 4 ranks
+   (``RankPool``: spawned processes on cuda:0 in one gloo group, since
+   NCCL refuses two ranks on one card), ring and Ulysses attention,
+   causal and not, on the ranks' chunks of those inputs, gathered and
+   held against the single-rank kernels and the plain versions; at sp = 2
+   GPT-2 124M's logits (B=4, S=1024) against the single-rank kernels'
+   with phase 3's gate and its loss and every leaf's gradient with phase
+   4's tolerances, for ring and Ulysses; and AdamW steps at B=16, S=1024
+   (a warm-up, then 5 timed) for ring at sp = 2 and 4 and Ulysses at
+   sp = 2: falling losses, the ranks' parameters equal bit for bit, the
+   launches summed over the ranks (ring: n(n+1)/2 x n_layer of each
+   kernel a step, the future chunks skipped; Ulysses: n x n_layer), ms
+   per step, tokens/s, each rank's peak memory and its step split into
+   device work and the transport's calls (CUDA events), with the host
+   time blocked in them.  A rank that fails fails the phase.  Phases 2
+   and 2b also run the ring's chunk shapes (S = 512, 256) and Ulysses'
+   head groups (H = 6, 3) in the bhsd layout.
 
 The last two lines are a JSON object of per-kernel numbers and the
 result line ``{"ok": true, "device": {...}}``.  ``--profile`` adds
@@ -105,21 +126,30 @@ import argparse
 import contextlib
 import ctypes
 import gc
+import hashlib
 import json
 import math
 import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from dataclasses import replace
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
+from ray_tpu_torch import collective
+from ray_tpu_torch.collective import c10d
 from ray_tpu_torch.models import gpt2, llama
 from ray_tpu_torch.native import build
 from ray_tpu_torch.ops import flash_attention as fa
+from ray_tpu_torch.parallel import ring_attention as ra
+from ray_tpu_torch.parallel.context import use_mesh
+from ray_tpu_torch.parallel.launch import RankPool
+from ray_tpu_torch.parallel.sharding import ShardingConfig, seq_shard
 from ray_tpu_torch.serve import Replica
 
 # H100 SXM, dense, at the full 700 W limit (NVIDIA data sheet)
@@ -327,6 +357,13 @@ TRAIN_SHAPE = (16, 12, 1024, 64)
 XL_SHAPE = (16, 25, 1024, 64)
 #: (B, H, S, D) of a Llama-2 7B forward at its full context
 LLAMA_SHAPE = (1, 32, 4096, 128)
+#: phase 8's kernel shapes (bhsd), by label: a ring step's chunks of the
+#: training shape at sp = 2 and 4, and Ulysses' head groups at sp = 2, 4
+SP_SHAPES = {(16, 12, 512, 64): "sp ring chunk (sp=2)",
+             (16, 12, 256, 64): "sp ring chunk (sp=4)",
+             (16, 6, 1024, 64): "sp ulysses heads (sp=2)",
+             (16, 3, 1024, 64): "sp ulysses heads (sp=4)"}
+SP_LABELS = set(SP_SHAPES.values())
 
 
 def card_line() -> str:
@@ -498,6 +535,7 @@ def phase_kernels(seed):
     cases += [(2, 4, 100, 32, layout) for layout in ("bshd", "bhsd")]
     cases += [TRAIN_SHAPE + ("bshd",), XL_SHAPE + ("bshd",),
               LLAMA_SHAPE + ("bshd",)]
+    cases += [shape + ("bhsd",) for shape in SP_SHAPES]
     served = None
     worst = 0.0
     for B, H, S, D, layout in cases:
@@ -559,7 +597,7 @@ def phase_kernels(seed):
                       f"{encode_us(q, k, v, layout):.3f} us of host "
                       f"time per launch (3 maps)", flush=True)
             label = {TRAIN_SHAPE: "training", XL_SHAPE: "xl",
-                     LLAMA_SHAPE: "llama"}.get((B, H, S, D))
+                     LLAMA_SHAPE: "llama", **SP_SHAPES}.get((B, H, S, D))
             if label:
                 print(f"[kernel] {label} shape, causal={int(causal)}: "
                       f"kernel_ms={ms:.4f} library_ms={lib_ms:.4f} "
@@ -607,12 +645,14 @@ def phase_bwd_kernels(seed):
     training-shape records of the dq and dk/dv kernels."""
     gen = torch.Generator(device="cuda").manual_seed(seed + 2)
     train_shape = TRAIN_SHAPE
-    cases = [train_shape, XL_SHAPE, (1, 12, 1000, 64), (1, 32, 2048, 128),
-             (1, 4, 100, 32)]
+    cases = [(shape, ("bshd", "bhsd")) for shape in (
+        train_shape, XL_SHAPE, (1, 12, 1000, 64), (1, 32, 2048, 128),
+        (1, 4, 100, 32))]
+    cases += [(shape, ("bhsd",)) for shape in SP_SHAPES]
     worst = {"dq": 0.0, "dkv": 0.0}
     rec = {}
-    for B, H, S, D in cases:
-        for layout in ("bshd", "bhsd"):
+    for (B, H, S, D), layouts in cases:
+        for layout in layouts:
             for causal in (True, False):
                 q, k, v = _qkv(B, H, S, D, layout, gen)
                 scale = D ** -0.5
@@ -681,16 +721,18 @@ def phase_bwd_kernels(seed):
                 if not ok:
                     fail(f"backward kernels disagree with plain at B={B} "
                          f"H={H} S={S} D={D} {layout} causal={causal}")
-                label = {train_shape: "training", XL_SHAPE: "xl"}.get(
-                    (B, H, S, D))
-                if label and layout == "bshd" and causal:
+                label = {train_shape: "training", XL_SHAPE: "xl",
+                         **SP_SHAPES}.get((B, H, S, D))
+                if label in SP_LABELS or (label and layout == "bshd"
+                                          and causal):
                     if label == "training":
                         for n, t in (("dq", dq_ms), ("dkv", dkv_ms)):
                             rec[n] = {"ms": t, "plain_ms": plain_ms,
                                       "bound_ms": bounds[n][0],
                                       "bound_by": bounds[n][1],
                                       "library_ms": lib[n]}
-                    print(f"[bwd] {label} shape: dq {dq_ms:.4f} ms, bound "
+                    print(f"[bwd] {label} shape, causal={int(causal)}: dq "
+                          f"{dq_ms:.4f} ms, bound "
                           f"{bounds['dq'][0]:.4f} ms ({bounds['dq'][1]}), "
                           f"dk/dv {dkv_ms:.4f} ms, bound "
                           f"{bounds['dkv'][0]:.4f} ms "
@@ -1410,6 +1452,369 @@ def phase_xl(seed, profile):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 8: sequence parallelism
+# ---------------------------------------------------------------------------
+
+#: ranks of phase 8's process groups, all on cuda:0
+SP_WORLDS = (2, 4)
+#: timed train steps a configuration of phase 8 takes after its warm-up
+SP_STEPS = 5
+#: (B, S) of phase 8's GPT-2 gradient check and of its training
+SP_CHECK_BATCH = (4, 1024)
+SP_TRAIN_BATCH = (16, 1024)
+# the ring's o against the plain attention: each step's o_i is rounded to
+# bf16 (<= 2^-9 |o_i|) before the f32 merge, on top of the kernel's
+# rounding of p (<= 2^-9 P@|v|); the partials' weights sum to 1, so both
+# are within 2^-9 P@|v| of the merged o, held with 2x room.  Ulysses runs
+# the kernel itself, held to phase 2's O_PTOL.
+RING_O_PTOL = 2.0 ** -7
+# the ring's gradients: each step's dq_i, dk_i, dv_i is rounded to bf16
+# (<= 2^-9 of its magnitude, and the steps' magnitudes sum to at most M)
+# before the f32 sums, on top of phase 2b's bounds; held with 2x room.
+RING_G_PTOL = {k: v + 2.0 ** -8 for k, v in G_PTOL.items()}
+
+
+def sp_mesh():
+    """The ranks' mesh: one sp axis over every rank of the group."""
+    return ShardingConfig(sp=dist.get_world_size()).build_mesh()
+
+
+def sp_inputs(seed):
+    """Phase 8's global q, k, v and do: (B, H, S, D) of TRAIN_SHAPE, bf16
+    on the card, from ``seed`` (the same on every rank)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 8)
+    return [torch.randn(TRAIN_SHAPE, generator=gen, device="cuda",
+                        dtype=torch.bfloat16) for _ in range(4)]
+
+
+def hop_counts():
+    return (collective.HOPS, collective.HOST_STAGED_HOPS,
+            collective.HOST_STAGED_BYTES)
+
+
+def sp_attention_rank(seed, variant, causal):
+    """A rank's o, dq, dk, dv of ring or Ulysses attention on its chunks
+    of ``sp_inputs`` (on the host), with its launches and hops."""
+    set_precision()
+    mesh = sp_mesh()
+    q, k, v, do = (seq_shard(t, mesh, dim=2) for t in sp_inputs(seed))
+    q, k, v = (t.clone().requires_grad_(True) for t in (q, k, v))
+    reset_launches()
+    h0 = hop_counts()
+    o = ra.ring_attention_sharded(q, k, v, mesh, causal, variant=variant)
+    o.backward(do)
+    torch.cuda.synchronize()
+    return {"out": [t.detach().cpu() for t in (o, q.grad, k.grad, v.grad)],
+            "launches": read_launches(),
+            "hops": [b - a for a, b in zip(h0, hop_counts())]}
+
+
+def sp_attention_errors(inputs, causal, got, ring):
+    """Largest err/tol of ring (``ring``) or Ulysses attention's o, dq, dk,
+    dv (``got``, gathered over the ranks) on ``inputs`` (q, k, v, do):
+    (against the plain versions, against the single-rank kernels, equal to
+    the kernels bit for bit), each a list over o, dq, dk, dv.  o is held
+    against the plain forward, dq, dk, dv against the plain backward on
+    the same o (as phase 2b holds the kernels on their own o: delta =
+    rowsum(do * o) moves with o's rounding); against the kernels within
+    both tolerances and, for the gradients, the plain backward's own change
+    between the two o."""
+    q, k, v, do = inputs
+    scale = q.shape[-1] ** -0.5
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    o = fa.flash_attention(*leaves, causal)
+    o.backward(do)
+    kernel = [o.detach()] + [t.grad for t in leaves]
+    o_p, lse_p = fa._reference_attention(q, k, v, scale, causal)
+    o_mag, _ = fa._reference_attention(q, k, v.abs(), scale, causal)
+    o_p, o_mag = o_p.float(), o_mag.float()
+    tol = O_RTOL * o_p.abs() + (RING_O_PTOL if ring else O_PTOL) * o_mag
+    tol_k = O_RTOL * o_p.abs() + O_PTOL * o_mag
+    vs_plain = [((got[0].float() - o_p).abs() / tol).max().item()]
+    vs_kernel = [((got[0].float() - kernel[0].float()).abs()
+                  / (tol + tol_k)).max().item()]
+
+    def plain_bwd(o):
+        return (fa._reference_attention_bwd(q, k, v, o, lse_p, do, scale,
+                                            causal),
+                bwd_magnitudes(q, k, v, o, lse_p, do, scale, causal))
+
+    (gp, mags), (gpk, mags_k) = plain_bwd(got[0]), plain_bwd(kernel[0])
+    g_ptol = RING_G_PTOL if ring else G_PTOL
+    for i, name in enumerate(("dq", "dk", "dv")):
+        g, gk = got[i + 1].float(), kernel[i + 1].float()
+        tol = G_RTOL * gp[i].float().abs() + g_ptol[name] * mags[i]
+        tol_k = G_RTOL * gpk[i].float().abs() + G_PTOL[name] * mags_k[i]
+        shift = (gp[i].float() - gpk[i].float()).abs()
+        vs_plain.append(((g - gp[i].float()).abs() / tol).max().item())
+        vs_kernel.append(((g - gk).abs() / (tol + tol_k + shift)).max()
+                         .item())
+    return vs_plain, vs_kernel, [torch.equal(x, y) for x, y in zip(got,
+                                                                   kernel)]
+
+
+def sp_check_attention(pool, n, seed, variant, causal):
+    """Ring or Ulysses attention over n ranks, gathered, against the plain
+    versions and the single-rank kernels (``sp_attention_errors``)."""
+    res = pool.run(sp_attention_rank, seed, variant, causal)
+    got = [torch.cat([r["out"][i] for r in res], dim=2).cuda()
+           for i in range(4)]
+    ring = variant == "ring"
+    vs_plain, vs_kernel, same = sp_attention_errors(sp_inputs(seed), causal,
+                                                    got, ring)
+    names = ("o", "dq", "dk", "dv")
+    launches = {k: sum(r["launches"][k] for r in res)
+                for k in res[0]["launches"]}
+    hops = [sum(r["hops"][i] for r in res) for i in range(3)]
+    ok = max(vs_plain + vs_kernel) <= 1
+    print(f"[sp] {variant} sp={n} causal={int(causal)} B,H,S,D="
+          f"{TRAIN_SHAPE}: max err/tol vs plain "
+          + " ".join(f"{a}={b:.3f}" for a, b in zip(names, vs_plain))
+          + " vs the single-rank kernels "
+          + " ".join(f"{a}={b:.3f}" for a, b in zip(names, vs_kernel))
+          + " (must be <= 1; tol " + (f"{O_RTOL}*|o| + 2^-7*P@|v|, phase "
+                                     "2b's + 2^-8*M" if ring else
+                                     "phases 2 and 2b's")
+          + "; vs the kernels: the sum of both tolerances and of the plain "
+          "backward's change between the two o); equal to the single-rank "
+          f"kernels bit for bit: {dict(zip(names, same))}; launches over "
+          f"the ranks {launches}; hops {hops[0]} ({hops[1]} host-staged, "
+          f"{hops[2] / 1e6:.1f} MB)"
+          f"{'' if ok else '  <-- OUT OF TOLERANCE'}", flush=True)
+    if not ok:
+        fail(f"{variant} attention at sp={n} causal={causal} disagrees")
+
+
+def sp_chunk_checks(seed):
+    """Each ring step's kernels on the chunks of ``sp_inputs`` at sp = 2
+    and 4 against their plain versions: the diagonal (causal) step and an
+    off-diagonal (non-causal) one of the last chunk, forward, and backward
+    with the global lse, o and delta of the whole attention."""
+    q, k, v, do = sp_inputs(seed)
+    scale = q.shape[-1] ** -0.5
+    o, (_, _, _, _, lse) = fa._flash_fwd(q, k, v, True, None, None, None)
+    delta = (do.float() * o.float()).sum(-1)
+    S = q.shape[2]
+    for n in SP_WORLDS:
+        c = S // n
+
+        def chunk(t, j):
+            return t.narrow(2, j * c, c)
+
+        qr, orr, dor, lser, deltar = (chunk(t, n - 1)
+                                      for t in (q, o, do, lse, delta))
+        for label, j, diag in (("diagonal, causal", n - 1, True),
+                               ("off-diagonal, full", 0, False)):
+            ks, vs = chunk(k, j), chunk(v, j)
+            o_i, lse_i = ra._chunk_fwd(qr, ks, vs, scale, diag)
+            o_ref, lse_ref = fa._reference_attention(qr, ks, vs, scale, diag)
+            o_mag, _ = fa._reference_attention(qr, ks, vs.abs(), scale, diag)
+            grads = ra._chunk_bwd(qr, ks, vs, orr, lser, dor, scale, diag,
+                                  deltar)
+            ref = fa._reference_attention_bwd(qr, ks, vs, orr, lser, dor,
+                                              scale, diag, deltar)
+            mags = bwd_magnitudes(qr, ks, vs, orr, lser, dor, scale, diag)
+            torch.cuda.synchronize()
+            o_tol = O_RTOL * o_ref.float().abs() + O_PTOL * o_mag.float()
+            ratios = {"o": ((o_i - o_ref.float()).abs() / o_tol).max().item()}
+            for name, g, r, m in zip(("dq", "dk", "dv"), grads, ref, mags):
+                tol = G_RTOL * r.float().abs() + G_PTOL[name] * m
+                ratios[name] = ((g.float() - r.float()).abs()
+                                / tol).max().item()
+            lse_err = (lse_i - lse_ref).abs().max().item()
+            ok = max(ratios.values()) <= 1 and lse_err <= LSE_TOL
+            print(f"[sp] ring step kernels, sp={n} chunk (B,H,S,D)="
+                  f"{tuple(qr.shape)}, {label}, backward with the global "
+                  f"lse and delta: max err/tol "
+                  + " ".join(f"{a}={b:.3f}" for a, b in ratios.items())
+                  + f" lse_err={lse_err:.3e} (phases 2 and 2b's "
+                  f"tolerances){'' if ok else '  <-- OUT OF TOLERANCE'}",
+                  flush=True)
+            if not ok:
+                fail(f"a ring step's kernels disagree with plain at sp={n}, "
+                     f"{label}")
+
+
+def sp_gpt2_rank(seed, variant):
+    """GPT-2 124M at SP_CHECK_BATCH with ``variant`` over the ranks against
+    the single-rank kernels on the same rank: the logits of its chunk, and
+    the loss and every leaf's gradient summed over the ranks."""
+    set_precision()
+    mesh = sp_mesh()
+    cfg = replace(gpt2.GPT2_SMALL, attention=variant)
+    params, tokens = train_setup(cfg, seed, *SP_CHECK_BATCH)
+    with torch.no_grad():
+        with use_mesh(mesh):
+            logits = gpt2.forward(params, seq_shard(tokens[:, :-1], mesh),
+                                  cfg)
+        ref = seq_shard(gpt2.forward(params, tokens[:, :-1],
+                                     gpt2.GPT2_SMALL), mesh)
+    out = {"shape": tuple(logits.shape),
+           "finite": bool(torch.isfinite(logits).all()),
+           "logits_err": (logits - ref).abs().max().item()}
+    del logits, ref
+    with use_mesh(mesh):
+        loss, grads = loss_and_grads(
+            params, {"tokens": seq_shard(tokens, mesh, overlap=1)}, cfg)
+        flat = c10d.allreduce(torch.cat([g.reshape(-1) for g in grads]), "sp")
+    grads = flat.split([g.numel() for g in grads])
+    ref_loss, ref_grads = loss_and_grads(params, {"tokens": tokens},
+                                         gpt2.GPT2_SMALL)
+    out.update(loss=loss, ref_loss=ref_loss,
+               rel=[((g.view_as(r) - r).norm() / r.norm()).item()
+                    for g, r in zip(grads, ref_grads)],
+               names=[n for n, _ in gpt2.named_leaves(params)])
+    return out
+
+
+def sp_check_gpt2(pool, n, seed, variant):
+    res = pool.run(sp_gpt2_rank, seed, variant)
+    err = max(r["logits_err"] for r in res)
+    r0 = res[0]
+    B, S = SP_CHECK_BATCH
+    shape = (B, S // n, gpt2.GPT2_SMALL.vocab_size)
+    print(f"[sp] GPT2_SMALL {variant} sp={n} B={B} S={S}: each rank's logits "
+          f"{r0['shape']} vs the single-rank kernels' on its positions: max "
+          f"abs err {err:.4e} (tol {LOGITS_TOL})", flush=True)
+    if any(r["shape"] != shape or not r["finite"] for r in res) \
+            or err > LOGITS_TOL:
+        fail(f"GPT-2 logits with {variant} at sp={n} malformed or apart")
+    rel = r0["rel"]
+    i = max(range(len(rel)), key=rel.__getitem__)
+    d = abs(r0["loss"] - r0["ref_loss"])
+    print(f"[sp] GPT2_SMALL {variant} sp={n} B={B} S={S}: loss {r0['loss']:.6f}"
+          f" vs single-rank kernels {r0['ref_loss']:.6f} |diff| {d:.3e} (tol "
+          f"{TRAIN_LOSS_TOL}); largest ||g - g_ref|| / ||g_ref|| over the "
+          f"{len(rel)} leaves (gradients summed over the ranks) "
+          f"{rel[i]:.3e} at {r0['names'][i]} (tol {TRAIN_GRAD_REL_TOL}); "
+          f"median {sorted(rel)[len(rel) // 2]:.3e}", flush=True)
+    if d > TRAIN_LOSS_TOL or rel[i] > TRAIN_GRAD_REL_TOL:
+        fail(f"GPT-2 loss or gradients with {variant} at sp={n} disagree")
+
+
+def params_digest(params) -> str:
+    """sha256 of every leaf's bytes, in ``named_leaves`` order."""
+    h = hashlib.sha256()
+    for leaf in gpt2.param_leaves(params):
+        h.update(leaf.detach().float().contiguous().cpu().numpy())
+    return h.hexdigest()
+
+
+def sp_train_rank(seed, variant, steps):
+    """A warm-up and ``steps`` timed AdamW steps of GPT-2 124M at
+    SP_TRAIN_BATCH over the ranks (each its (B, S/n + 1) chunk of one batch):
+    losses, ms per step (CUDA events), the transport's share of it, peak
+    memory, launches, hops and a digest of the parameters after them."""
+    set_precision()
+    mesh = sp_mesh()
+    cfg = replace(gpt2.GPT2_SMALL, attention=variant)
+    params, tokens = train_setup(cfg, seed, *SP_TRAIN_BATCH)
+    batch = {"tokens": seq_shard(tokens, mesh, overlap=1)}
+    step = gpt2.make_train_step(cfg, adamw(params))
+    with use_mesh(mesh):
+        t0 = time.perf_counter()
+        first = step(params, batch)["loss"].item()
+        warm_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        dist.barrier()
+        reset_launches()
+        h0 = hop_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with collective.timing() as comm:
+            start.record()
+            out = [step(params, batch)["loss"] for _ in range(steps)]
+            end.record()
+            split = {k: (a / steps, b / steps)
+                     for k, (a, b) in comm.split_ms().items()}
+        launches = read_launches()
+        hops = [b - a for a, b in zip(h0, hop_counts())]
+    return {"losses": [first] + [x.item() for x in out], "warm_s": warm_s,
+            "ms": start.elapsed_time(end) / steps, "split": split,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches": launches, "hops": hops,
+            "digest": params_digest(params)}
+
+
+def sp_train(pool, n, seed, variant):
+    """Phase 8's training in one configuration; returns the launches of
+    the timed steps summed over the ranks."""
+    res = pool.run(sp_train_rank, seed, variant, SP_STEPS)
+    r0 = res[0]
+    (B, S), L = SP_TRAIN_BATCH, gpt2.GPT2_SMALL.n_layer
+    launches = {k: sum(r["launches"][k] for r in res)
+                for k in r0["launches"]}
+    want = (n * (n + 1) // 2 if variant == "ring" else n) * L * SP_STEPS
+    print(f"[sp] train {variant} sp={n} B={B} S={S}: losses "
+          f"{' '.join(f'{x:.4f}' for x in r0['losses'])} (warm-up "
+          f"{r0['warm_s']:.2f} s); rank 0 {r0['ms']:.3f} ms per step (CUDA "
+          f"events over {SP_STEPS} steps), {B * S / (r0['ms'] / 1e3):.1f} "
+          f"tokens/s over the ranks; card {card_line()}", flush=True)
+    for rank, r in enumerate(res):
+        comm, blocked = r["split"]["all"]
+        kinds = ", ".join(f"{k} {a:.3f} ({b:.3f} blocked)"
+                          for k, (a, b) in r["split"].items() if k != "all")
+        print(f"[sp]   rank {rank}: {r['ms']:.3f} ms per step = "
+              f"{r['ms'] - comm:.3f} with no transport call in flight "
+              f"(device work alone) + {comm:.3f} with one in flight (the "
+              f"union of the CUDA-event spans of the transport's calls, "
+              f"kernels hidden behind them included), during which the host "
+              f"was blocked on gloo or a peer {blocked:.3f}; by kind: {kinds}"
+              f"; {r['hops'][0] / SP_STEPS:.0f} hops a step "
+              f"({r['hops'][1] / SP_STEPS:.0f} host-staged, "
+              f"{r['hops'][2] / SP_STEPS / 1e6:.1f} MB); peak memory "
+              f"{r['peak_gb']:.2f} GB", flush=True)
+    print(f"[sp] train {variant} sp={n}: launches over the ranks in "
+          f"{SP_STEPS} steps {launches} (want {want} of each: "
+          + ("n(n+1)/2" if variant == "ring" else "n")
+          + f" x n_layer {L} a step); parameters equal bit for bit on every "
+          f"rank: {len({r['digest'] for r in res}) == 1}", flush=True)
+    losses = r0["losses"]
+    if any(r["losses"] != losses for r in res):
+        fail(f"sp={n} {variant}: the ranks' losses differ")
+    if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
+        fail(f"sp={n} {variant} train losses not finite or not falling")
+    if any(x != want for x in launches.values()):
+        fail(f"sp={n} {variant}: launches {launches}, want {want} of each")
+    if len({r["digest"] for r in res}) != 1:
+        fail(f"sp={n} {variant}: the ranks' parameters differ")
+    return launches
+
+
+def phase_sp(seed):
+    """Sequence parallelism: ring and Ulysses attention, GPT-2 124M's
+    logits and gradients and its training over 2 and 4 ranks that share
+    the card (one gloo group; each rank a spawned process on cuda:0).
+    Returns the launches of the training runs, by configuration."""
+    free_memory("sp")
+    sp_chunk_checks(seed)
+    launches = {}
+    for n in SP_WORLDS:
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp, RankPool(
+                n, f"file://{tmp}/rendezvous", backend="gloo",
+                device="cuda:0", timeout_s=600.0) as pool:
+            print(f"[sp] {n} ranks on cuda:0 up in "
+                  f"{time.perf_counter() - t0:.2f} s; transport: one gloo "
+                  "group (NCCL refuses two ranks on one card); all-reduce "
+                  "and all-to-all pass CUDA tensors to gloo, which stages "
+                  "them through host memory itself; the ring's hops "
+                  "(send/recv, which gloo cannot take from the card) are "
+                  "staged through pinned host buffers by "
+                  "ray_tpu_torch.collective._host_staged_buffers", flush=True)
+            for variant in ("ring", "ulysses"):
+                for causal in (True, False):
+                    sp_check_attention(pool, n, seed, variant, causal)
+            if n == 2:
+                for variant in ("ring", "ulysses"):
+                    sp_check_gpt2(pool, n, seed, variant)
+            for variant in ("ring", "ulysses") if n == 2 else ("ring",):
+                launches[f"sp_{variant}{n}"] = sp_train(pool, n, seed,
+                                                        variant)
+    return launches
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1431,9 +1836,11 @@ def main():
     llama_launches = phase_llama(args.seed, args.profile)
     moe_serve, moe_train = phase_moe(args.seed, args.profile)
     xl_train = phase_xl(args.seed, args.profile)
+    sp_runs = phase_sp(args.seed)
     print(card_line())
     src = "ray_tpu/ops/flash_attention.py"
-    trained = {"train": train, "moe_train": moe_train, "xl_train": xl_train}
+    trained = {"train": train, "moe_train": moe_train, "xl_train": xl_train,
+               **sp_runs}
     paths = {
         "flash_fwd": {"serve": serve_launches, "llama": llama_launches,
                       "moe_serve": moe_serve},

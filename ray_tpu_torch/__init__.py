@@ -7,12 +7,15 @@ JAX or of ``ray_tpu``; where it needs a pure-Python module of ``ray_tpu``
 it keeps its own copy.  Every Pallas kernel on a ported path is a kernel
 written by hand for ``sm_90a`` under ``csrc/``.
 
-Sub-packages in this slice: ``ops`` (flash-attention forward), ``native``
-(the nvcc build of ``csrc``), ``models`` (GPT-2 forward), ``core``
-(config flags, exceptions) and ``serve`` (the replica).  No runtime is
-started on import.
+Sub-packages: ``ops`` (flash attention), ``native`` (the nvcc build of
+``csrc``), ``models`` (GPT-2, Llama), ``core`` (config flags,
+exceptions), ``serve`` (the replica, batching, multiplexing),
+``parallel`` (mesh, sharding rules, ring and Ulysses attention, spawned
+ranks) and ``collective`` (named-axis collectives over process groups).
+No runtime is started on import.
 """
 
 from ray_tpu_torch._version import __version__
 
-__all__ = ["__version__", "core", "models", "native", "ops", "serve"]
+__all__ = ["__version__", "collective", "core", "models", "native", "ops",
+           "parallel", "serve"]

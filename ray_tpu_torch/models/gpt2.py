@@ -11,8 +11,14 @@ with the population variance, tanh-approximated GELU, the f32 embedding
 sum cast to ``compute_dtype``, a final layer norm on f32 input, and a tied
 lm head with bf16 operands and f32 logits over the padded vocabulary.
 Attention goes through ``flash_attention_bshd`` (``attention="flash"``,
-the CUDA kernel on the card) or the plain dense version
-(``attention="dense"``).
+the CUDA kernel on the card), the plain dense version
+(``attention="dense"``), or sequence parallelism over the ``sp`` axis of
+the bound mesh (``attention="ring"|"ulysses"``, under ``use_mesh``;
+``ray_tpu_torch/parallel/ring_attention.py``).  Under sequence parallelism
+each rank runs the model on its own chunk of the sequence (``seq_shard``):
+``forward`` gives the rank's logits, the positions are the chunk's global
+ones, ``loss_fn`` the global mean and ``make_train_step`` sums every
+gradient over the ``sp`` ranks, so every rank takes the same step.
 
 ``moe_experts > 0`` swaps every block's dense FFN for the top-k routed
 mixture of experts (``_moe_mlp``: the reference's capacity dispatch,
@@ -27,8 +33,8 @@ such as AdamW over ``param_leaves``).  ``remat=True`` checkpoints each
 block (``torch.utils.checkpoint``), so the backward recomputes it.
 Gradients of attention go through the flash backward kernels on the card.
 
-Ring/ulysses attention and pipeline-stacked ``blocks`` are not ported yet
-(ROADMAP.md) and raise ``NotImplementedError``.
+Pipeline-stacked ``blocks``, and the MoE FFN under sequence parallelism,
+are not ported yet (ROADMAP.md) and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -41,8 +47,12 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ray_tpu_torch.collective import c10d
 from ray_tpu_torch.ops.flash_attention import (_reference_attention,
                                                flash_attention_bshd)
+from ray_tpu_torch.parallel.context import require_mesh
+from ray_tpu_torch.parallel.mesh import mesh_axis_size
+from ray_tpu_torch.parallel.ring_attention import ring_attention_sharded
 
 
 @dataclass(frozen=True)
@@ -53,7 +63,7 @@ class GPT2Config:
     n_head: int = 12
     n_embd: int = 768
     compute_dtype: Any = torch.bfloat16
-    attention: str = "flash"  # flash | dense (ring | ulysses: not ported)
+    attention: str = "flash"  # flash | ring | ulysses | dense
     remat: bool = False       # checkpoint each block (trade FLOPs for memory)
     # MoE: >0 swaps every block's dense FFN for a top-k routed mixture
     moe_experts: int = 0
@@ -74,11 +84,29 @@ GPT2_TINY = GPT2Config(vocab_size=512, block_size=128, n_layer=2, n_head=2,
                        n_embd=64)
 
 
+_SP = ("ring", "ulysses")
+
+
 def _check_ported(cfg: GPT2Config):
-    if cfg.attention not in ("flash", "dense"):
+    if cfg.attention not in ("flash", "dense") + _SP:
+        raise ValueError(f"unknown attention {cfg.attention!r}")
+    if cfg.moe_experts > 0 and cfg.attention in _SP:
+        # the reference routes with a capacity over the global tokens (one
+        # GSPMD program); routing each rank's tokens alone computes another
+        # function
         raise NotImplementedError(
-            f"attention={cfg.attention!r} is not ported yet (ROADMAP.md: "
-            "ring/ulysses attention)")
+            "the MoE FFN under sequence parallelism is not ported yet "
+            "(ROADMAP.md §A: MoE under sp with global capacity)")
+
+
+def _sp_rank_and_size(cfg: GPT2Config):
+    """(rank, ranks) on the bound mesh's sp axis; (0, 1) without sequence
+    parallelism."""
+    if cfg.attention not in _SP:
+        return 0, 1
+    mesh = require_mesh()
+    n = mesh_axis_size(mesh, "sp")
+    return (mesh.get_local_rank("sp") if n > 1 else 0), n
 
 
 def init_params(generator: torch.Generator, cfg: GPT2Config,
@@ -172,8 +200,13 @@ def _attention(x, p, cfg: GPT2Config):
     H, D = cfg.n_head, cfg.head_dim
     qkv = _linear(x, p["c_attn"])
     q, k, v = (t.reshape(B, S, H, D) for t in qkv.split(E, dim=-1))
-    if cfg.attention == "dense":
-        tr = lambda t: t.transpose(1, 2)  # noqa: E731
+    tr = lambda t: t.transpose(1, 2)  # noqa: E731
+    if cfg.attention in _SP:
+        # head-major views for the ring's (B, H, Sq, D) chunks: no copy,
+        # the kernels read strides
+        o = tr(ring_attention_sharded(tr(q), tr(k), tr(v), require_mesh(),
+                                      causal=True, variant=cfg.attention))
+    elif cfg.attention == "dense":
         o, _ = _reference_attention(tr(q), tr(k), tr(v), D ** -0.5, True)
         o = tr(o.to(x.dtype))
     else:
@@ -305,17 +338,21 @@ def _trunk(params, tokens, cfg: GPT2Config, aux_acc=None):
     has cast them, as in the JAX model.  MoE blocks append their aux loss
     to ``aux_acc``.  With ``cfg.remat`` each block runs under
     ``checkpoint``: its activations are dropped after the forward and
-    recomputed in the backward (the flash forward kernel runs again)."""
+    recomputed in the backward (the flash forward kernel runs again).
+    Under sequence parallelism ``tokens`` are the rank's chunk: rank r of
+    n holds positions [r*S, (r+1)*S) of a sequence of n*S."""
     _check_ported(cfg)
     if "blocks" in params:
         raise NotImplementedError(
             "pipeline-stacked params are not ported yet (ROADMAP.md: "
             "parallel)")
     S = tokens.shape[1]
-    if S > cfg.block_size:
+    rank, n = _sp_rank_and_size(cfg)
+    if S * n > cfg.block_size:
         raise ValueError(
-            f"sequence of {S} tokens exceeds block_size {cfg.block_size}")
-    x = params["wte"]["embedding"][tokens] + params["wpe"]["embedding"][:S][None]
+            f"sequence of {S * n} tokens exceeds block_size {cfg.block_size}")
+    wpe = params["wpe"]["embedding"][rank * S:(rank + 1) * S]
+    x = params["wte"]["embedding"][tokens] + wpe[None]
     x = x.to(cfg.compute_dtype)
     for i in range(cfg.n_layer):
         if cfg.remat:
@@ -340,7 +377,8 @@ def _lm_head(x, wte):
 
 
 def forward(params, tokens, cfg: GPT2Config, aux_acc=None):
-    """tokens (B, S) int64 -> logits (B, S, vocab) f32."""
+    """tokens (B, S) int64 -> logits (B, S, vocab) f32 (under sequence
+    parallelism: the rank's chunk of tokens and of logits)."""
     x = _trunk(params, tokens, cfg, aux_acc)
     return _lm_head(x, params["wte"]["embedding"].to(cfg.compute_dtype))
 
@@ -377,21 +415,28 @@ def loss_fn(params, batch, cfg: GPT2Config, xent_chunks: int = 0):
     (f32 scalar) through the tied head's f32 logits, plus ``moe_aux_weight``
     x the mean of the blocks' load-balancing losses for a mixture.
     ``xent_chunks > 0`` takes ``_chunked_xent``, which never holds the
-    (B, S, V) logits."""
+    (B, S, V) logits.  Under sequence parallelism the batch is the rank's
+    (B, S/n + 1) chunk (``seq_shard(tokens, mesh, overlap=1)``), and the
+    loss is the rank's sum over its tokens divided by the global count,
+    all-reduced over sp: the same global mean on every rank, whose
+    gradient on each rank is that of its own tokens' terms."""
     tokens = batch["tokens"]
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
     aux_acc: list = []
     x = _trunk(params, inputs, cfg, aux_acc)
     B, S, E = x.shape
+    _, n = _sp_rank_and_size(cfg)
     wte = params["wte"]["embedding"].to(cfg.compute_dtype)
     if xent_chunks > 0:
         loss = _chunked_xent(x.reshape(B * S, E), wte,
-                             targets.reshape(B * S), xent_chunks) / (B * S)
+                             targets.reshape(B * S), xent_chunks) / (B * S * n)
     else:
         logits = _lm_head(x, wte)
         lse = torch.logsumexp(logits, dim=-1)
-        tgt = logits.gather(-1, targets[..., None])[..., 0]
-        loss = (lse - tgt).mean()
+        terms = lse - logits.gather(-1, targets[..., None])[..., 0]
+        loss = terms.mean() if n == 1 else terms.sum() / (B * S * n)
+    if n > 1:
+        loss = c10d.allreduce(loss, "sp")
     if aux_acc:
         loss = loss + cfg.moe_aux_weight * sum(aux_acc) / len(aux_acc)
     return loss
@@ -436,17 +481,32 @@ def make_train_step(cfg: GPT2Config, optimizer, xent_chunks: int = 0):
     optimizer and clears the gradients.  Unlike the JAX step, which
     returns new parameter and optimizer-state trees, this one updates the
     parameters and the optimizer's state in place.  ``xent_chunks`` goes to
-    ``loss_fn``."""
+    ``loss_fn``.  Under sequence parallelism (``batch`` is the rank's
+    chunk) every gradient is summed over the sp ranks before the
+    optimizer's step, so the ranks' parameters stay equal bit for bit."""
 
     def train_step(params, batch):
         loss = loss_fn(_cast_weights(params, cfg.compute_dtype), batch, cfg,
                        xent_chunks)
         loss.backward()
+        if _sp_rank_and_size(cfg)[1] > 1:
+            _sum_grads_over_sp(params)
         optimizer.step()
         optimizer.zero_grad(set_to_none=True)
         return {"loss": loss.detach()}
 
     return train_step
+
+
+def _sum_grads_over_sp(params):
+    """Every leaf's gradient summed over the sp ranks, in one all-reduce
+    of the flattened gradients."""
+    grads = [t.grad for t in param_leaves(params)]
+    with torch.no_grad():
+        flat = c10d.allreduce(torch.cat([g.reshape(-1) for g in grads]),
+                              "sp")
+    for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+        g.copy_(part.view_as(g))
 
 
 def num_params(params) -> int:

@@ -1,0 +1,181 @@
+"""ShardingConfig: declarative parallelism strategy → per-dimension mesh
+axes — counterpart of ``ray_tpu/parallel/sharding.py``, the part that
+sequence parallelism needs.
+
+Logical dims used by the bundled models (ray_tpu_torch/models/*):
+  "batch"   → (dp, fsdp)     activations' leading dim
+  "seq"     → sp             sequence dim of activations
+  "embed"   → fsdp           model width when it's the param *sharded* dim
+  "mlp"     → tp             hidden/ffn dim
+  "heads"   → tp             attention head dim
+  "kv"      → None           per-head dim (never sharded)
+  "vocab"   → tp             embedding vocab dim
+  "expert"  → ep             MoE expert dim
+  "stage"   → pp             pipeline-stacked leading dim
+
+``spec`` gives, per tensor dim, the mesh axis name(s) or ``None``: the
+entries of the JAX ``PartitionSpec``.  Each rank holds its own shard of the
+data (``seq_shard`` cuts a rank's sequence chunk); placing parameters on
+fsdp/tp/ep (``shard_params``, ``param_shardings``, ``named_sharding``,
+``constraint``) is not ported yet and raises ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any, Dict, Optional, Sequence, Tuple
+
+from torch.distributed.device_mesh import DeviceMesh
+
+from ray_tpu_torch.parallel.mesh import create_mesh, mesh_shape
+
+DEFAULT_RULES: Dict[str, Any] = {
+    "batch": ("dp", "fsdp"),
+    "seq": "sp",
+    "embed": "fsdp",
+    "mlp": "tp",
+    "heads": "tp",
+    "kv": None,
+    "vocab": "tp",
+    "expert": "ep",
+    "stage": "pp",
+    None: None,
+}
+
+_PLACEMENT = ("placing tensors on fsdp/tp/ep axes is not ported yet "
+              "(ROADMAP.md §A: fsdp/tp/ep placement)")
+
+
+@dataclass
+class ShardingConfig:
+    """Axis sizes for the mesh.  -1 = all remaining ranks."""
+
+    dp: int = 1
+    fsdp: int = 1
+    pp: int = 1
+    sp: int = 1
+    ep: int = 1
+    tp: int = 1
+    rules: Dict[str, Any] = field(default_factory=lambda: dict(DEFAULT_RULES))
+
+    def axes(self) -> Dict[str, int]:
+        sizes = {"dp": self.dp, "fsdp": self.fsdp, "pp": self.pp,
+                 "sp": self.sp, "ep": self.ep, "tp": self.tp}
+        return {k: v for k, v in sizes.items() if v != 1 or k == "dp"}
+
+    def build_mesh(self, ranks: Optional[Sequence[int]] = None,
+                   device_type: str = "cuda") -> DeviceMesh:
+        return create_mesh(self.axes(), ranks, device_type)
+
+    # ------------------------------------------------------------------
+
+    def _resolve(self, logical: Optional[str], mesh: DeviceMesh):
+        axis = self.rules.get(logical, None)
+        if axis is None:
+            return None
+        shape = mesh_shape(mesh)
+        if isinstance(axis, (tuple, list)):
+            present = tuple(a for a in axis if shape.get(a, 1) > 1)
+            if not present:
+                return None
+            return present if len(present) > 1 else present[0]
+        if shape.get(axis, 1) > 1:
+            return axis
+        return None
+
+    def spec(self, mesh: DeviceMesh, *logical_dims: Optional[str]) -> tuple:
+        """Per dim, the mesh axis (a name, a tuple of names, or None).  A
+        mesh axis may appear only once; earlier dims win (so "batch" on
+        (dp, fsdp) suppresses "embed" on fsdp for activations — params
+        without a batch dim still shard on fsdp)."""
+        used: set = set()
+        parts = []
+        for d in logical_dims:
+            axis = self._resolve(d, mesh)
+            if axis is None:
+                parts.append(None)
+                continue
+            axes = axis if isinstance(axis, tuple) else (axis,)
+            axes = tuple(a for a in axes if a not in used)
+            used.update(axes)
+            parts.append(axes if len(axes) > 1 else (axes[0] if axes else None))
+        return tuple(parts)
+
+    def named_sharding(self, mesh: DeviceMesh, *logical_dims):
+        raise NotImplementedError(_PLACEMENT)
+
+    def constraint(self, x, mesh: DeviceMesh, *logical_dims):
+        raise NotImplementedError(_PLACEMENT)
+
+
+def infer_param_logical_dims(path: Tuple[str, ...], shape: Tuple[int, ...]):
+    """Heuristic logical dims for a transformer param by its name path.
+
+    Mirrors how t5x/maxtext-style logical axis rules classify params; used
+    when a model doesn't annotate its params explicitly.
+    """
+    name = "/".join(str(p) for p in path).lower()
+    if path and str(path[0]) == "blocks":
+        # pipeline-stacked block params: leading layer dim = "stage" (pp)
+        inner = infer_param_logical_dims(path[1:], shape[1:])
+        return ("stage",) + tuple(inner)
+    nd = len(shape)
+    if nd == 0:
+        return ()
+    if "router" in name:
+        return ("embed", None)[:nd]
+    if "moe" in name and "/wi" in name:
+        return ("expert", "embed", "mlp")[:nd]
+    if "moe" in name and "/wo" in name:
+        return ("expert", "mlp", "embed")[:nd]
+    if "embedding" in name or "wte" in name or "embed_tokens" in name:
+        return ("vocab", "embed")[:nd] if nd >= 2 else ("embed",)
+    if "wpe" in name or "pos_emb" in name:
+        return (None, "embed")[:nd] if nd >= 2 else ("embed",)
+    if any(k in name for k in ("ln", "layernorm", "layer_norm", "norm",
+                               "scale", "bias", "rmsnorm")) and nd == 1:
+        return (None,)
+    if any(k in name for k in ("q_proj", "k_proj", "v_proj", "qkv", "c_attn",
+                               "wq", "wk", "wv", "query", "key", "value")):
+        return ("embed", "heads") if nd == 2 else ("embed", "heads", "kv")[:nd]
+    if any(k in name for k in ("o_proj", "c_proj/attn", "attn/c_proj", "wo",
+                               "out_proj")):
+        return ("heads", "embed")[:nd]
+    if any(k in name for k in ("up_proj", "gate_proj", "c_fc", "wi", "fc1",
+                               "mlp_in")):
+        return ("embed", "mlp")[:nd]
+    if any(k in name for k in ("down_proj", "wo_mlp", "c_proj", "fc2", "wo2",
+                               "mlp_out")):
+        return ("mlp", "embed")[:nd]
+    if "lm_head" in name:
+        return ("embed", "vocab")[:nd]
+    if nd == 2:
+        return ("embed", "mlp")
+    if nd == 1:
+        return (None,)
+    return tuple([None] * nd)
+
+
+def shard_params(params, config: ShardingConfig, mesh: DeviceMesh):
+    raise NotImplementedError(_PLACEMENT)
+
+
+def param_shardings(params, config: ShardingConfig, mesh: DeviceMesh):
+    raise NotImplementedError(_PLACEMENT)
+
+
+def seq_shard(x, mesh: DeviceMesh, dim: int = 1, overlap: int = 0):
+    """The calling rank's chunk of a global tensor along ``dim`` over the
+    mesh's sp axis (the "seq" → sp rule, applied to one rank's data):
+    rank r of n takes [r*c, (r+1)*c + overlap) with c = (len - overlap) /
+    n.  ``overlap=1`` cuts a train batch of (B, S+1) tokens into (B, S/n +
+    1): the last token of a chunk is the target of its last input, and the
+    next chunk's first input."""
+    n = mesh_shape(mesh).get("sp", 1)
+    if n == 1:
+        return x
+    c, rem = divmod(x.shape[dim] - overlap, n)
+    if rem:
+        raise ValueError(f"length {x.shape[dim] - overlap} along dim {dim} "
+                         f"does not divide by the sp axis size {n}")
+    return x.narrow(dim, mesh.get_local_rank("sp") * c, c + overlap)

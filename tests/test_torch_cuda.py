@@ -1,6 +1,7 @@
 """The CUDA flash-attention kernels on the card, against their plain
-versions, a GPT-2 train step through them, and a small Llama whose
-uncached forward runs the forward kernel.
+versions, a GPT-2 train step through them, a small Llama whose
+uncached forward runs the forward kernel, and ring attention's steps
+and a two-rank ring (gloo, both ranks on the card) through them.
 
 Marked ``cuda``: every test skips where there is no CUDA device.  On a
 machine with one (no JAX needed, hence ``--noconftest``):
@@ -15,9 +16,14 @@ from dataclasses import replace
 import pytest
 import torch
 
-from chip_smoke import G_PTOL, G_RTOL, LOGITS_TOL, bwd_magnitudes
+from chip_smoke import (G_PTOL, G_RTOL, LOGITS_TOL, bwd_magnitudes,
+                        sp_attention_errors)
+from ray_tpu_torch import collective
 from ray_tpu_torch.models import gpt2, llama
 from ray_tpu_torch.ops import flash_attention as fa
+from ray_tpu_torch.parallel import ring_attention as ra
+from ray_tpu_torch.parallel.launch import RankPool
+from ray_tpu_torch.parallel.sharding import ShardingConfig, seq_shard
 
 pytestmark = pytest.mark.cuda
 
@@ -428,3 +434,94 @@ def test_gpt2_moe_train_step_on_card_matches_cpu(cuda):
         assert gl == pytest.approx(cl, rel=2e-3)
         for a, b in zip(gp, cp):
             assert (a - b).abs().max().item() <= 2 * lr * steps
+
+
+# ---------------------------------------------------------------------------
+# ring attention
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("step", ["diagonal", "earlier"])
+def test_ring_step_kernels_with_global_lse_and_delta(cuda, step):
+    """A ring step's forward on the card against the plain version on the
+    same chunks (the diagonal step causal, an earlier chunk full), and its
+    backward with the whole attention's lse, o and delta (not the
+    chunk's), held with phase 2b's tolerances."""
+    q, k, v, do = (torch.randn((2, 3, 256, 64), generator=cuda, device="cuda",
+                               dtype=torch.bfloat16) for _ in range(4))
+    scale = 0.125
+    o, lse = fa._reference_attention(q, k, v, scale, True)
+    delta = (do.float() * o.float()).sum(-1)
+    j, causal = (1, True) if step == "diagonal" else (0, False)
+    qr, orr, dor, lser, dr = (t[:, :, 128:] for t in (q, o, do, lse, delta))
+    ks, vs = k[:, :, 128 * j:128 * (j + 1)], v[:, :, 128 * j:128 * (j + 1)]
+    before = (fa.KERNEL_LAUNCHES, fa.BWD_DQ_LAUNCHES, fa.BWD_DKV_LAUNCHES)
+    o_i, lse_i = ra._chunk_fwd(qr, ks, vs, scale, causal)
+    grads = ra._chunk_bwd(qr, ks, vs, orr, lser, dor, scale, causal, dr)
+    torch.cuda.synchronize()
+    after = (fa.KERNEL_LAUNCHES, fa.BWD_DQ_LAUNCHES, fa.BWD_DKV_LAUNCHES)
+    assert [a - b for a, b in zip(after, before)] == [1, 1, 1]
+    o_ref, lse_ref, o_tol = _plain(qr, ks, vs, causal, "bhsd")
+    assert o_i.dtype == torch.float32
+    assert ((o_i - o_ref.float()).abs() <= o_tol).all()
+    assert (lse_i - lse_ref).abs().max().item() <= LSE_TOL
+    ref = fa._reference_attention_bwd(qr, ks, vs, orr, lser, dor, scale,
+                                      causal, dr)
+    mags = bwd_magnitudes(qr, ks, vs, orr, lser, dor, scale, causal)
+    for name, g, r, m in zip(("dq", "dk", "dv"), grads, ref, mags):
+        tol = G_RTOL * r.float().abs() + G_PTOL[name] * m
+        assert ((g.float() - r.float()).abs() <= tol).all(), name
+
+
+def test_ring_merge_guards_on_card(cuda):
+    """The first partial enters the -inf state with weight 1; a skipped
+    step (o = 0, lse = -inf) leaves the state as it was, bit for bit."""
+    o0 = torch.randn((2, 3, 64, 64), generator=cuda, device="cuda")
+    lse0 = torch.randn((2, 3, 64), generator=cuda, device="cuda")
+    state = (torch.zeros_like(o0),
+             torch.full((2, 3, 64, 1), ra._NEG_INF, device="cuda"),
+             torch.zeros((2, 3, 64, 1), device="cuda"))
+    num, m, den = ra._merge(*state, o0, lse0)
+    assert torch.equal(num, o0) and torch.equal(m[..., 0], lse0)
+    assert torch.equal(den, torch.ones_like(den))
+    skipped = ra._merge(num, m, den, torch.zeros_like(o0),
+                        torch.full_like(lse0, ra._NEG_INF))
+    for a, b in zip(skipped, (num, m, den)):
+        assert torch.equal(a, b)
+
+
+def _ring_inputs():
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    return [torch.randn((2, 4, 512, 64), generator=gen, device="cuda",
+                        dtype=torch.bfloat16) for _ in range(4)]
+
+
+def _rank_ring(causal):
+    """A rank's o, dq, dk, dv (on the host) of the ring on its chunks of
+    ``_ring_inputs``, and its host-staged hops."""
+    import torch.distributed as dist
+
+    mesh = ShardingConfig(sp=dist.get_world_size()).build_mesh()
+    q, k, v, do = (seq_shard(t, mesh, dim=2) for t in _ring_inputs())
+    q, k, v = (t.clone().requires_grad_(True) for t in (q, k, v))
+    staged = collective.HOST_STAGED_HOPS
+    o = ra.ring_attention_sharded(q, k, v, mesh, causal)
+    o.backward(do)
+    torch.cuda.synchronize()
+    return ([t.detach().cpu() for t in (o, q.grad, k.grad, v.grad)],
+            collective.HOST_STAGED_HOPS - staged)
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_two_rank_gloo_ring_on_one_card(cuda, tmp_path, causal):
+    """Two ranks on cuda:0 in one gloo group (hops staged through the
+    host): the gathered o, dq, dk, dv against the plain versions and the
+    single-rank kernels with chip_smoke.py phase 8's gates."""
+    with RankPool(2, f"file://{tmp_path}/rendezvous", backend="gloo",
+                  device="cuda:0", timeout_s=120.0) as pool:
+        res = pool.run(_rank_ring, causal)
+    # each rank: a k/v hop in the forward, one in the backward, 2 dk/dv hops
+    assert [hops for _, hops in res] == [4, 4]
+    got = [torch.cat([r[0][i] for r in res], dim=2).cuda() for i in range(4)]
+    vs_plain, vs_kernel, _ = sp_attention_errors(_ring_inputs(), causal, got,
+                                                 ring=True)
+    assert max(vs_plain + vs_kernel) <= 1, (vs_plain, vs_kernel)
