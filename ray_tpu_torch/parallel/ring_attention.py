@@ -183,19 +183,15 @@ def ring_attention(q, k, v, axis_name: str = "sp", causal: bool = True,
 
 def ring_attention_sharded(q, k, v, mesh, causal: bool = True,
                            sm_scale: Optional[float] = None,
-                           batch_axes=("dp", "fsdp"), seq_axis="sp",
-                           head_axis="tp", variant: str = "ring"):
+                           variant: str = "ring"):
     """q, k, v: this rank's (batch, heads, seq, head_dim) chunks, the
-    sequence sharded on ``seq_axis`` of ``mesh``.  Each rank already holds
-    its batch and head shard, so ``batch_axes`` and ``head_axis`` (the JAX
-    function's ``shard_map`` specs) are accepted and change nothing.
-    ``variant`` "ring" or "ulysses"; with no ``seq_axis`` over 1, plain
-    ``flash_attention``."""
-    if mesh_axis_size(mesh, seq_axis) <= 1:
+    sequence sharded on the ``sp`` axis of ``mesh``.  ``variant`` "ring" or
+    "ulysses"; with no ``sp`` axis over 1, plain ``flash_attention``."""
+    if mesh_axis_size(mesh, "sp") <= 1:
         return flash_attention(q, k, v, causal, sm_scale)
     inner = ring_attention if variant == "ring" else ulysses_attention
     with use_mesh(mesh):
-        return inner(q, k, v, seq_axis, causal, sm_scale)
+        return inner(q, k, v, "sp", causal, sm_scale)
 
 
 def ulysses_attention(q, k, v, axis_name: str = "sp", causal: bool = True,

@@ -522,6 +522,5 @@ def test_two_rank_gloo_ring_on_one_card(cuda, tmp_path, causal):
     # each rank: a k/v hop in the forward, one in the backward, 2 dk/dv hops
     assert [hops for _, hops in res] == [4, 4]
     got = [torch.cat([r[0][i] for r in res], dim=2).cuda() for i in range(4)]
-    vs_plain, vs_kernel, _ = sp_attention_errors(_ring_inputs(), causal, got,
-                                                 ring=True)
+    vs_plain, vs_kernel, _ = sp_attention_errors(_ring_inputs(), causal, got)
     assert max(vs_plain + vs_kernel) <= 1, (vs_plain, vs_kernel)
