@@ -103,7 +103,28 @@ Phases; any failure exits non-zero:
    device work and the transport's calls (CUDA events), with the host
    time blocked in them.  A rank that fails fails the phase.  Phases 2
    and 2b also run the ring's chunk shapes (S = 512, 256) and Ulysses'
-   head groups (H = 6, 3) in the bhsd layout.
+   head groups (H = 6, 3) in the bhsd layout;
+9. pp — pipeline parallelism over ranks that share the card (``RankPool``
+   on cuda:0, one gloo group), each rank a stage of
+   ``to_pipeline_params``'s tree cut by ``shard_params``: at pp = 2 (M = 4)
+   and pp = 4 (M = 2, the replicated output) GPT-2 124M's logits (B=8,
+   S=1024; each rank's rows, bit for bit or not), loss and every leaf's
+   gradient (summed as the train step sums them; stage slices against
+   their layers) against the single-rank kernels on the same rank; the MoE
+   model (8 experts) at pp = 2, M = 4 against the single-rank model run
+   microbatch by microbatch (the aux averaged over microbatches), with its
+   routes replayed only where they part (the share printed); then AdamW
+   steps at B=16, S=1024 (a warm-up, then 5 timed) at pp=2 M=4, pp=4 M=8,
+   dp=2 x pp=2 M=4 and the MoE model at pp=2 M=4: losses finite, falling
+   and the same on every rank, the stage leaves equal bit for bit across
+   dp replicas and the others on every rank, the launches summed over the
+   ranks (2 x n_layer x M of the forward a step and replica, the stage
+   recomputed in the backward, and n_layer x M of each backward kernel),
+   ms per step, tokens/s, each rank's peak memory beside the single-rank
+   step's, its split into time with a transport call in flight by kind
+   and without, hops and host-staged MB a step, and the schedule's bubble
+   fraction.  Phases 2 and 2b also run the microbatch shapes (B = 4 and 2,
+   bshd).
 
 The last two lines are a JSON object of per-kernel numbers and the
 result line ``{"ok": true, "device": {...}}``.  ``--profile`` adds
@@ -149,7 +170,10 @@ from ray_tpu_torch.ops import flash_attention as fa
 from ray_tpu_torch.parallel import ring_attention as ra
 from ray_tpu_torch.parallel.context import use_mesh
 from ray_tpu_torch.parallel.launch import RankPool
-from ray_tpu_torch.parallel.sharding import ShardingConfig, seq_shard
+from ray_tpu_torch.parallel.mesh import mesh_axis_size
+from ray_tpu_torch.parallel.pipeline import schedule_info
+from ray_tpu_torch.parallel.sharding import (ShardingConfig, batch_shard,
+                                             seq_shard, shard_params)
 from ray_tpu_torch.serve import Replica
 
 # H100 SXM, dense, at the full 700 W limit (NVIDIA data sheet)
@@ -364,6 +388,14 @@ SP_SHAPES = {(16, 12, 512, 64): "sp ring chunk (sp=2)",
              (16, 6, 1024, 64): "sp ulysses heads (sp=2)",
              (16, 3, 1024, 64): "sp ulysses heads (sp=4)"}
 SP_LABELS = set(SP_SHAPES.values())
+#: phase 9's microbatch shapes (bshd): 4 rows (M = 4 of 16 rows at pp = 2,
+#: of 8 at the pp = 4 check) and 2 rows (M = 8 of 16 at pp = 4, M = 4 of a
+#: dp replica's 8, M = 4 of the pp = 2 check's 8)
+PP_SHAPES = {(4, 12, 1024, 64): "pp microbatch (B=4)",
+             (2, 12, 1024, 64): "pp microbatch (B=2)"}
+#: ms per step and peak GB of the single-rank train steps (phases 4, 6),
+#: printed beside phase 9's
+SINGLE_RANK_STEPS = {}
 
 
 def card_line() -> str:
@@ -536,6 +568,8 @@ def phase_kernels(seed):
     cases += [TRAIN_SHAPE + ("bshd",), XL_SHAPE + ("bshd",),
               LLAMA_SHAPE + ("bshd",)]
     cases += [shape + ("bhsd",) for shape in SP_SHAPES]
+    cases += [shape + ("bshd",) for shape in PP_SHAPES
+              if shape[0] not in (1, 4)]  # B = 4 is in the grid above
     served = None
     worst = 0.0
     for B, H, S, D, layout in cases:
@@ -598,6 +632,8 @@ def phase_kernels(seed):
                       f"time per launch (3 maps)", flush=True)
             label = {TRAIN_SHAPE: "training", XL_SHAPE: "xl",
                      LLAMA_SHAPE: "llama", **SP_SHAPES}.get((B, H, S, D))
+            if layout == "bshd" and (B, H, S, D) in PP_SHAPES:
+                label = PP_SHAPES[(B, H, S, D)]
             if label:
                 print(f"[kernel] {label} shape, causal={int(causal)}: "
                       f"kernel_ms={ms:.4f} library_ms={lib_ms:.4f} "
@@ -649,6 +685,7 @@ def phase_bwd_kernels(seed):
         train_shape, XL_SHAPE, (1, 12, 1000, 64), (1, 32, 2048, 128),
         (1, 4, 100, 32))]
     cases += [(shape, ("bhsd",)) for shape in SP_SHAPES]
+    cases += [(shape, ("bshd",)) for shape in PP_SHAPES]
     worst = {"dq": 0.0, "dkv": 0.0}
     rec = {}
     for (B, H, S, D), layouts in cases:
@@ -722,7 +759,7 @@ def phase_bwd_kernels(seed):
                     fail(f"backward kernels disagree with plain at B={B} "
                          f"H={H} S={S} D={D} {layout} causal={causal}")
                 label = {train_shape: "training", XL_SHAPE: "xl",
-                         **SP_SHAPES}.get((B, H, S, D))
+                         **SP_SHAPES, **PP_SHAPES}.get((B, H, S, D))
                 if label in SP_LABELS or (label and layout == "bshd"
                                           and causal):
                     if label == "training":
@@ -923,7 +960,7 @@ def loss_and_grads(params, batch, cfg, xent_chunks=0):
     """(loss, gradient of every leaf) of ``loss_fn`` through the cast."""
     leaves = gpt2.param_leaves(params)
     loss = gpt2.loss_fn(gpt2._cast_weights(params, cfg.compute_dtype), batch,
-                        cfg, xent_chunks)
+                        cfg, xent_chunks=xent_chunks)
     return loss.item(), torch.autograd.grad(loss, leaves)
 
 
@@ -1013,6 +1050,7 @@ def phase_train(seed, profile):
           f"events over {steps} steps), {tok_s:.1f} tokens/s, MFU "
           f"{mfu:.4f} of {PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s bf16, peak "
           f"memory {peak_gb:.2f} GB; card {card_line()}", flush=True)
+    SINGLE_RANK_STEPS["gpt2"] = (ms, peak_gb)
     print(f"[train] launches in {steps} steps: {launches} (n_layer "
           f"{cfg.n_layer} x {steps} each)", flush=True)
     if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
@@ -1361,6 +1399,7 @@ def phase_moe(seed, profile):
                ).tolist()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     tok_s = B * S / (ms / 1e3)
+    SINGLE_RANK_STEPS["moe"] = (ms, peak_gb)
     print(f"[moe] losses {' '.join(f'{x:.4f}' for x in losses)}; aux loss "
           f"(mean over layers) {' '.join(f'{x:.4f}' for x in aux)}; "
           f"token-choices dropped at capacity "
@@ -1800,6 +1839,326 @@ def phase_sp(seed):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 9: pipeline parallelism (with data parallelism)
+# ---------------------------------------------------------------------------
+
+#: (B, S) of phase 9's checks and of its training
+PP_CHECK_BATCH = (8, 1024)
+PP_TRAIN_BATCH = (16, 1024)
+#: timed train steps a configuration of phase 9 takes after its warm-up
+PP_STEPS = 5
+
+
+def pp_setup(cfg, seed, batch, dp=1):
+    """The ranks' (dp, pp) mesh, the f32 master parameters from ``seed``
+    (the same on every rank) and the rank's stage of their pipeline tree
+    (every leaf requiring grad), and the (B, S+1) tokens."""
+    n = dist.get_world_size()
+    config = ShardingConfig(dp=dp, pp=n // dp)
+    mesh = config.build_mesh()
+    params, tokens = train_setup(cfg, seed, *batch)
+    with torch.no_grad():
+        stage = shard_params(gpt2.to_pipeline_params(params, cfg), config,
+                             mesh)
+    for leaf in gpt2.param_leaves(stage):
+        leaf.requires_grad_(True)
+    return mesh, params, stage, tokens
+
+
+def pp_stage_refs(mesh, ref, cfg):
+    """{name: reference} of every leaf of a stage's tree from the
+    sequential tree's {name: tensor}: a stacked leaf is the rank's layers'
+    entries stacked."""
+    n = mesh_axis_size(mesh, "pp")
+    c = cfg.n_layer // n
+    first = mesh.get_local_rank("pp") * c
+    out = {k: v for k, v in ref.items() if not k.startswith("h_")}
+    for name in {k.split("/", 1)[1] for k in ref if k.startswith("h_")}:
+        out[f"blocks/{name}"] = torch.stack(
+            [ref[f"h_{first + i}/{name}"] for i in range(c)])
+    return out
+
+
+def pp_grad_errors(stage, mesh, names, ref_grads, cfg):
+    """||g - g_ref|| / ||g_ref|| of every leaf of the stage (gradients in
+    ``.grad``, summed as the train step sums them) against the single-rank
+    gradients of the same leaves."""
+    refs = pp_stage_refs(mesh, dict(zip(names, ref_grads)), cfg)
+    return {name: ((t.grad - refs[name]).norm() / refs[name].norm()).item()
+            for name, t in gpt2.named_leaves(stage)}
+
+
+def pp_check_rank(seed, M):
+    """GPT-2 124M at PP_CHECK_BATCH through the pipeline over the ranks
+    against the single-rank kernels on the same rank: the rank's rows of
+    logits, the loss and every leaf's gradient."""
+    set_precision()
+    cfg = gpt2.GPT2_SMALL
+    mesh, params, stage, tokens = pp_setup(cfg, seed, PP_CHECK_BATCH)
+    names = [n for n, _ in gpt2.named_leaves(params)]
+    n = mesh_axis_size(mesh, "pp")
+    inputs = tokens[:, :-1]
+    with torch.no_grad():
+        ref = gpt2.forward(params, inputs, cfg)
+        with use_mesh(mesh):
+            logits = gpt2.forward(stage, inputs, cfg, None, M)
+    if M % n == 0:
+        ref = ref.view(n, -1, *ref.shape[1:])[mesh.get_local_rank("pp")]
+    out = {"shape": tuple(logits.shape),
+           "finite": bool(torch.isfinite(logits).all()),
+           "logits_err": (logits - ref).abs().max().item(),
+           "bitwise": torch.equal(logits, ref)}
+    del logits, ref
+    ref_loss, ref_grads = loss_and_grads(params, {"tokens": tokens}, cfg)
+    with use_mesh(mesh):
+        loss = gpt2.loss_fn(gpt2._cast_weights(stage, cfg.compute_dtype),
+                            {"tokens": tokens}, cfg, M)
+        loss.backward()
+        gpt2._sum_grads(stage, cfg)
+    out.update(loss=loss.item(), ref_loss=ref_loss,
+               rel=pp_grad_errors(stage, mesh, names, ref_grads, cfg))
+    return out
+
+
+def pp_check_gpt2(pool, n, seed, M):
+    res = pool.run(pp_check_rank, seed, M)
+    B, S = PP_CHECK_BATCH
+    rows = B // n if M % n == 0 else B
+    shape = (rows, S, gpt2.GPT2_SMALL.vocab_size)
+    err = max(r["logits_err"] for r in res)
+    print(f"[pp] GPT2_SMALL pp={n} M={M} B={B} S={S}: each rank's logits "
+          f"{res[0]['shape']} ({'its rows' if M % n == 0 else 'every row'})"
+          f" vs the single-rank kernels': max abs err {err:.4e} (tol "
+          f"{LOGITS_TOL}); equal bit for bit on every rank: "
+          f"{all(r['bitwise'] for r in res)}", flush=True)
+    if any(r["shape"] != shape or not r["finite"] for r in res) \
+            or err > LOGITS_TOL:
+        fail(f"GPT-2 logits at pp={n} M={M} malformed or apart")
+    pp_hold_grads(res, f"GPT2_SMALL pp={n} M={M} B={B} S={S}",
+                  "single-rank kernels")
+
+
+def pp_hold_grads(res, what, against):
+    """Print and hold every rank's loss and per-leaf gradient errors."""
+    d = max(abs(r["loss"] - r["ref_loss"]) for r in res)
+    rel = {f"rank {i} {k}": v for i, r in enumerate(res)
+           for k, v in r["rel"].items()}
+    worst = max(rel, key=rel.get)
+    print(f"[pp] {what}: loss {res[0]['loss']:.6f} vs {against} "
+          f"{res[0]['ref_loss']:.6f}, largest |diff| over the ranks "
+          f"{d:.3e} (tol {TRAIN_LOSS_TOL}); largest ||g - g_ref|| / "
+          f"||g_ref|| over the ranks' {len(rel)} leaves (stage slices vs "
+          f"their layers; the others summed over pp as the step sums "
+          f"them) {rel[worst]:.3e} at {worst} (tol {TRAIN_GRAD_REL_TOL}); "
+          f"median {sorted(rel.values())[len(rel) // 2]:.3e}", flush=True)
+    if any(r["loss"] != res[0]["loss"] for r in res):
+        fail(f"{what}: the ranks' losses differ")
+    if d > TRAIN_LOSS_TOL or rel[worst] > TRAIN_GRAD_REL_TOL:
+        fail(f"{what}: loss or gradients disagree with the {against}")
+
+
+def pp_moe_reference(params, tokens, cfg, M, routes=None):
+    """The single-rank MoE model run microbatch by microbatch (JAX's
+    function under pp: each microbatch routes with its own capacity, the
+    aux averaged over microbatches): (loss, gradients, the expert choices
+    of each (microbatch, layer)); ``routes`` replays given choices."""
+    cast = gpt2._cast_weights(params, cfg.compute_dtype)
+    pin = pinned_routes(routes) if routes is not None \
+        else contextlib.nullcontext()
+    with pin, moe_probe() as rec:
+        loss = sum(gpt2.loss_fn(cast, {"tokens": t}, cfg)
+                   for t in tokens.chunk(M)) / M
+    grads = torch.autograd.grad(loss, gpt2.param_leaves(params))
+    return loss.item(), grads, rec["idx"]
+
+
+def pp_moe_rank(seed, M):
+    """The MoE model at PP_CHECK_BATCH through the pipeline against the
+    single-rank model run microbatch by microbatch, with the pipeline's
+    routes replayed there if any part."""
+    set_precision()
+    cfg = replace(gpt2.GPT2_SMALL, moe_experts=8)
+    mesh, params, stage, tokens = pp_setup(cfg, seed, PP_CHECK_BATCH)
+    names = [n for n, _ in gpt2.named_leaves(params)]
+    with use_mesh(mesh), moe_probe() as rec:
+        loss = gpt2.loss_fn(gpt2._cast_weights(stage, cfg.compute_dtype),
+                            {"tokens": tokens}, cfg, M)
+        loss.backward()
+        gpt2._sum_grads(stage, cfg)
+        # the forward's choices, (M, stage layers) in order; every stage's
+        # gathered into (M, n_layer)
+        c = stage["blocks"]["ln_1"]["scale"].shape[0]
+        mine = torch.stack(rec["idx"][:M * c]).view(M, c, *rec["idx"][0]
+                                                    .shape)
+        every = c10d.allgather(mine, "pp", axis=1)
+    routes = list(every.flatten(0, 1))
+    ref_loss, ref_grads, ref_idx = pp_moe_reference(params, tokens, cfg, M)
+    parted = (torch.stack(ref_idx) != every.flatten(0, 1)).float().mean()
+    parted = parted.item()
+    if parted:
+        ref_loss, ref_grads, _ = pp_moe_reference(params, tokens, cfg, M,
+                                                  routes)
+    return {"loss": loss.item(), "ref_loss": ref_loss, "parted": parted,
+            "rel": pp_grad_errors(stage, mesh, names, ref_grads, cfg)}
+
+
+def pp_check_moe(pool, n, seed, M):
+    res = pool.run(pp_moe_rank, seed, M)
+    B, S = PP_CHECK_BATCH
+    parted = res[0]["parted"]
+    print(f"[pp] MoE (8 experts) pp={n} M={M} B={B} S={S}: share of "
+          f"token-choices routed otherwise by the single-rank model run "
+          f"microbatch by microbatch {parted:.6f}"
+          + (" (replayed: the reference takes the pipeline's choices)"
+             if parted else " (no replay)"), flush=True)
+    pp_hold_grads(res, f"MoE pp={n} M={M} B={B} S={S}",
+                  "single-rank model by microbatch")
+
+
+def pp_digests(stage):
+    """sha256 digests of (the stacked blocks, every other leaf)."""
+    out = []
+    for keep in (True, False):
+        h = hashlib.sha256()
+        for name, leaf in gpt2.named_leaves(stage):
+            if name.startswith("blocks/") == keep:
+                h.update(leaf.detach().float().contiguous().cpu().numpy())
+        out.append(h.hexdigest())
+    return out
+
+
+def pp_train_rank(seed, dp, M, moe, steps):
+    """A warm-up and ``steps`` timed AdamW steps of GPT-2 124M (or its MoE)
+    at PP_TRAIN_BATCH over a (dp, pp) mesh of the ranks: losses, ms per
+    step (CUDA events), the transport's share of it, peak memory,
+    launches, hops and digests of the parameters after them."""
+    set_precision()
+    cfg = replace(gpt2.GPT2_SMALL, moe_experts=8 if moe else 0)
+    mesh, params, stage, tokens = pp_setup(cfg, seed, PP_TRAIN_BATCH, dp)
+    del params
+    batch = {"tokens": batch_shard(tokens, mesh)}
+    step = gpt2.make_train_step(cfg, adamw(stage), M)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with use_mesh(mesh):
+        t0 = time.perf_counter()
+        first = step(stage, batch)["loss"].item()
+        warm_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        dist.barrier()
+        reset_launches()
+        h0 = hop_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with collective.timing() as comm:
+            start.record()
+            out = [step(stage, batch)["loss"] for _ in range(steps)]
+            end.record()
+            split = {k: (a / steps, b / steps)
+                     for k, (a, b) in comm.split_ms().items()}
+        launches = read_launches()
+        hops = [b - a for a, b in zip(h0, hop_counts())]
+    return {"losses": [first] + [x.item() for x in out], "warm_s": warm_s,
+            "ms": start.elapsed_time(end) / steps, "split": split,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches": launches, "hops": hops, "digests": pp_digests(stage),
+            "pp": mesh.get_local_rank("pp")}
+
+
+def pp_train(pool, seed, dp, M, moe=False):
+    """Phase 9's training in one layout; returns the launches of the timed
+    steps summed over the ranks."""
+    res = pool.run(pp_train_rank, seed, dp, M, moe, PP_STEPS)
+    n, r0 = pool.world_size, res[0]
+    pp = n // dp
+    (B, S), L = PP_TRAIN_BATCH, gpt2.GPT2_SMALL.n_layer
+    tag = ("MoE " if moe else "") + (f"dp={dp} x " if dp > 1 else "") \
+        + f"pp={pp} M={M}"
+    launches = {k: sum(r["launches"][k] for r in res)
+                for k in r0["launches"]}
+    want = {"flash_fwd": 2 * L * M * dp * PP_STEPS,
+            "flash_bwd_dq": L * M * dp * PP_STEPS,
+            "flash_bwd_dkv": L * M * dp * PP_STEPS}
+    single_ms, single_gb = SINGLE_RANK_STEPS["moe" if moe else "gpt2"]
+    bubble = schedule_info(M, pp)["bubble_fraction"]
+    print(f"[pp] train {tag} B={B} S={S}: losses "
+          f"{' '.join(f'{x:.4f}' for x in r0['losses'])} (warm-up "
+          f"{r0['warm_s']:.2f} s); rank 0 {r0['ms']:.3f} ms per step (CUDA "
+          f"events over {PP_STEPS} steps), {B * S / (r0['ms'] / 1e3):.1f} "
+          f"tokens/s over the ranks (single-rank step, phase "
+          f"{6 if moe else 4}: {single_ms:.3f} ms, peak {single_gb:.2f} GB); "
+          f"the schedule's bubble fraction {bubble:.4f} "
+          f"(schedule_info({M}, {pp})); {n} ranks share one card and hop "
+          f"through host memory: these times measure correctness and the "
+          f"kernels' work at microbatch shapes, not pipeline speed; card "
+          f"{card_line()}", flush=True)
+    for rank, r in enumerate(res):
+        comm, blocked = r["split"]["all"]
+        kinds = ", ".join(f"{k} {a:.3f} ({b:.3f} blocked)"
+                          for k, (a, b) in r["split"].items() if k != "all")
+        print(f"[pp]   rank {rank} (stage {r['pp']}): {r['ms']:.3f} ms per "
+              f"step = {r['ms'] - comm:.3f} with no transport call in "
+              f"flight (host dispatch and idle gaps included) + "
+              f"{comm:.3f} with one in flight (the union of the CUDA-event "
+              f"spans of the transport's calls), during which the host was "
+              f"blocked on gloo or a peer {blocked:.3f}; by kind: {kinds}; "
+              f"{r['hops'][0] / PP_STEPS:.0f} hops a step "
+              f"({r['hops'][1] / PP_STEPS:.0f} host-staged, "
+              f"{r['hops'][2] / PP_STEPS / 1e6:.1f} MB sent); peak memory "
+              f"{r['peak_gb']:.2f} GB", flush=True)
+    stages = {}
+    for r in res:
+        stages.setdefault(r["pp"], set()).add(r["digests"][0])
+    stage_equal = all(len(d) == 1 for d in stages.values())
+    rest_equal = len({r["digests"][1] for r in res}) == 1
+    print(f"[pp] train {tag}: launches over the ranks in {PP_STEPS} steps "
+          f"{launches} (want {want}: 2 x n_layer {L} x M {M} of the forward "
+          f"a step and replica, the stage recomputed in the backward, and "
+          f"n_layer x M of each backward kernel); stage leaves equal bit for "
+          f"bit across dp replicas: {stage_equal}; wte, wpe, ln_f equal bit "
+          f"for bit on every rank: {rest_equal}", flush=True)
+    losses = r0["losses"]
+    if any(r["losses"] != losses for r in res):
+        fail(f"{tag}: the ranks' losses differ")
+    if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
+        fail(f"{tag} train losses not finite or not falling")
+    if launches != want:
+        fail(f"{tag}: launches {launches}, want {want}")
+    if not (stage_equal and rest_equal):
+        fail(f"{tag}: the ranks' parameters differ")
+    return launches
+
+
+def phase_pp(seed):
+    """Pipeline parallelism (with data parallelism): GPT-2 124M's and its
+    MoE's logits, loss and gradients and their training over 2 and 4
+    ranks that share the card (one gloo group).  Returns the launches of
+    the training runs, by layout."""
+    free_memory("pp")
+    launches = {}
+    for n in (2, 4):
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp, RankPool(
+                n, f"file://{tmp}/rendezvous", backend="gloo",
+                device="cuda:0", timeout_s=600.0) as pool:
+            print(f"[pp] {n} ranks on cuda:0 up in "
+                  f"{time.perf_counter() - t0:.2f} s; one gloo group: the "
+                  "stage hops staged through pinned host buffers, the "
+                  "reduce-scatter, all-gather and all-reduces passed to "
+                  "gloo", flush=True)
+            if n == 2:
+                pp_check_gpt2(pool, 2, seed, 4)
+                pp_check_moe(pool, 2, seed, 4)
+                launches["pp2_m4"] = pp_train(pool, seed, 1, 4)
+                launches["moe_pp2_m4"] = pp_train(pool, seed, 1, 4, True)
+            else:
+                pp_check_gpt2(pool, 4, seed, 2)
+                launches["pp4_m8"] = pp_train(pool, seed, 1, 8)
+                launches["dp2_pp2_m4"] = pp_train(pool, seed, 2, 4)
+    return launches
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1822,10 +2181,11 @@ def main():
     moe_serve, moe_train = phase_moe(args.seed, args.profile)
     xl_train = phase_xl(args.seed, args.profile)
     sp_runs = phase_sp(args.seed)
+    pp_runs = phase_pp(args.seed)
     print(card_line())
     src = "ray_tpu/ops/flash_attention.py"
     trained = {"train": train, "moe_train": moe_train, "xl_train": xl_train,
-               **sp_runs}
+               **sp_runs, **pp_runs}
     paths = {
         "flash_fwd": {"serve": serve_launches, "llama": llama_launches,
                       "moe_serve": moe_serve},

@@ -10,8 +10,9 @@ written by hand for ``sm_90a`` under ``csrc/``.
 Sub-packages: ``ops`` (flash attention), ``native`` (the nvcc build of
 ``csrc``), ``models`` (GPT-2, Llama), ``core`` (config flags,
 exceptions), ``serve`` (the replica, batching, multiplexing),
-``parallel`` (mesh, sharding rules, ring and Ulysses attention, spawned
-ranks) and ``collective`` (named-axis collectives over process groups).
+``parallel`` (mesh, sharding rules, ring and Ulysses attention, the
+pipeline, spawned ranks) and ``collective`` (named-axis collectives over
+process groups).
 No runtime is started on import.
 """
 

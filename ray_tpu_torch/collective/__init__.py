@@ -25,8 +25,8 @@ The transport is ``torch.distributed``:
 
 ``timing()`` records, while active, a pair of CUDA events around each of
 the transport's calls on a CUDA tensor (from the call to the moment its
-result is on the device), by kind ("hop", "all_reduce", "all_to_all"),
-and the host time blocked in them.
+result is on the device), by kind ("hop", "all_reduce", "all_to_all",
+"all_gather", "reduce_scatter"), and the host time blocked in them.
 
 The KV-store host group of the JAX module (``init_collective_group``,
 ``_HostGroup``, ...) needs the runtime and is not ported yet
@@ -261,6 +261,34 @@ def _all_to_all(x, group, split_axis, concat_axis):
     return torch.cat(out.unbind(0), concat_axis)
 
 
+def _all_gather(x, group, axis):
+    """Tiled all-gather: the ranks' x concatenated along ``axis`` in rank
+    order."""
+    x = x.contiguous()
+    out = [torch.empty_like(x) for _ in range(group.size())]
+    start = _span_start(x.device)
+    with _blocked("all_gather"):
+        dist.all_gather(out, x, group=group)
+    _span_end(start, "all_gather")
+    return torch.cat(out, axis)
+
+
+def _reduce_scatter(x, group, axis):
+    """Tiled reduce-scatter: the sum over the ranks of x, of which rank j
+    keeps block j along ``axis``."""
+    n = group.size()
+    if x.shape[axis] % n:
+        raise ValueError(f"dim {axis} of {tuple(x.shape)} does not "
+                         f"divide by the group size {n}")
+    xm = x.movedim(axis, 0).contiguous()
+    out = xm.new_empty((xm.shape[0] // n, *xm.shape[1:]))
+    start = _span_start(x.device)
+    with _blocked("reduce_scatter"):
+        dist.reduce_scatter_tensor(out, xm, group=group)
+    _span_end(start, "reduce_scatter")
+    return out.movedim(0, axis)
+
+
 class _AllReduce(torch.autograd.Function):
     """Sum (or mean) over the group into a value every rank holds whole.
     Each rank's copy is the same value and its cotangent arrives whole on
@@ -312,11 +340,43 @@ class _AllToAll(torch.autograd.Function):
         return _all_to_all(g, *ctx.args), None, None, None
 
 
+class _AllGather(torch.autograd.Function):
+    """Tiled ``allgather``; its transpose is the reduce-scatter along the
+    same axis: rank j's block of every rank's cotangent, summed (JAX
+    transposes ``all_gather`` into ``psum_scatter``)."""
+
+    @staticmethod
+    def forward(ctx, x, group, axis):
+        ctx.args = (group, axis)
+        return _all_gather(x, group, axis)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        return _reduce_scatter(g, *ctx.args), None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    """Tiled ``reducescatter`` (sum); its transpose is the all-gather of
+    the cotangents along the same axis."""
+
+    @staticmethod
+    def forward(ctx, x, group, axis):
+        ctx.args = (group, axis)
+        return _reduce_scatter(x, group, axis)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        return _all_gather(g, *ctx.args), None, None
+
+
 class c10d:
     """Named-axis collectives over the bound mesh's process groups — the
     counterpart of ``ray_tpu.collective.xla`` (named-axis collectives
-    inside jit/shard_map).  ``permute``, ``alltoall`` and ``allreduce``
-    with op sum or mean are differentiable."""
+    inside jit/shard_map).  ``permute``, ``alltoall``, ``allgather``,
+    ``reducescatter`` and ``allreduce`` with op sum or mean are
+    differentiable."""
 
     @staticmethod
     def allreduce(x, axis_name: str, op: str = "sum"):
@@ -328,25 +388,20 @@ class c10d:
 
     @staticmethod
     def allgather(x, axis_name: str, axis: int = 0, tiled: bool = True):
-        group = axis_group(axis_name)
-        x = x.contiguous()
-        out = [torch.empty_like(x) for _ in range(group.size())]
-        dist.all_gather(out, x, group=group)
-        return torch.cat(out, axis) if tiled else torch.stack(out, axis)
+        """Every rank's x along ``axis``, in rank order: concatenated
+        (``tiled``) or stacked on a new dim ``axis``."""
+        if not tiled:
+            x = x.unsqueeze(axis)
+        return _AllGather.apply(x, axis_group(axis_name), axis)
 
     @staticmethod
     def reducescatter(x, axis_name: str, axis: int = 0, op: str = "sum"):
+        """The sum over the ranks of x, cut along ``axis`` into one block
+        per rank: rank j keeps block j (``psum_scatter(..., tiled=True)``).
+        """
         if op != "sum":
             raise ValueError("reducescatter supports sum")
-        group = axis_group(axis_name)
-        xm = x.movedim(axis, 0).contiguous()
-        n = group.size()
-        if xm.shape[0] % n:
-            raise ValueError(f"dim {axis} of {tuple(x.shape)} does not "
-                             f"divide by the group size {n}")
-        out = xm.new_empty((xm.shape[0] // n, *xm.shape[1:]))
-        dist.reduce_scatter_tensor(out, xm, group=group)
-        return out.movedim(0, axis)
+        return _ReduceScatter.apply(x, axis_group(axis_name), axis)
 
     @staticmethod
     def broadcast(x, axis_name: str, root: int = 0):

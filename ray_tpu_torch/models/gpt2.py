@@ -17,8 +17,19 @@ the bound mesh (``attention="ring"|"ulysses"``, under ``use_mesh``;
 ``ray_tpu_torch/parallel/ring_attention.py``).  Under sequence parallelism
 each rank runs the model on its own chunk of the sequence (``seq_shard``):
 ``forward`` gives the rank's logits, the positions are the chunk's global
-ones, ``loss_fn`` the global mean and ``make_train_step`` sums every
-gradient over the ``sp`` ranks, so every rank takes the same step.
+ones.
+
+Parallelism over ranks, under ``use_mesh``: data parallelism on ``dp``
+(each rank its rows, ``batch_shard``), sequence parallelism on ``sp``, and
+pipeline parallelism on ``pp``: ``to_pipeline_params`` stacks the blocks
+into ``blocks`` with a leading layer dim, ``shard_params`` gives each rank
+its stage's layers, and ``_trunk`` runs them through
+``parallel/pipeline.py``'s ``pipeline_apply`` in ``pp_microbatches``
+microbatches (always recomputing each stage in the backward, as the JAX
+pipeline's checkpoint does).  ``forward`` gives the rank's rows of logits
+(all rows when the microbatches do not divide by the stages), ``loss_fn``
+the global mean, and ``make_train_step`` sums each gradient over the ranks
+that computed other terms of it, so every replica takes the same step.
 
 ``moe_experts > 0`` swaps every block's dense FFN for the top-k routed
 mixture of experts (``_moe_mlp``: the reference's capacity dispatch,
@@ -33,8 +44,10 @@ such as AdamW over ``param_leaves``).  ``remat=True`` checkpoints each
 block (``torch.utils.checkpoint``), so the backward recomputes it.
 Gradients of attention go through the flash backward kernels on the card.
 
-Pipeline-stacked ``blocks``, and the MoE FFN under sequence parallelism,
-are not ported yet (ROADMAP.md) and raise ``NotImplementedError``.
+Not ported yet, raising ``NotImplementedError`` (ROADMAP.md): the MoE FFN
+under sequence or data parallelism (the reference's capacity counts the
+global tokens), pipeline stages with ring or Ulysses attention, and a mesh
+with fsdp, tp or ep over 1.
 """
 
 from __future__ import annotations
@@ -50,8 +63,10 @@ from torch.utils.checkpoint import checkpoint
 from ray_tpu_torch.collective import c10d
 from ray_tpu_torch.ops.flash_attention import (_reference_attention,
                                                flash_attention_bshd)
-from ray_tpu_torch.parallel.context import require_mesh
-from ray_tpu_torch.parallel.mesh import mesh_axis_size
+from ray_tpu_torch.parallel.context import get_mesh, require_mesh
+from ray_tpu_torch.parallel.mesh import mesh_axis_size, mesh_shape
+from ray_tpu_torch.parallel.pipeline import (pipeline_apply,
+                                             stack_layer_params)
 from ray_tpu_torch.parallel.ring_attention import ring_attention_sharded
 
 
@@ -96,7 +111,8 @@ def _check_ported(cfg: GPT2Config):
         # function
         raise NotImplementedError(
             "the MoE FFN under sequence parallelism is not ported yet "
-            "(ROADMAP.md §A: MoE under sp with global capacity)")
+            "(ROADMAP.md §A10: MoE with a capacity over tokens spread "
+            "across ranks)")
 
 
 def _sp_rank_and_size(cfg: GPT2Config):
@@ -107,6 +123,41 @@ def _sp_rank_and_size(cfg: GPT2Config):
     mesh = require_mesh()
     n = mesh_axis_size(mesh, "sp")
     return (mesh.get_local_rank("sp") if n > 1 else 0), n
+
+
+def _check_mesh(params, cfg: GPT2Config):
+    """Raise for what the bound mesh asks that is not ported."""
+    mesh = get_mesh()
+    shape = mesh_shape(mesh) if mesh is not None else {}
+    if any(shape.get(a, 1) > 1 for a in ("fsdp", "tp", "ep")):
+        raise NotImplementedError(
+            "a mesh with fsdp, tp or ep over 1 is not ported yet "
+            "(ROADMAP.md §A9: fsdp/tp/ep placement)")
+    if cfg.moe_experts > 0 and shape.get("dp", 1) > 1:
+        # as under sp: the reference routes with a capacity over the
+        # global microbatch's tokens
+        raise NotImplementedError(
+            "the MoE FFN under data parallelism is not ported yet "
+            "(ROADMAP.md §A10: MoE with a capacity over tokens spread "
+            "across ranks)")
+    if "blocks" in params and cfg.attention in _SP:
+        raise NotImplementedError(
+            "pipeline stages with ring or Ulysses attention are not ported "
+            "yet (ROADMAP.md §A11: pp composed with sp)")
+
+
+def _loss_axes(params, cfg: GPT2Config) -> List[Tuple[str, int]]:
+    """[(axis, size)] of the bound mesh's axes whose ranks hold other terms
+    of the loss: dp (other rows), sp under ring/Ulysses attention (other
+    positions) and pp for pipeline-stacked ``blocks`` (other rows, or a
+    share of the replicated head).  Sizes of 1 are left out."""
+    mesh = get_mesh()
+    if mesh is None:
+        return []
+    shape = mesh_shape(mesh)
+    names = ["dp"] + (["pp"] if "blocks" in params else []) + (
+        ["sp"] if cfg.attention in _SP else [])
+    return [(a, shape[a]) for a in names if shape.get(a, 1) > 1]
 
 
 def init_params(generator: torch.Generator, cfg: GPT2Config,
@@ -331,7 +382,19 @@ def _block_with_aux(x, p, cfg: GPT2Config):
     return x, (acc[0] if acc else torch.zeros((), device=x.device))
 
 
-def _trunk(params, tokens, cfg: GPT2Config, aux_acc=None):
+def to_pipeline_params(params, cfg: GPT2Config):
+    """Stack the per-layer blocks into one leading-layer-dim tree,
+    ``blocks`` (the "stage" axis ``shard_params`` places on pp); the other
+    params pass through.  Use with ``forward``/``make_train_step`` under a
+    mesh whose pp axis > 1, after ``shard_params``."""
+    out = {k: v for k, v in params.items() if not k.startswith("h_")}
+    out["blocks"] = stack_layer_params(
+        [params[f"h_{i}"] for i in range(cfg.n_layer)])
+    return out
+
+
+def _trunk(params, tokens, cfg: GPT2Config, aux_acc=None,
+           pp_microbatches: int = 2):
     """Embedding + transformer blocks + final LN -> (B, S, E) in
     compute_dtype.  The embedding sum runs in the dtype of the tables: f32
     when serving, ``compute_dtype`` in training, where ``_cast_weights``
@@ -340,12 +403,17 @@ def _trunk(params, tokens, cfg: GPT2Config, aux_acc=None):
     ``checkpoint``: its activations are dropped after the forward and
     recomputed in the backward (the flash forward kernel runs again).
     Under sequence parallelism ``tokens`` are the rank's chunk: rank r of
-    n holds positions [r*S, (r+1)*S) of a sequence of n*S."""
+    n holds positions [r*S, (r+1)*S) of a sequence of n*S.  With stacked
+    ``blocks`` (the rank's stage of ``to_pipeline_params``'s tree, cut by
+    ``shard_params``) the blocks run as a pipeline over the bound mesh's pp
+    axis in ``pp_microbatches`` microbatches, each stage recomputed in the
+    backward whatever ``cfg.remat`` says; the MoE aux rides the stage
+    handoff, and ``pp_aux / n_layer`` (the mean over layers of each
+    layer's mean over microbatches) goes to ``aux_acc``.  The result is the
+    rank's rows when the microbatches divide by the stages, else every
+    row."""
     _check_ported(cfg)
-    if "blocks" in params:
-        raise NotImplementedError(
-            "pipeline-stacked params are not ported yet (ROADMAP.md: "
-            "parallel)")
+    _check_mesh(params, cfg)
     S = tokens.shape[1]
     rank, n = _sp_rank_and_size(cfg)
     if S * n > cfg.block_size:
@@ -354,15 +422,31 @@ def _trunk(params, tokens, cfg: GPT2Config, aux_acc=None):
     wpe = params["wpe"]["embedding"][rank * S:(rank + 1) * S]
     x = params["wte"]["embedding"][tokens] + wpe[None]
     x = x.to(cfg.compute_dtype)
-    for i in range(cfg.n_layer):
-        if cfg.remat:
-            # the blocks draw no random numbers: no RNG state to restore
-            x, aux = checkpoint(_block_with_aux, x, params[f"h_{i}"], cfg,
-                                use_reentrant=False, preserve_rng_state=False)
-            if aux_acc is not None and cfg.moe_experts > 0:
-                aux_acc.append(aux)
-        else:
-            x = _block(x, params[f"h_{i}"], cfg, aux_acc)
+    if "blocks" in params:
+        mesh = require_mesh()
+        stages = mesh_axis_size(mesh, "pp")
+        local = params["blocks"]["ln_1"]["scale"].shape[0]
+        if local * stages != cfg.n_layer:
+            raise ValueError(
+                f"the stage holds {local} stacked layers: n_layer "
+                f"{cfg.n_layer} over pp {stages} needs n_layer / pp each "
+                f"(shard_params gives a rank its stage)")
+        x, pp_aux = pipeline_apply(lambda p, h: _block_with_aux(h, p, cfg),
+                                   params["blocks"], x, mesh,
+                                   pp_microbatches)
+        if aux_acc is not None and cfg.moe_experts > 0:
+            aux_acc.append(pp_aux / cfg.n_layer)
+    else:
+        for i in range(cfg.n_layer):
+            if cfg.remat:
+                # the blocks draw no random numbers: no RNG state to restore
+                x, aux = checkpoint(_block_with_aux, x, params[f"h_{i}"],
+                                    cfg, use_reentrant=False,
+                                    preserve_rng_state=False)
+                if aux_acc is not None and cfg.moe_experts > 0:
+                    aux_acc.append(aux)
+            else:
+                x = _block(x, params[f"h_{i}"], cfg, aux_acc)
     x = _layer_norm(x.float(), params["ln_f"])
     return x.to(cfg.compute_dtype)
 
@@ -376,10 +460,13 @@ def _lm_head(x, wte):
     return torch.matmul(x.float(), wte.float().T)
 
 
-def forward(params, tokens, cfg: GPT2Config, aux_acc=None):
+def forward(params, tokens, cfg: GPT2Config, aux_acc=None,
+            pp_microbatches: int = 2):
     """tokens (B, S) int64 -> logits (B, S, vocab) f32 (under sequence
-    parallelism: the rank's chunk of tokens and of logits)."""
-    x = _trunk(params, tokens, cfg, aux_acc)
+    parallelism: the rank's chunk of tokens and of logits; with pipeline
+    ``blocks``: the rank's rows, or every row when ``pp_microbatches`` does
+    not divide by the pp axis)."""
+    x = _trunk(params, tokens, cfg, aux_acc, pp_microbatches)
     return _lm_head(x, params["wte"]["embedding"].to(cfg.compute_dtype))
 
 
@@ -410,33 +497,46 @@ def _chunked_xent(x, wte, targets, n_chunks: int):
     return total
 
 
-def loss_fn(params, batch, cfg: GPT2Config, xent_chunks: int = 0):
+def loss_fn(params, batch, cfg: GPT2Config, pp_microbatches: int = 2,
+            xent_chunks: int = 0):
     """batch: {"tokens": (B, S+1) int64} -> mean next-token cross-entropy
     (f32 scalar) through the tied head's f32 logits, plus ``moe_aux_weight``
     x the mean of the blocks' load-balancing losses for a mixture.
     ``xent_chunks > 0`` takes ``_chunked_xent``, which never holds the
-    (B, S, V) logits.  Under sequence parallelism the batch is the rank's
-    (B, S/n + 1) chunk (``seq_shard(tokens, mesh, overlap=1)``), and the
-    loss is the rank's sum over its tokens divided by the global count,
-    all-reduced over sp: the same global mean on every rank, whose
-    gradient on each rank is that of its own tokens' terms."""
+    (B, S, V) logits.
+
+    Over ranks (``_loss_axes``: dp, sp, pp) the batch is the rank's part
+    (``batch_shard`` on dp, ``seq_shard(tokens, mesh, overlap=1)`` on sp)
+    and the loss is the global mean on every rank: each rank's share, its
+    sum over the rows it holds divided by its token count times the ranks
+    of those axes, all-reduced over each of them.  The gradient a rank
+    gets is that of its share.  A pipeline whose microbatches do not
+    divide by the stages gives every stage all rows, and each stage's
+    share is then 1/pp of their sum (``pipeline_apply`` sums the stages'
+    cotangents back onto the last stage's output).  The MoE aux is the same
+    global value on every rank and is added once, after the all-reduce."""
     tokens = batch["tokens"]
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
     aux_acc: list = []
-    x = _trunk(params, inputs, cfg, aux_acc)
+    x = _trunk(params, inputs, cfg, aux_acc, pp_microbatches)
     B, S, E = x.shape
-    _, n = _sp_rank_and_size(cfg)
+    if B != targets.shape[0]:  # the rank's rows of the pipeline's output
+        targets = targets.reshape(-1, B, S)[
+            require_mesh().get_local_rank("pp")]
+    axes = _loss_axes(params, cfg)
+    ranks = math.prod(size for _, size in axes)
     wte = params["wte"]["embedding"].to(cfg.compute_dtype)
     if xent_chunks > 0:
         loss = _chunked_xent(x.reshape(B * S, E), wte,
-                             targets.reshape(B * S), xent_chunks) / (B * S * n)
+                             targets.reshape(B * S),
+                             xent_chunks) / (B * S * ranks)
     else:
         logits = _lm_head(x, wte)
         lse = torch.logsumexp(logits, dim=-1)
         terms = lse - logits.gather(-1, targets[..., None])[..., 0]
-        loss = terms.mean() if n == 1 else terms.sum() / (B * S * n)
-    if n > 1:
-        loss = c10d.allreduce(loss, "sp")
+        loss = terms.mean() if ranks == 1 else terms.sum() / (B * S * ranks)
+    for axis, _ in axes:
+        loss = c10d.allreduce(loss, axis)
     if aux_acc:
         loss = loss + cfg.moe_aux_weight * sum(aux_acc) / len(aux_acc)
     return loss
@@ -470,7 +570,8 @@ def param_leaves(params) -> List[torch.Tensor]:
     return [t for _, t in named_leaves(params)]
 
 
-def make_train_step(cfg: GPT2Config, optimizer, xent_chunks: int = 0):
+def make_train_step(cfg: GPT2Config, optimizer, pp_microbatches: int = 2,
+                    xent_chunks: int = 0):
     """Returns ``train_step(params, batch) -> {"loss": tensor}``.
 
     ``params`` are the f32 master leaves, each with ``requires_grad``;
@@ -480,17 +581,17 @@ def make_train_step(cfg: GPT2Config, optimizer, xent_chunks: int = 0):
     backpropagates through the cast (so the gradients are f32), steps the
     optimizer and clears the gradients.  Unlike the JAX step, which
     returns new parameter and optimizer-state trees, this one updates the
-    parameters and the optimizer's state in place.  ``xent_chunks`` goes to
-    ``loss_fn``.  Under sequence parallelism (``batch`` is the rank's
-    chunk) every gradient is summed over the sp ranks before the
-    optimizer's step, so the ranks' parameters stay equal bit for bit."""
+    parameters and the optimizer's state in place.  ``pp_microbatches``
+    and ``xent_chunks`` go to ``loss_fn``.  Over ranks (``batch`` is the
+    rank's part) every gradient is summed over the ranks that computed
+    other terms of it before the optimizer's step (``_sum_grads``), so the
+    ranks that hold a leaf keep it equal bit for bit."""
 
     def train_step(params, batch):
         loss = loss_fn(_cast_weights(params, cfg.compute_dtype), batch, cfg,
-                       xent_chunks)
+                       pp_microbatches, xent_chunks)
         loss.backward()
-        if _sp_rank_and_size(cfg)[1] > 1:
-            _sum_grads_over_sp(params)
+        _sum_grads(params, cfg)
         optimizer.step()
         optimizer.zero_grad(set_to_none=True)
         return {"loss": loss.detach()}
@@ -498,15 +599,27 @@ def make_train_step(cfg: GPT2Config, optimizer, xent_chunks: int = 0):
     return train_step
 
 
-def _sum_grads_over_sp(params):
-    """Every leaf's gradient summed over the sp ranks, in one all-reduce
-    of the flattened gradients."""
-    grads = [t.grad for t in param_leaves(params)]
-    with torch.no_grad():
-        flat = c10d.allreduce(torch.cat([g.reshape(-1) for g in grads]),
-                              "sp")
-    for g, part in zip(grads, flat.split([g.numel() for g in grads])):
-        g.copy_(part.view_as(g))
+def _sum_grads(params, cfg: GPT2Config):
+    """Each leaf's gradient summed over the loss's axes (``_loss_axes``),
+    one all-reduce of the flattened gradients per axis: every leaf over dp
+    and sp; over pp the leaves outside ``blocks`` (wte and wpe take their
+    embedding terms from stage 0, wte and ln_f their head terms from each
+    stage's rows), not the stacked blocks, whose layers differ by stage.
+    A leaf with no gradient (wpe beyond stage 0) counts as zeros."""
+    axes = _loss_axes(params, cfg)
+    if not axes:
+        return
+    named = named_leaves(params)
+    for t in (t for _, t in named if t.grad is None):
+        t.grad = torch.zeros_like(t)
+    for axis, _ in axes:
+        grads = [t.grad for name, t in named
+                 if axis != "pp" or not name.startswith("blocks/")]
+        with torch.no_grad():
+            flat = c10d.allreduce(torch.cat([g.reshape(-1) for g in grads]),
+                                  axis)
+        for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+            g.copy_(part.view_as(g))
 
 
 def num_params(params) -> int:

@@ -15,9 +15,14 @@ Logical dims used by the bundled models (ray_tpu_torch/models/*):
 
 ``spec`` gives, per tensor dim, the mesh axis name(s) or ``None``: the
 entries of the JAX ``PartitionSpec``.  Each rank holds its own shard of the
-data (``seq_shard`` cuts a rank's sequence chunk); placing parameters on
-fsdp/tp/ep (``shard_params``, ``param_shardings``, ``named_sharding``,
-``constraint``) is not ported yet and raises ``NotImplementedError``.
+data: ``batch_shard`` cuts a rank's rows on the "batch" rule (dp, fsdp),
+``seq_shard`` its sequence chunk on sp.  ``shard_params`` gives a rank its
+local parameters: a leaf whose spec names ``pp`` (the "stage" dim of
+pipeline-stacked blocks) is narrowed to the rank's layers, a leaf
+replicated on every axis comes back whole; ``param_shardings`` gives every
+leaf's spec.  Placing parameters on fsdp/tp/ep (a spec naming one of them,
+``named_sharding``, ``constraint``) is not ported yet and raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -43,7 +48,7 @@ DEFAULT_RULES: Dict[str, Any] = {
 }
 
 _PLACEMENT = ("placing tensors on fsdp/tp/ep axes is not ported yet "
-              "(ROADMAP.md §A: fsdp/tp/ep placement)")
+              "(ROADMAP.md §A9: fsdp/tp/ep placement)")
 
 
 @dataclass
@@ -156,12 +161,83 @@ def infer_param_logical_dims(path: Tuple[str, ...], shape: Tuple[int, ...]):
     return tuple([None] * nd)
 
 
+def _leaf_specs(params, config: ShardingConfig, mesh: DeviceMesh,
+                path=()):
+    """{name: (leaf, spec)} over the nested dicts, with the spec of each
+    leaf's inferred logical dims; raises for a spec that names fsdp, tp or
+    ep."""
+    if isinstance(params, dict):
+        return {k: _leaf_specs(v, config, mesh, path + (k,))
+                for k, v in params.items()}
+    dims = infer_param_logical_dims(path, tuple(params.shape))
+    spec = config.spec(mesh, *dims)
+    named = {a for part in spec if part is not None
+             for a in (part if isinstance(part, tuple) else (part,))}
+    if named & {"fsdp", "tp", "ep"}:
+        raise NotImplementedError(f"{'/'.join(path)}: {_PLACEMENT}")
+    return params, spec
+
+
+def _map_specs(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map_specs(fn, v) for k, v in tree.items()}
+    return fn(*tree)
+
+
 def shard_params(params, config: ShardingConfig, mesh: DeviceMesh):
-    raise NotImplementedError(_PLACEMENT)
+    """The calling rank's local parameters: each leaf cut as its inferred
+    logical dims place it on ``mesh`` (JAX: ``device_put`` with the
+    ``NamedSharding``, of which a rank holds its shard).  A dim on ``pp``
+    (the "stage" dim of ``blocks``) is narrowed to the rank's n_layer / pp
+    consecutive layers, a copy; a leaf replicated on every axis comes back
+    whole, the given tensor.  Raises ``ValueError`` when the layers do not
+    divide by the pp axis, ``NotImplementedError`` for fsdp/tp/ep."""
+    shape = mesh_shape(mesh)
+
+    def local(leaf, spec):
+        for dim, part in enumerate(spec):
+            if part is None:
+                continue
+            if part != "pp":  # dp and sp name no parameter dim
+                raise NotImplementedError(_PLACEMENT)
+            n = shape["pp"]
+            c, rem = divmod(leaf.shape[dim], n)
+            if rem:
+                raise ValueError(
+                    f"{leaf.shape[dim]} layers do not divide by the pp axis "
+                    f"size {n}")
+            leaf = leaf.narrow(dim, mesh.get_local_rank("pp") * c,
+                               c).clone()
+        return leaf
+
+    return _map_specs(local, _leaf_specs(params, config, mesh))
 
 
 def param_shardings(params, config: ShardingConfig, mesh: DeviceMesh):
-    raise NotImplementedError(_PLACEMENT)
+    """Every leaf's spec (a tuple as ``spec`` gives it: the entries of the
+    JAX ``NamedSharding``'s ``PartitionSpec``), nested as the params."""
+    return _map_specs(lambda leaf, spec: spec,
+                      _leaf_specs(params, config, mesh))
+
+
+def batch_shard(x, mesh: DeviceMesh, dim: int = 0):
+    """The calling rank's rows of a global tensor along ``dim`` on the
+    "batch" rule, (dp, fsdp): the axes of size > 1 among them index the
+    rank's block, dp major (what ``device_put(x, named_sharding(mesh,
+    "batch", ...))`` gives a rank in JAX).  Rank (d, f) of (n_dp, n_fsdp)
+    takes block d * n_fsdp + f of n_dp * n_fsdp."""
+    shape = mesh_shape(mesh)
+    axes = [a for a in DEFAULT_RULES["batch"] if shape.get(a, 1) > 1]
+    n, idx = 1, 0
+    for a in axes:
+        n, idx = n * shape[a], idx * shape[a] + mesh.get_local_rank(a)
+    if n == 1:
+        return x
+    c, rem = divmod(x.shape[dim], n)
+    if rem:
+        raise ValueError(f"length {x.shape[dim]} along dim {dim} does not "
+                         f"divide by the batch axes' size {n}")
+    return x.narrow(dim, idx * c, c)
 
 
 def seq_shard(x, mesh: DeviceMesh, dim: int = 1, overlap: int = 0):

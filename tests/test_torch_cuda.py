@@ -1,7 +1,8 @@
 """The CUDA flash-attention kernels on the card, against their plain
 versions, a GPT-2 train step through them, a small Llama whose
-uncached forward runs the forward kernel, and ring attention's steps
-and a two-rank ring (gloo, both ranks on the card) through them.
+uncached forward runs the forward kernel, ring attention's steps and a
+two-rank ring (gloo, both ranks on the card) through them, and a
+two-stage pipeline of both ranks on the card.
 
 Marked ``cuda``: every test skips where there is no CUDA device.  On a
 machine with one (no JAX needed, hence ``--noconftest``):
@@ -417,7 +418,7 @@ def test_gpt2_moe_train_step_on_card_matches_cpu(cuda):
             for leaf in leaves:
                 leaf.requires_grad_(True)
             step = gpt2.make_train_step(cfg, torch.optim.AdamW(
-                leaves, lr=lr, weight_decay=0.1), chunks)
+                leaves, lr=lr, weight_decay=0.1), xent_chunks=chunks)
             before = (fa.KERNEL_LAUNCHES, fa.BWD_DQ_LAUNCHES,
                       fa.BWD_DKV_LAUNCHES)
             losses = [step(params, {"tokens": tokens.to(device)})["loss"]
@@ -524,3 +525,96 @@ def test_two_rank_gloo_ring_on_one_card(cuda, tmp_path, causal):
     got = [torch.cat([r[0][i] for r in res], dim=2).cuda() for i in range(4)]
     vs_plain, vs_kernel, _ = sp_attention_errors(_ring_inputs(), causal, got)
     assert max(vs_plain + vs_kernel) <= 1, (vs_plain, vs_kernel)
+
+
+@pytest.mark.parametrize("B", [4, 2])
+def test_pp_microbatch_shapes_match_plain(cuda, B):
+    """The pipeline's microbatch shapes on GPT-2 124M (bshd, H = 12,
+    S = 1024, D = 64, causal): o and lse against the plain forward, dq, dk,
+    dv against the plain backward on the same (o, lse, do), with
+    chip_smoke.py's per-element bounds."""
+    H, S, D = 12, 1024, 64
+    res, do = _bwd_case(cuda, (B, S, H, D), True, "bshd")
+    q, k, v, o, lse = res
+    qh, kh, vh, oh, doh = (t.transpose(1, 2) for t in (q, k, v, o, do))
+    scale = D ** -0.5
+    o_ref, lse_ref = fa._reference_attention(qh, kh, vh, scale, True)
+    o_mag, _ = fa._reference_attention(qh, kh, vh.abs(), scale, True)
+    tol = O_RTOL * o_ref.float().abs() + O_PTOL * o_mag.float()
+    assert ((oh.float() - o_ref.float()).abs() <= tol).all()
+    assert (lse - lse_ref).abs().max().item() <= LSE_TOL
+    grads = fa._flash_bwd_bshd(True, None, None, None, res, do)
+    ref = fa._reference_attention_bwd(qh, kh, vh, oh, lse, doh, scale, True)
+    mags = bwd_magnitudes(qh, kh, vh, oh, lse, doh, scale, True)
+    for name, g, r, m in zip(("dq", "dk", "dv"), grads, ref, mags):
+        bound = G_RTOL * r.float().abs() + G_PTOL[name] * m
+        assert ((g.transpose(1, 2).float() - r.float()).abs()
+                <= bound).all(), name
+
+
+def _toy_pipeline_inputs():
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    w = torch.randn((4, 64, 64), generator=gen, device="cuda") / 8
+    x = torch.randn((8, 16, 64), generator=gen, device="cuda")
+    return w, x
+
+
+def _toy_block(p, h):
+    return torch.tanh(h @ p["w"]), p["w"][0, 0]
+
+
+def _rank_toy_pipeline(M):
+    """A rank's output rows, aux and gradients (its stage slice, x) of the
+    toy pipeline on cuda:0, on the host, with its host-staged hops."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch.parallel.pipeline import pipeline_apply
+
+    n = dist.get_world_size()
+    mesh = ShardingConfig(pp=n).build_mesh()
+    w, x = _toy_pipeline_inputs()
+    c = w.shape[0] // n
+    r = mesh.get_local_rank("pp")
+    local = {"w": w[r * c:(r + 1) * c].clone().requires_grad_(True)}
+    x.requires_grad_(True)
+    staged = collective.HOST_STAGED_HOPS
+    out, aux = pipeline_apply(_toy_block, local, x, mesh, M)
+    ((out ** 2).sum() / (1 if M % n == 0 else n) + aux).backward()
+    torch.cuda.synchronize()
+    return ([t.detach().cpu() for t in (out, aux, local["w"].grad)]
+            + [None if x.grad is None else x.grad.cpu()],
+            collective.HOST_STAGED_HOPS - staged)
+
+
+@pytest.mark.parametrize("M", [4, 1])
+def test_two_rank_gloo_pipeline_on_one_card(cuda, tmp_path, M):
+    """Two ranks on cuda:0 in one gloo group, one stage each: the output
+    (each rank's rows at M = 4, every row at M = 1), the aux and the
+    gradients against the layers applied to each microbatch in turn on the
+    card."""
+    with RankPool(2, f"file://{tmp_path}/rendezvous", backend="gloo",
+                  device="cuda:0", timeout_s=120.0) as pool:
+        res = pool.run(_rank_toy_pipeline, M)
+    # M activation hops each way: stage 0 sends and receives M, and so
+    # does stage 1
+    assert [hops for _, hops in res] == [2 * M, 2 * M]
+    w, x = _toy_pipeline_inputs()
+    w.requires_grad_(True)
+    x.requires_grad_(True)
+    outs, aux = [], 0.0
+    for mb in x.chunk(M):
+        h, a = mb, 0.0
+        for i in range(w.shape[0]):
+            h, ai = _toy_block({"w": w[i]}, h)
+            a = a + ai
+        outs.append(h)
+        aux = aux + a
+    out, aux = torch.cat(outs), aux / M
+    ((out ** 2).sum() + aux).backward()
+    for r, (got, _) in enumerate(res):
+        rows = out.chunk(2)[r] if M % 2 == 0 else out
+        torch.testing.assert_close(got[0], rows.detach().cpu())
+        torch.testing.assert_close(got[1], aux.detach().cpu())
+        torch.testing.assert_close(got[2], w.grad.chunk(2)[r].cpu())
+    torch.testing.assert_close(res[0][0][3], x.grad.cpu())
+    assert res[1][0][3] is None

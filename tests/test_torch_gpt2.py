@@ -102,9 +102,6 @@ def test_num_params_and_init(jax_params):
 
 def test_unported_features_and_limits_raise(jax_params):
     params = _port_params(jax_params, tg.GPT2_TINY)
-    tokens = torch.zeros((1, 4), dtype=torch.long)
-    with pytest.raises(NotImplementedError):
-        tg.forward({**params, "blocks": {}}, tokens, tg.GPT2_TINY)
     too_long = torch.zeros((1, tg.GPT2_TINY.block_size + 1),
                            dtype=torch.long)
     with pytest.raises(ValueError, match="block_size"):

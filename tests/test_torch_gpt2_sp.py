@@ -128,16 +128,16 @@ def _rank_train(tc, np_params, tokens, xent_chunks, steps):
                                  overlap=1)}
     with use_mesh(mesh):
         loss = tg.loss_fn(tg._cast_weights(params, tc.compute_dtype), batch,
-                          tc, xent_chunks)
+                          tc, xent_chunks=xent_chunks)
         loss.backward()
-        tg._sum_grads_over_sp(params)
+        tg._sum_grads(params, tc)
         grads = [t.grad.numpy().copy() for t in tg.param_leaves(params)]
         for t in tg.param_leaves(params):
             t.grad = None
         opt = torch.optim.AdamW(tg.param_leaves(params), lr=LR,
                                 betas=(0.9, 0.999), eps=1e-8,
                                 weight_decay=1e-4)
-        step = tg.make_train_step(tc, opt, xent_chunks)
+        step = tg.make_train_step(tc, opt, xent_chunks=xent_chunks)
         losses = [step(params, batch)["loss"].item() for _ in range(steps)]
     return (loss.item(), grads, losses,
             [t.detach().numpy() for t in tg.param_leaves(params)])

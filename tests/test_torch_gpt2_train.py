@@ -77,7 +77,8 @@ def _master(jax_params, tc):
 
 def _port_loss_and_grads(params, tokens, tc, xent_chunks=0):
     loss = tg.loss_fn(tg._cast_weights(params, tc.compute_dtype),
-                      {"tokens": torch.from_numpy(tokens)}, tc, xent_chunks)
+                      {"tokens": torch.from_numpy(tokens)}, tc,
+                      xent_chunks=xent_chunks)
     loss.backward()
     return loss.item(), [p.grad for p in tg.param_leaves(params)]
 
@@ -173,7 +174,7 @@ def _adamw_steps_match_optax(jax_params, tokens, dtype, xent_chunks=0,
     params = _master(jax_params, tc)
     topt = torch.optim.AdamW(tg.param_leaves(params), lr=LR,
                              betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4)
-    step = tg.make_train_step(tc, topt, xent_chunks)
+    step = tg.make_train_step(tc, topt, xent_chunks=xent_chunks)
     tbatch = {"tokens": torch.from_numpy(tokens)}
     losses = [step(params, tbatch)["loss"].item() for _ in range(STEPS)]
     assert losses == pytest.approx(jlosses, rel=LOSS_TOL[dtype])

@@ -26,7 +26,7 @@ from ray_tpu_torch.ops import flash_attention as tfa
 from ray_tpu_torch.parallel import context, ring_attention as tra
 from ray_tpu_torch.parallel.launch import RankError, RankPool
 from ray_tpu_torch.parallel.mesh import create_mesh, mesh_shape
-from ray_tpu_torch.parallel.sharding import (ShardingConfig,
+from ray_tpu_torch.parallel.sharding import (ShardingConfig, batch_shard,
                                              infer_param_logical_dims,
                                              param_shardings, seq_shard,
                                              shard_params)
@@ -94,6 +94,35 @@ def _rank_mesh(axes):
 def _rank_specs(config, queries):
     mesh = config.build_mesh(device_type="cpu")
     return [config.spec(mesh, *dims) for dims in queries]
+
+
+def _rank_placement(axes, np_params):
+    """The rank's coordinates on the mesh, its local leaves
+    (``shard_params``) and every leaf's spec (``param_shardings``), or the
+    NotImplementedError either raises."""
+    config = ShardingConfig(**axes)
+    mesh = config.build_mesh(device_type="cpu")
+    params = _map_np(torch.from_numpy, np_params)
+    try:
+        local = _map_np(lambda t: t.numpy(),
+                        shard_params(params, config, mesh))
+        specs = param_shardings(params, config, mesh)
+    except NotImplementedError as e:
+        return "raised", str(e)
+    return ({a: mesh.get_local_rank(a) for a in mesh.mesh_dim_names},
+            local, specs)
+
+
+def _rank_batch_rows(axes, x):
+    mesh = ShardingConfig(**axes).build_mesh(device_type="cpu")
+    return ({a: mesh.get_local_rank(a) for a in mesh.mesh_dim_names},
+            batch_shard(torch.from_numpy(x), mesh).numpy())
+
+
+def _map_np(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map_np(fn, v) for k, v in tree.items()}
+    return fn(tree)
 
 
 def _rank_collective(op, x, cot, kwargs):
@@ -248,14 +277,93 @@ def test_infer_param_logical_dims_matches_jax(moe):
     assert n > 30
 
 
-def test_placement_is_not_ported_yet():
-    config = ShardingConfig(tp=2)
-    for call in (lambda: shard_params({}, config, None),
-                 lambda: param_shardings({}, config, None),
-                 lambda: config.named_sharding(None, "embed"),
+@pytest.mark.parametrize("axes,moe", [({"tp": 2}, 0), ({"fsdp": 2}, 0),
+                                      ({"ep": 2}, 4)],
+                         ids=["tp", "fsdp", "ep"])
+def test_placement_is_not_ported_yet(pool, axes, moe):
+    """Placing GPT-2's leaves on tp, fsdp or ep (the MoE experts) raises on
+    every rank, pointing at ROADMAP; so do named_sharding and constraint."""
+    import jax
+
+    from ray_tpu.models import gpt2 as jg
+
+    cfg = jg.GPT2Config(**{**jg.GPT2_TINY.__dict__, "moe_experts": moe})
+    params = jax.tree.map(np.asarray, jg.init_params(
+        jax.random.PRNGKey(0), cfg))
+    for got in pool(2).run(_rank_placement, axes, params):
+        assert got[0] == "raised" and "ROADMAP" in got[1], got
+    config = ShardingConfig(**axes)
+    for call in (lambda: config.named_sharding(None, "embed"),
                  lambda: config.constraint(None, None, "embed")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
+
+
+@pytest.mark.parametrize("axes", [{"pp": 2}, {"pp": 4}, {"dp": 2, "pp": 2}])
+@pytest.mark.parametrize("moe", [0, 4])
+def test_pipeline_placement_matches_jax(pool, axes, moe):
+    """``to_pipeline_params`` then ``shard_params`` on GPT2_TINY (4 layers,
+    dense and MoE): each rank's local leaves against the shard JAX's
+    ``shard_params`` puts on the device at the same mesh coordinates, and
+    ``param_shardings`` against JAX's specs."""
+    import jax
+
+    from ray_tpu.models import gpt2 as jg
+    from ray_tpu.parallel.sharding import ShardingConfig as JConfig
+    from ray_tpu.parallel.sharding import param_shardings as jspecs
+    from ray_tpu.parallel.sharding import shard_params as jshard
+    from ray_tpu_torch.models import gpt2 as tg
+
+    cfg = jg.GPT2Config(**{**jg.GPT2_TINY.__dict__, "n_layer": 4,
+                           "moe_experts": moe})
+    seq = jg.init_params(jax.random.PRNGKey(0), cfg)
+    tree = jg.to_pipeline_params(seq, cfg)
+    ported = tg.to_pipeline_params(
+        _map_np(lambda a: torch.from_numpy(np.array(a)), seq),
+        tg.GPT2Config(n_layer=4))
+    for (_, a), b in zip(tg.named_leaves(ported), jax.tree.leaves(tree)):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    n = int(np.prod(list(axes.values())))
+    jcfg = JConfig(**axes)
+    mesh = jcfg.build_mesh(devices=jax.devices()[:n])
+    placed = jshard(tree, jcfg, mesh)
+    want_specs = jax.tree.map(lambda ns: tuple(ns.spec),
+                              jspecs(tree, jcfg, mesh))
+    results = pool(n).run(_rank_placement, axes,
+                          jax.tree.map(np.asarray, tree))
+    for where, local, specs in results:
+        dev = mesh.devices[tuple(where[a] for a in mesh.axis_names)]
+        flat = jax.tree_util.tree_flatten_with_path(placed)[0]
+        got = dict(tg.named_leaves(_map_np(torch.from_numpy, local)))
+        assert len(got) == len(flat)
+        for path, leaf in flat:
+            name = "/".join(k.key for k in path)
+            shard = [x.data for x in leaf.addressable_shards
+                     if x.device == dev][0]
+            np.testing.assert_array_equal(got[name].numpy(),
+                                          np.asarray(shard), err_msg=name)
+        assert specs == want_specs
+
+
+@pytest.mark.parametrize("axes", [{"dp": 4}, {"dp": 2, "fsdp": 2},
+                                  {"dp": 2, "pp": 2}, {"dp": 2, "sp": 2}])
+def test_batch_shard_matches_jax(pool, axes):
+    """Each rank's rows (``batch_shard``) against the shard that
+    ``device_put(x, named_sharding(mesh, "batch", None))`` puts on the
+    device at the same mesh coordinates."""
+    import jax
+
+    from ray_tpu.parallel.sharding import ShardingConfig as JConfig
+
+    (x,) = _arrays((8, 3), 1, seed=4)
+    jcfg = JConfig(**axes)
+    mesh = jcfg.build_mesh(devices=jax.devices()[:4])
+    placed = jax.device_put(x, jcfg.named_sharding(mesh, "batch", None))
+    for where, rows in pool(4).run(_rank_batch_rows, axes, x):
+        dev = mesh.devices[tuple(where[a] for a in mesh.axis_names)]
+        shard = [s.data for s in placed.addressable_shards
+                 if s.device == dev][0]
+        np.testing.assert_array_equal(rows, np.asarray(shard))
 
 
 # ---------------------------------------------------------------------------
@@ -281,8 +389,8 @@ COLLECTIVES = [
 def test_collective_matches_jax_xla(pool, op, kwargs):
     """Each rank's output against ``ray_tpu.collective.xla`` under
     ``shard_map`` (out_specs concatenate the ranks' outputs along dim 0),
-    and the gradients of ``permute`` and ``alltoall`` against JAX's
-    transposes."""
+    and the gradients of ``permute``, ``alltoall``, ``allgather`` and
+    ``reducescatter`` against JAX's transposes."""
     import jax
     import jax.numpy as jnp
     from jax.sharding import PartitionSpec as P
@@ -296,7 +404,7 @@ def test_collective_matches_jax_xla(pool, op, kwargs):
                        check_vma=False)
     want = np.asarray(fn(jnp.asarray(x)))
     cot = None
-    if op in ("permute", "alltoall"):
+    if op in ("permute", "alltoall", "allgather", "reducescatter"):
         (cot,) = _arrays(want.shape, 1, seed=2)
         _, vjp = jax.vjp(fn, jnp.asarray(x))
     results = pool(4).run(_rank_collective, op, x, cot, kwargs)
