@@ -124,7 +124,26 @@ Phases; any failure exits non-zero:
    step's, its split into time with a transport call in flight by kind
    and without, hops and host-staged MB a step, and the schedule's bubble
    fraction.  Phases 2 and 2b also run the microbatch shapes (B = 4 and 2,
-   bshd).
+   bshd);
+10. tp — tensor parallelism over ranks that share the card (``RankPool``
+   on cuda:0, one gloo group), each rank its ``shard_params`` shard (its
+   6 of 12 heads, FFN columns and vocabulary rows): at tp = 2 GPT-2 124M's
+   logits (B=4, S=1024, gathered over tp) against the single-rank kernels'
+   with phase 3's gate, its loss and every leaf's gradient (gathered over
+   tp) with phase 4's tolerances; the MoE model (8 experts, the experts'
+   hidden dim on tp) with phase 6's gates, the share of token-choices that
+   differ between the tp ranks (must be 0) and against the single-rank
+   run (replayed where routes part); then AdamW steps at B=16, S=1024 (a
+   warm-up, then 5 timed) at tp=2, MoE tp=2, dp=2 x tp=2, tp=2 x sp=2
+   (ring) and pp=2 x tp=2 M=4: losses finite, falling and the same on
+   every rank, every leaf equal bit for bit on the ranks that hold it, the
+   launches summed over the ranks (2 x n_layer of each kernel a step at
+   tp=2), ms per step, tokens/s, each rank's peak memory beside the
+   single-rank step's, its split into time with a transport call in
+   flight by kind and without, and the MB it hands the transport a step
+   by kind.  Phases 2 and 2b also run a tp rank's heads (H = 6 at B = 16,
+   8, 4, bshd strided views of a (B, S, 1152) qkv buffer) and the tp x sp
+   ring chunk (B=16, H=6, S=512, bhsd).
 
 The last two lines are a JSON object of per-kernel numbers and the
 result line ``{"ok": true, "device": {...}}``.  ``--profile`` adds
@@ -173,6 +192,7 @@ from ray_tpu_torch.parallel.launch import RankPool
 from ray_tpu_torch.parallel.mesh import mesh_axis_size
 from ray_tpu_torch.parallel.pipeline import schedule_info
 from ray_tpu_torch.parallel.sharding import (ShardingConfig, batch_shard,
+                                             gather_params, param_shardings,
                                              seq_shard, shard_params)
 from ray_tpu_torch.serve import Replica
 
@@ -393,8 +413,17 @@ SP_LABELS = set(SP_SHAPES.values())
 #: dp replica's 8, M = 4 of the pp = 2 check's 8)
 PP_SHAPES = {(4, 12, 1024, 64): "pp microbatch (B=4)",
              (2, 12, 1024, 64): "pp microbatch (B=2)"}
+#: phase 10's kernel shapes (bshd, as strided views of one (B, S, 3 x 384)
+#: qkv buffer): a tp = 2 rank's 6 heads at 16 rows (tp = 2, MoE tp = 2),
+#: 8 (dp = 2 x tp = 2) and 4 (the microbatches of pp = 2 x tp = 2, M = 4)
+TP_SHAPES = {(16, 6, 1024, 64): "tp rank heads (tp=2, B=16)",
+             (8, 6, 1024, 64): "tp rank heads (dp=2 x tp=2, B=8)",
+             (4, 6, 1024, 64): "tp rank heads (pp=2 x tp=2, B=4)"}
+#: and the ring chunks of tp = 2 x sp = 2 (bhsd)
+TP_SP_SHAPES = {(16, 6, 512, 64): "tp x sp ring chunk (tp=2, sp=2)"}
+SP_LABELS |= set(TP_SP_SHAPES.values())
 #: ms per step and peak GB of the single-rank train steps (phases 4, 6),
-#: printed beside phase 9's
+#: printed beside phases 9's and 10's
 SINGLE_RANK_STEPS = {}
 
 
@@ -570,6 +599,8 @@ def phase_kernels(seed):
     cases += [shape + ("bhsd",) for shape in SP_SHAPES]
     cases += [shape + ("bshd",) for shape in PP_SHAPES
               if shape[0] not in (1, 4)]  # B = 4 is in the grid above
+    cases += [shape + ("bshd",) for shape in TP_SHAPES]
+    cases += [shape + ("bhsd",) for shape in TP_SP_SHAPES]
     served = None
     worst = 0.0
     for B, H, S, D, layout in cases:
@@ -631,9 +662,10 @@ def phase_kernels(seed):
                       f"{encode_us(q, k, v, layout):.3f} us of host "
                       f"time per launch (3 maps)", flush=True)
             label = {TRAIN_SHAPE: "training", XL_SHAPE: "xl",
-                     LLAMA_SHAPE: "llama", **SP_SHAPES}.get((B, H, S, D))
-            if layout == "bshd" and (B, H, S, D) in PP_SHAPES:
-                label = PP_SHAPES[(B, H, S, D)]
+                     LLAMA_SHAPE: "llama", **SP_SHAPES,
+                     **TP_SP_SHAPES}.get((B, H, S, D))
+            if layout == "bshd":
+                label = {**PP_SHAPES, **TP_SHAPES}.get((B, H, S, D), label)
             if label:
                 print(f"[kernel] {label} shape, causal={int(causal)}: "
                       f"kernel_ms={ms:.4f} library_ms={lib_ms:.4f} "
@@ -686,6 +718,8 @@ def phase_bwd_kernels(seed):
         (1, 4, 100, 32))]
     cases += [(shape, ("bhsd",)) for shape in SP_SHAPES]
     cases += [(shape, ("bshd",)) for shape in PP_SHAPES]
+    cases += [(shape, ("bshd",)) for shape in TP_SHAPES]
+    cases += [(shape, ("bhsd",)) for shape in TP_SP_SHAPES]
     worst = {"dq": 0.0, "dkv": 0.0}
     rec = {}
     for (B, H, S, D), layouts in cases:
@@ -759,7 +793,10 @@ def phase_bwd_kernels(seed):
                     fail(f"backward kernels disagree with plain at B={B} "
                          f"H={H} S={S} D={D} {layout} causal={causal}")
                 label = {train_shape: "training", XL_SHAPE: "xl",
-                         **SP_SHAPES, **PP_SHAPES}.get((B, H, S, D))
+                         **SP_SHAPES, **TP_SP_SHAPES,
+                         **PP_SHAPES}.get((B, H, S, D))
+                if layout == "bshd":
+                    label = TP_SHAPES.get((B, H, S, D), label)
                 if label in SP_LABELS or (label and layout == "bshd"
                                           and causal):
                     if label == "training":
@@ -1939,18 +1976,19 @@ def pp_check_gpt2(pool, n, seed, M):
                   "single-rank kernels")
 
 
-def pp_hold_grads(res, what, against):
+def pp_hold_grads(res, what, against, tag="pp",
+                  leaves="stage slices vs their layers; the others summed "
+                  "over pp as the step sums them"):
     """Print and hold every rank's loss and per-leaf gradient errors."""
     d = max(abs(r["loss"] - r["ref_loss"]) for r in res)
     rel = {f"rank {i} {k}": v for i, r in enumerate(res)
            for k, v in r["rel"].items()}
     worst = max(rel, key=rel.get)
-    print(f"[pp] {what}: loss {res[0]['loss']:.6f} vs {against} "
+    print(f"[{tag}] {what}: loss {res[0]['loss']:.6f} vs {against} "
           f"{res[0]['ref_loss']:.6f}, largest |diff| over the ranks "
           f"{d:.3e} (tol {TRAIN_LOSS_TOL}); largest ||g - g_ref|| / "
-          f"||g_ref|| over the ranks' {len(rel)} leaves (stage slices vs "
-          f"their layers; the others summed over pp as the step sums "
-          f"them) {rel[worst]:.3e} at {worst} (tol {TRAIN_GRAD_REL_TOL}); "
+          f"||g_ref|| over the ranks' {len(rel)} leaves ({leaves}) "
+          f"{rel[worst]:.3e} at {worst} (tol {TRAIN_GRAD_REL_TOL}); "
           f"median {sorted(rel.values())[len(rel) // 2]:.3e}", flush=True)
     if any(r["loss"] != res[0]["loss"] for r in res):
         fail(f"{what}: the ranks' losses differ")
@@ -2159,6 +2197,328 @@ def phase_pp(seed):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 10: tensor parallelism (alone and with dp, sp, pp)
+# ---------------------------------------------------------------------------
+
+#: (B, S) of phase 10's checks and of its training
+TP_CHECK_BATCH = (4, 1024)
+TP_TRAIN_BATCH = (16, 1024)
+#: timed train steps a configuration of phase 10 takes after its warm-up
+TP_STEPS = 5
+
+
+def tp_setup(cfg, seed, batch, axes):
+    """The ranks' mesh of ``axes`` and its config, the f32 master
+    parameters from ``seed`` (the same on every rank), the rank's shard of
+    them (of their pipeline tree under pp; every leaf requiring grad) and
+    the (B, S+1) tokens."""
+    config = ShardingConfig(**axes)
+    mesh = config.build_mesh()
+    params, tokens = train_setup(cfg, seed, *batch)
+    with torch.no_grad():
+        tree = (gpt2.to_pipeline_params(params, cfg) if "pp" in axes
+                else params)
+        local = shard_params(tree, config, mesh)
+    for leaf in gpt2.param_leaves(local):
+        leaf.requires_grad_(True)
+    return config, mesh, params, local, tokens
+
+
+def grad_tree(params):
+    if isinstance(params, dict):
+        return {k: grad_tree(v) for k, v in params.items()}
+    return params.grad
+
+
+def tp_rel(config, mesh, local, names, ref_grads):
+    """{name: ||g - g_ref|| / ||g_ref||} of every leaf, the rank's
+    gradients (summed as the train step sums them) gathered whole over tp,
+    against the single-rank gradients."""
+    grads = gpt2.named_leaves(gather_params(grad_tree(local), config, mesh))
+    return {name: ((g - r).norm() / r.norm()).item()
+            for (name, g), r in zip(grads, ref_grads)}
+
+
+def tp_check_rank(seed):
+    """GPT-2 124M at TP_CHECK_BATCH over tp = 2 against the single-rank
+    kernels on the same rank: the logits (gathered over tp), the loss and
+    every leaf's gradient (gathered)."""
+    set_precision()
+    cfg = gpt2.GPT2_SMALL
+    config, mesh, params, local, tokens = tp_setup(cfg, seed, TP_CHECK_BATCH,
+                                                   {"tp": 2})
+    names = [n for n, _ in gpt2.named_leaves(params)]
+    inputs = tokens[:, :-1]
+    with torch.no_grad():
+        ref = gpt2.forward(params, inputs, cfg)
+        with use_mesh(mesh):
+            logits = gpt2.forward(local, inputs, cfg)
+    out = {"shape": tuple(logits.shape),
+           "finite": bool(torch.isfinite(logits).all()),
+           "logits_err": (logits - ref).abs().max().item(),
+           "bitwise": torch.equal(logits, ref)}
+    del logits, ref
+    ref_loss, ref_grads = loss_and_grads(params, {"tokens": tokens}, cfg)
+    with use_mesh(mesh):
+        loss = gpt2.loss_fn(gpt2._cast_weights(local, cfg.compute_dtype),
+                            {"tokens": tokens}, cfg)
+        loss.backward()
+        gpt2._sum_grads(local, cfg)
+        rel = tp_rel(config, mesh, local, names, ref_grads)
+    out.update(loss=loss.item(), ref_loss=ref_loss, rel=rel)
+    return out
+
+
+def tp_check_gpt2(pool, seed):
+    res = pool.run(tp_check_rank, seed)
+    B, S = TP_CHECK_BATCH
+    shape = (B, S, gpt2.GPT2_SMALL.vocab_size)
+    err = max(r["logits_err"] for r in res)
+    print(f"[tp] GPT2_SMALL tp=2 B={B} S={S}: each rank's logits "
+          f"{res[0]['shape']} (its vocabulary block gathered over tp) vs the "
+          f"single-rank kernels': max abs err {err:.4e} (tol {LOGITS_TOL}); "
+          f"equal bit for bit on every rank: "
+          f"{all(r['bitwise'] for r in res)}", flush=True)
+    if any(r["shape"] != shape or not r["finite"] for r in res) \
+            or err > LOGITS_TOL:
+        fail("GPT-2 logits at tp=2 malformed or apart")
+    pp_hold_grads(res, f"GPT2_SMALL tp=2 B={B} S={S}", "single-rank kernels",
+                  "tp", "gathered over tp; c_attn and c_fc biases summed "
+                  "over tp as the step sums them")
+
+
+def tp_moe_rank(seed):
+    """The MoE model at TP_CHECK_BATCH over tp = 2 against the single-rank
+    model (its routes replayed there if any part), and the share of
+    token-choices that differ between the tp ranks."""
+    set_precision()
+    cfg = replace(gpt2.GPT2_SMALL, moe_experts=8)
+    config, mesh, params, local, tokens = tp_setup(cfg, seed, TP_CHECK_BATCH,
+                                                   {"tp": 2})
+    names = [n for n, _ in gpt2.named_leaves(params)]
+    batch = {"tokens": tokens}
+    with use_mesh(mesh), moe_probe() as rec:
+        loss = gpt2.loss_fn(gpt2._cast_weights(local, cfg.compute_dtype),
+                            batch, cfg)
+        loss.backward()
+        gpt2._sum_grads(local, cfg)
+        mine = torch.stack(rec["idx"])                       # (L, T, k)
+        every = c10d.allgather(mine, "tp", tiled=False)      # (tp, L, T, k)
+    between = (every != mine).float().mean().item()
+    with moe_probe() as ref_rec:
+        ref_loss, ref_grads = loss_and_grads(params, batch, cfg)
+    parted = (torch.stack(ref_rec["idx"]) != mine).float().mean().item()
+    if parted:
+        with pinned_routes(list(mine)):
+            ref_loss, ref_grads = loss_and_grads(params, batch, cfg)
+    with use_mesh(mesh):
+        rel = tp_rel(config, mesh, local, names, ref_grads)
+    return {"loss": loss.item(), "ref_loss": ref_loss, "between": between,
+            "parted": parted, "rel": rel}
+
+
+def tp_check_moe(pool, seed):
+    res = pool.run(tp_moe_rank, seed)
+    B, S = TP_CHECK_BATCH
+    between = max(r["between"] for r in res)
+    parted = res[0]["parted"]
+    print(f"[tp] MoE (8 experts) tp=2 B={B} S={S}: share of token-choices "
+          f"that differ between the tp ranks {between:.6f} (must be 0); "
+          f"routed otherwise by the single-rank model {parted:.6f}"
+          + (" (replayed: the reference takes the tp ranks' choices)"
+             if parted else " (no replay)"), flush=True)
+    if between:
+        fail("the tp ranks routed the MoE's tokens differently")
+    pp_hold_grads(res, f"MoE tp=2 B={B} S={S}", "single-rank model", "tp",
+                  "gathered over tp")
+
+
+def tp_digests(config, mesh, local):
+    """sha256 digests of the rank's leaves cut on tp, of its stacked
+    blocks' whole leaves and of every other whole leaf."""
+    digests = {k: hashlib.sha256() for k in ("cut", "blocks", "rest")}
+
+    def walk(tree, spec, name):
+        if isinstance(tree, dict):
+            for k in sorted(tree):
+                walk(tree[k], spec[k], f"{name}/{k}" if name else k)
+            return
+        kind = ("cut" if "tp" in spec else "blocks"
+                if name.startswith("blocks/") else "rest")
+        digests[kind].update(tree.detach().float().contiguous().cpu().numpy())
+
+    walk(local, param_shardings(local, config, mesh), "")
+    return [digests[k].hexdigest() for k in ("cut", "blocks", "rest")]
+
+
+def transport_counts():
+    return (dict(collective.SENT_BYTES),) + hop_counts()
+
+
+def tp_want(axes, M, L):
+    """Launches of each kernel a step summed over the ranks: each tp and
+    dp replica runs the model's layers once (a causal ring over sp: n(n+1)/2
+    chunk steps a layer), under pp in M microbatches with each stage
+    recomputed in the backward."""
+    reps = axes.get("tp", 1) * axes.get("dp", 1)
+    n = axes.get("sp", 1)
+    per = reps * L * n * (n + 1) // 2
+    if "pp" in axes:
+        return {"flash_fwd": 2 * per * M, "flash_bwd_dq": per * M,
+                "flash_bwd_dkv": per * M}
+    return dict.fromkeys(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"), per)
+
+
+def tp_train_rank(seed, axes, M, moe, steps):
+    """A warm-up and ``steps`` timed AdamW steps of GPT-2 124M (or its MoE)
+    at TP_TRAIN_BATCH over a mesh of ``axes``: losses, ms per step (CUDA
+    events), the transport's share of it and its bytes by kind, peak
+    memory, launches, hops and digests of the parameters after them."""
+    set_precision()
+    cfg = replace(gpt2.GPT2_SMALL, moe_experts=8 if moe else 0,
+                  attention="ring" if "sp" in axes else "flash")
+    config, mesh, params, local, tokens = tp_setup(cfg, seed, TP_TRAIN_BATCH,
+                                                   axes)
+    del params
+    batch = batch_shard(tokens, mesh)
+    if "sp" in axes:
+        batch = seq_shard(batch, mesh, overlap=1)
+    step = gpt2.make_train_step(cfg, adamw(local), M)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with use_mesh(mesh):
+        t0 = time.perf_counter()
+        first = step(local, {"tokens": batch})["loss"].item()
+        warm_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        dist.barrier()
+        reset_launches()
+        c0 = transport_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with collective.timing() as comm:
+            start.record()
+            out = [step(local, {"tokens": batch})["loss"]
+                   for _ in range(steps)]
+            end.record()
+            split = {k: (a / steps, b / steps)
+                     for k, (a, b) in comm.split_ms().items()}
+        launches = read_launches()
+        c1 = transport_counts()
+        digests = tp_digests(config, mesh, local)
+    sent = {k: (v - c0[0].get(k, 0)) / steps for k, v in c1[0].items()
+            if v != c0[0].get(k, 0)}
+    return {"losses": [first] + [x.item() for x in out], "warm_s": warm_s,
+            "ms": start.elapsed_time(end) / steps, "split": split,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches": launches, "sent": sent,
+            "hops": [(b - a) / steps for a, b in zip(c0[1:], c1[1:])],
+            "digests": digests,
+            "where": {a: mesh.get_local_rank(a) for a in axes}}
+
+
+def tp_train(pool, seed, axes, M=1, moe=False):
+    """Phase 10's training in one layout; returns the launches of the
+    timed steps summed over the ranks."""
+    res = pool.run(tp_train_rank, seed, axes, M, moe, TP_STEPS)
+    r0 = res[0]
+    (B, S), L = TP_TRAIN_BATCH, gpt2.GPT2_SMALL.n_layer
+    tag = ("MoE " if moe else "") + " x ".join(
+        f"{a}={n}" for a, n in axes.items()) + (" ring" if "sp" in axes
+                                                else "") \
+        + (f" M={M}" if "pp" in axes else "")
+    launches = {k: sum(r["launches"][k] for r in res)
+                for k in r0["launches"]}
+    want = {k: v * TP_STEPS for k, v in tp_want(axes, M, L).items()}
+    single_ms, single_gb = SINGLE_RANK_STEPS["moe" if moe else "gpt2"]
+    print(f"[tp] train {tag} B={B} S={S}: losses "
+          f"{' '.join(f'{x:.4f}' for x in r0['losses'])} (warm-up "
+          f"{r0['warm_s']:.2f} s); rank 0 {r0['ms']:.3f} ms per step (CUDA "
+          f"events over {TP_STEPS} steps), {B * S / (r0['ms'] / 1e3):.1f} "
+          f"tokens/s over the ranks (single-rank step, phase "
+          f"{6 if moe else 4}: {single_ms:.3f} ms, peak {single_gb:.2f} GB); "
+          f"{len(res)} ranks share one card over gloo: these times measure "
+          f"correctness and the kernels' work at the tp shapes, not tp "
+          f"speed; card {card_line()}", flush=True)
+    for rank, r in enumerate(res):
+        comm, blocked = r["split"]["all"]
+        kinds = ", ".join(f"{k} {a:.3f} ({b:.3f} blocked)"
+                          for k, (a, b) in r["split"].items() if k != "all")
+        sent = ", ".join(f"{k} {v / 1e6:.1f}" for k, v in
+                         sorted(r["sent"].items()))
+        print(f"[tp]   rank {rank} {r['where']}: {r['ms']:.3f} ms per step "
+              f"= {r['ms'] - comm:.3f} with no transport call in flight "
+              f"(host dispatch and idle gaps included) + {comm:.3f} with "
+              f"one in flight (the union of the CUDA-event spans of the "
+              f"transport's calls), during which the host was blocked on "
+              f"gloo or a peer {blocked:.3f}; by kind: {kinds}; MB handed to "
+              f"the transport a step: {sent}; {r['hops'][0]:.0f} hops a "
+              f"step ({r['hops'][1]:.0f} host-staged); peak memory "
+              f"{r['peak_gb']:.2f} GB", flush=True)
+
+    def equal(kind, key):
+        groups = {}
+        for r in res:
+            groups.setdefault(key(r["where"]), set()).add(
+                r["digests"][kind])
+        return all(len(d) == 1 for d in groups.values())
+
+    cut_equal = equal(0, lambda w: (w.get("pp"), w.get("tp")))
+    blocks_equal = equal(1, lambda w: w.get("pp"))
+    rest_equal = equal(2, lambda w: None)
+    print(f"[tp] train {tag}: launches over the ranks in {TP_STEPS} steps "
+          f"{launches} (want {want}); leaves cut on tp equal bit for bit "
+          f"across the replicas that hold them: {cut_equal}; replicated "
+          f"leaves equal bit for bit on every rank (stacked blocks: on "
+          f"every rank of a stage): {rest_equal and blocks_equal}",
+          flush=True)
+    losses = r0["losses"]
+    if any(r["losses"] != losses for r in res):
+        fail(f"{tag}: the ranks' losses differ")
+    if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
+        fail(f"{tag} train losses not finite or not falling")
+    if launches != want:
+        fail(f"{tag}: launches {launches}, want {want}")
+    if not (cut_equal and blocks_equal and rest_equal):
+        fail(f"{tag}: the ranks' parameters differ")
+    return launches
+
+
+def phase_tp(seed):
+    """Tensor parallelism: GPT-2 124M's and its MoE's logits, loss and
+    gradients at tp = 2 and their training at tp = 2, MoE tp = 2, dp = 2 x
+    tp = 2, tp = 2 x sp = 2 (ring) and pp = 2 x tp = 2 (M = 4), over ranks
+    that share the card (one gloo group).  Returns the launches of the
+    training runs, by layout."""
+    free_memory("tp")
+    launches = {}
+    for n in (2, 4):
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp, RankPool(
+                n, f"file://{tmp}/rendezvous", backend="gloo",
+                device="cuda:0", timeout_s=600.0) as pool:
+            print(f"[tp] {n} ranks on cuda:0 up in "
+                  f"{time.perf_counter() - t0:.2f} s; one gloo group: the "
+                  "row-parallel sums, the embedding's sum and the "
+                  "column-parallel inputs' gradient sums are all-reduces of "
+                  "CUDA tensors passed to gloo", flush=True)
+            if n == 2:
+                tp_check_gpt2(pool, seed)
+                tp_check_moe(pool, seed)
+                launches["tp2"] = tp_train(pool, seed, {"tp": 2})
+                launches["moe_tp2"] = tp_train(pool, seed, {"tp": 2},
+                                               moe=True)
+            else:
+                launches["dp2_tp2"] = tp_train(pool, seed,
+                                               {"dp": 2, "tp": 2})
+                launches["tp2_sp2_ring"] = tp_train(pool, seed,
+                                                    {"sp": 2, "tp": 2})
+                launches["pp2_tp2_m4"] = tp_train(pool, seed,
+                                                  {"pp": 2, "tp": 2}, M=4)
+    return launches
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2182,10 +2542,11 @@ def main():
     xl_train = phase_xl(args.seed, args.profile)
     sp_runs = phase_sp(args.seed)
     pp_runs = phase_pp(args.seed)
+    tp_runs = phase_tp(args.seed)
     print(card_line())
     src = "ray_tpu/ops/flash_attention.py"
     trained = {"train": train, "moe_train": moe_train, "xl_train": xl_train,
-               **sp_runs, **pp_runs}
+               **sp_runs, **pp_runs, **tp_runs}
     paths = {
         "flash_fwd": {"serve": serve_launches, "llama": llama_launches,
                       "moe_serve": moe_serve},

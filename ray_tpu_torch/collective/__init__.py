@@ -27,6 +27,14 @@ The transport is ``torch.distributed``:
 the transport's calls on a CUDA tensor (from the call to the moment its
 result is on the device), by kind ("hop", "all_reduce", "all_to_all",
 "all_gather", "reduce_scatter"), and the host time blocked in them.
+``SENT_BYTES`` counts, by the same kinds, the bytes each call hands the
+transport (a hop's sends; a collective's input).
+
+Megatron's pair of operators for tensor parallelism: ``allreduce`` (sum)
+is "g", a sum in the forward whose backward is the identity, and
+``identity`` is "f", the identity in the forward whose backward sums the
+cotangents over the axis: the input of work cut over the axis, which
+every rank holds whole.
 
 The KV-store host group of the JAX module (``init_collective_group``,
 ``_HostGroup``, ...) needs the runtime and is not ported yet
@@ -50,6 +58,13 @@ from ray_tpu_torch.parallel.context import require_mesh
 HOPS = 0
 HOST_STAGED_HOPS = 0
 HOST_STAGED_BYTES = 0
+#: bytes handed to the transport in this process, by kind
+SENT_BYTES: Dict[str, int] = {}
+
+
+def _count(kind, *tensors):
+    SENT_BYTES[kind] = SENT_BYTES.get(kind, 0) + sum(
+        t.numel() * t.element_size() for t in tensors)
 
 
 def axis_group(axis_name: str):
@@ -203,6 +218,7 @@ def exchange(sends: Sequence[Tuple[torch.Tensor, int]],
             for i, (b, (src, _)) in enumerate(zip(bufs, recvs))]
     works = dist.batch_isend_irecv(ops) if ops else []
     HOPS += 1
+    _count("hop", *tensors)
     return Hop(works, bufs, device, tensors, start)
 
 
@@ -237,6 +253,7 @@ def _all_reduce(x, group, op):
     if op not in _OPS and op != "mean":
         raise ValueError(f"unknown op {op}")
     y = x.clone(memory_format=torch.contiguous_format)
+    _count("all_reduce", y)
     start = _span_start(y.device)
     with _blocked("all_reduce"):
         dist.all_reduce(y, op=_OPS.get(op, dist.ReduceOp.SUM), group=group)
@@ -254,6 +271,7 @@ def _all_to_all(x, group, split_axis, concat_axis):
                          f"divide by the group size {n}")
     inp = torch.stack(x.chunk(n, split_axis))
     out = torch.empty_like(inp)
+    _count("all_to_all", inp)
     start = _span_start(x.device)
     with _blocked("all_to_all"):
         dist.all_to_all_single(out, inp, group=group)
@@ -266,6 +284,7 @@ def _all_gather(x, group, axis):
     order."""
     x = x.contiguous()
     out = [torch.empty_like(x) for _ in range(group.size())]
+    _count("all_gather", x)
     start = _span_start(x.device)
     with _blocked("all_gather"):
         dist.all_gather(out, x, group=group)
@@ -282,6 +301,7 @@ def _reduce_scatter(x, group, axis):
                          f"divide by the group size {n}")
     xm = x.movedim(axis, 0).contiguous()
     out = xm.new_empty((xm.shape[0] // n, *xm.shape[1:]))
+    _count("reduce_scatter", xm)
     start = _span_start(x.device)
     with _blocked("reduce_scatter"):
         dist.reduce_scatter_tensor(out, xm, group=group)
@@ -307,6 +327,26 @@ class _AllReduce(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, g):
         return g * ctx.scale, None, None
+
+
+class _Identity(torch.autograd.Function):
+    """The transpose of ``_AllReduce``'s sum, Megatron's "f": the identity
+    in the forward, a sum over the group in the backward.  A value every
+    rank holds whole and feeds to work cut over the group (a
+    column-parallel product) gets from each rank the cotangent of that
+    rank's part only; their sum is its whole cotangent, on every rank.
+    JAX's ``shard_map`` transposes a replicated input consumed by sharded
+    work into the same ``psum``."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.group, "sum"), None
 
 
 class _Permute(torch.autograd.Function):
@@ -375,8 +415,8 @@ class c10d:
     """Named-axis collectives over the bound mesh's process groups — the
     counterpart of ``ray_tpu.collective.xla`` (named-axis collectives
     inside jit/shard_map).  ``permute``, ``alltoall``, ``allgather``,
-    ``reducescatter`` and ``allreduce`` with op sum or mean are
-    differentiable."""
+    ``reducescatter``, ``allreduce`` with op sum or mean and ``identity``
+    are differentiable."""
 
     @staticmethod
     def allreduce(x, axis_name: str, op: str = "sum"):
@@ -385,6 +425,12 @@ class c10d:
             return _AllReduce.apply(x, group, op)
         with torch.no_grad():
             return _all_reduce(x, group, op)
+
+    @staticmethod
+    def identity(x, axis_name: str):
+        """x itself; its gradient is summed over the axis (the transpose of
+        ``allreduce``): the input of work cut over the axis."""
+        return _Identity.apply(x, axis_group(axis_name))
 
     @staticmethod
     def allgather(x, axis_name: str, axis: int = 0, tiled: bool = True):
@@ -429,4 +475,5 @@ class c10d:
                                concat_axis)
 
 
-__all__ = ["c10d", "exchange", "Hop", "axis_group", "timing", "CommTimes"]
+__all__ = ["c10d", "exchange", "Hop", "axis_group", "timing", "CommTimes",
+           "SENT_BYTES"]

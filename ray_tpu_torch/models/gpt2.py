@@ -20,8 +20,23 @@ each rank runs the model on its own chunk of the sequence (``seq_shard``):
 ones.
 
 Parallelism over ranks, under ``use_mesh``: data parallelism on ``dp``
-(each rank its rows, ``batch_shard``), sequence parallelism on ``sp``, and
-pipeline parallelism on ``pp``: ``to_pipeline_params`` stacks the blocks
+(each rank its rows, ``batch_shard``), sequence parallelism on ``sp``,
+tensor parallelism on ``tp`` and pipeline parallelism on ``pp``, alone or
+together.  Under tp (Megatron's split, what GSPMD derives from the JAX
+model's "heads", "mlp" and "vocab" rules) each rank holds its
+``shard_params`` shard: the heads of ``c_attn`` (cut by heads) and of the
+attention's ``c_proj`` rows, the FFN's ``c_fc`` columns and ``c_proj``
+rows (the MoE experts' hidden dim), and a block of the rows of ``wte``
+and of ``wpe`` (whose name JAX's "vocab" rule matches too).  The input of
+each column-parallel product goes through ``c10d.identity`` ("f": its
+gradient summed over tp), each row-parallel product is summed over tp by
+``c10d.allreduce`` ("g") before its bias, the embedding is each rank's
+rows' lookup summed over tp, and the lm head
+gives each rank its block of the vocabulary: ``forward`` gathers the
+logits, ``loss_fn`` takes a vocabulary-parallel cross-entropy (max, sum
+of exponentials and target logit over tp) that never gathers them.  The
+flash kernels then run n_head / tp heads.  Pipeline parallelism on
+``pp``: ``to_pipeline_params`` stacks the blocks
 into ``blocks`` with a leading layer dim, ``shard_params`` gives each rank
 its stage's layers, and ``_trunk`` runs them through
 ``parallel/pipeline.py``'s ``pipeline_apply`` in ``pp_microbatches``
@@ -47,7 +62,7 @@ Gradients of attention go through the flash backward kernels on the card.
 Not ported yet, raising ``NotImplementedError`` (ROADMAP.md): the MoE FFN
 under sequence or data parallelism (the reference's capacity counts the
 global tokens), pipeline stages with ring or Ulysses attention, and a mesh
-with fsdp, tp or ep over 1.
+with fsdp or ep over 1.
 """
 
 from __future__ import annotations
@@ -60,10 +75,10 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from ray_tpu_torch.collective import c10d
+from ray_tpu_torch.collective import _all_gather, c10d
 from ray_tpu_torch.ops.flash_attention import (_reference_attention,
                                                flash_attention_bshd)
-from ray_tpu_torch.parallel.context import get_mesh, require_mesh
+from ray_tpu_torch.parallel.context import get_mesh, require_mesh, use_mesh
 from ray_tpu_torch.parallel.mesh import mesh_axis_size, mesh_shape
 from ray_tpu_torch.parallel.pipeline import (pipeline_apply,
                                              stack_layer_params)
@@ -125,14 +140,32 @@ def _sp_rank_and_size(cfg: GPT2Config):
     return (mesh.get_local_rank("sp") if n > 1 else 0), n
 
 
+def _tp_rank_and_size():
+    """(rank, ranks) on the bound mesh's tp axis; (0, 1) without one."""
+    mesh = get_mesh()
+    n = mesh_axis_size(mesh, "tp") if mesh is not None else 1
+    return (mesh.get_local_rank("tp") if n > 1 else 0), n
+
+
 def _check_mesh(params, cfg: GPT2Config):
-    """Raise for what the bound mesh asks that is not ported."""
+    """Raise for what the bound mesh asks that is not ported, and for
+    parameters that are not the rank's shard of it."""
     mesh = get_mesh()
     shape = mesh_shape(mesh) if mesh is not None else {}
-    if any(shape.get(a, 1) > 1 for a in ("fsdp", "tp", "ep")):
+    if any(shape.get(a, 1) > 1 for a in ("fsdp", "ep")):
         raise NotImplementedError(
-            "a mesh with fsdp, tp or ep over 1 is not ported yet "
-            "(ROADMAP.md §A9: fsdp/tp/ep placement)")
+            "a mesh with fsdp or ep over 1 is not ported yet "
+            "(ROADMAP.md §A9b: ep, §A9c: fsdp)")
+    tp = shape.get("tp", 1)
+    if cfg.n_head % tp:
+        raise ValueError(
+            f"n_head {cfg.n_head} does not divide by the tp axis size {tp}")
+    rows = params["wte"]["embedding"].shape[0]
+    if tp > 1 and rows * tp != cfg.vocab_size:
+        raise ValueError(
+            f"wte holds {rows} rows: vocab_size {cfg.vocab_size} over tp "
+            f"{tp} needs vocab_size / tp each (shard_params gives a rank its "
+            f"shard)")
     if cfg.moe_experts > 0 and shape.get("dp", 1) > 1:
         # as under sp: the reference routes with a capacity over the
         # global microbatch's tokens
@@ -246,11 +279,58 @@ def _linear(x, p):
     return x @ p["kernel"].to(x.dtype) + p["bias"].to(x.dtype)
 
 
+def _with_mesh(mesh, fn):
+    """``fn`` that runs with ``mesh`` bound.  A recompute in the backward (a
+    checkpointed block or chunk, a pipeline stage) runs on autograd's
+    device thread when its tensors are on a card, where the caller's
+    binding, which is thread-local, is not seen."""
+    def run(*args):
+        with use_mesh(mesh):
+            return fn(*args)
+
+    return run
+
+
+def _copy_to_tp(x, tp: int):
+    """Megatron's "f": x for work cut over tp, its gradient summed there."""
+    return c10d.identity(x, "tp") if tp > 1 else x
+
+
+def _column_shard(p, rank: int, tp: int, fused_qkv: bool = False):
+    """A column-parallel linear's kernel (already the rank's columns) and
+    the rank's slice of its whole bias: the same head-order block of each
+    of q, k and v for the fused ``c_attn``, a contiguous block otherwise.
+    The bias's gradient is then zero outside the slice (``_sum_grads``
+    sums it over tp)."""
+    if tp == 1:
+        return p
+    b = p["bias"]
+    b = (b.view(3, tp, -1)[:, rank].reshape(-1) if fused_qkv
+         else b.view(tp, -1)[rank])
+    return {"kernel": p["kernel"], "bias": b}
+
+
+def _row_linear(x, p, tp: int):
+    """A row-parallel linear: the rank's rows of the kernel against x's
+    columns, summed over tp ("g"), then the bias, once.  As GSPMD
+    partitions the JAX model's bf16 dot, each rank's partial product is
+    rounded to x's dtype and the partials are summed in it (gloo sums in
+    the tensor's dtype): that rounds otherwise than the unsharded product
+    does, which the tests hold within their tolerances, not bit for bit.
+    At tp = 1 it is ``_linear``."""
+    y = x @ p["kernel"].to(x.dtype)
+    if tp > 1:
+        y = c10d.allreduce(y, "tp")
+    return y + p["bias"].to(x.dtype)
+
+
 def _attention(x, p, cfg: GPT2Config):
-    B, S, E = x.shape
-    H, D = cfg.n_head, cfg.head_dim
-    qkv = _linear(x, p["c_attn"])
-    q, k, v = (t.reshape(B, S, H, D) for t in qkv.split(E, dim=-1))
+    B, S, _ = x.shape
+    rank, tp = _tp_rank_and_size()
+    H, D = cfg.n_head // tp, cfg.head_dim  # the rank's heads
+    qkv = _linear(_copy_to_tp(x, tp), _column_shard(p["c_attn"], rank, tp,
+                                                    fused_qkv=True))
+    q, k, v = (t.reshape(B, S, H, D) for t in qkv.split(H * D, dim=-1))
     tr = lambda t: t.transpose(1, 2)  # noqa: E731
     if cfg.attention in _SP:
         # head-major views for the ring's (B, H, Sq, D) chunks: no copy,
@@ -263,12 +343,15 @@ def _attention(x, p, cfg: GPT2Config):
     else:
         # strided views of qkv go straight to the kernel: no transposes
         o = flash_attention_bshd(q, k, v, True)
-    return _linear(o.reshape(B, S, E), p["c_proj"])
+    return _row_linear(o.reshape(B, S, H * D), p["c_proj"], tp)
 
 
 def _mlp(x, p):
-    h = F.gelu(_linear(x, p["c_fc"]), approximate="tanh")
-    return _linear(h, p["c_proj"])
+    rank, tp = _tp_rank_and_size()
+    h = F.gelu(_linear(_copy_to_tp(x, tp), _column_shard(p["c_fc"], rank,
+                                                         tp)),
+               approximate="tanh")
+    return _row_linear(h, p["c_proj"], tp)
 
 
 class _RowGather(torch.autograd.Function):
@@ -340,10 +423,21 @@ def _moe_mlp(x, p, cfg: GPT2Config):
     (C, E) buffer gets its tokens' rows copied exactly (empty slots zero),
     the expert products are batched matmuls over every slot as there, and
     each token sums its kept choices' outputs, weighted by the gate value
-    rounded to ``x.dtype``."""
+    rounded to ``x.dtype``.
+
+    Under tp the experts' hidden dim is cut (``wi``'s columns, ``wo``'s
+    rows) and the router is whole: x is the same on every tp rank, so
+    every rank routes the same tokens to the same slots, the expert
+    products are local and their (n C, E) outputs are summed over tp
+    ("g") before the combine.  Nothing after that sum is partial, so the
+    gate values, the router and the aux need no sum; the (T, E) combined
+    output would be a third of the bytes but would leave the gate values'
+    gradients partial.  The tokens enter the expert products through "f",
+    the router's input does not."""
     B, S, E = x.shape
     T = B * S
     k, n = cfg.moe_top_k, cfg.moe_experts
+    _, tp = _tp_rank_and_size()
     xt = x.reshape(T, E)
     probs, gate, idx, pos, C = _moe_route(xt, p["router"]["kernel"], cfg)
     keep = pos < C
@@ -353,10 +447,14 @@ def _moe_mlp(x, p, cfg: GPT2Config):
                        device=x.device)
     owner[slot.reshape(-1)] = torch.arange(T * k, device=x.device)
     owner = owner[:n * C]
-    expert_in = _RowGather.apply(xt, owner // k, slot)          # (nC, E)
+    expert_in = _RowGather.apply(_copy_to_tp(xt, tp), owner // k,
+                                 slot)                          # (nC, E)
     h = F.gelu(torch.bmm(expert_in.view(n, C, E), p["wi"].to(x.dtype)),
                approximate="tanh")
-    out = torch.bmm(h, p["wo"].to(x.dtype)).view(n * C, E)
+    out = torch.bmm(h, p["wo"].to(x.dtype))
+    if tp > 1:
+        out = c10d.allreduce(out, "tp")
+    out = out.view(n * C, E)
     picked = _RowGather.apply(out, slot, owner)                 # (T, k, E)
     weight = (gate * keep).to(x.dtype)
     y = (picked.float() * weight.float()[..., None]).sum(1).to(x.dtype)
@@ -411,7 +509,8 @@ def _trunk(params, tokens, cfg: GPT2Config, aux_acc=None,
     handoff, and ``pp_aux / n_layer`` (the mean over layers of each
     layer's mean over microbatches) goes to ``aux_acc``.  The result is the
     rank's rows when the microbatches divide by the stages, else every
-    row."""
+    row.  Under tp the embedding tables are the rank's blocks of their
+    rows (``_embed``)."""
     _check_ported(cfg)
     _check_mesh(params, cfg)
     S = tokens.shape[1]
@@ -419,9 +518,10 @@ def _trunk(params, tokens, cfg: GPT2Config, aux_acc=None,
     if S * n > cfg.block_size:
         raise ValueError(
             f"sequence of {S * n} tokens exceeds block_size {cfg.block_size}")
-    wpe = params["wpe"]["embedding"][rank * S:(rank + 1) * S]
-    x = params["wte"]["embedding"][tokens] + wpe[None]
+    x = _embed(params["wte"]["embedding"], params["wpe"]["embedding"],
+               tokens, rank * S)
     x = x.to(cfg.compute_dtype)
+    mesh = get_mesh()
     if "blocks" in params:
         mesh = require_mesh()
         stages = mesh_axis_size(mesh, "pp")
@@ -431,17 +531,19 @@ def _trunk(params, tokens, cfg: GPT2Config, aux_acc=None,
                 f"the stage holds {local} stacked layers: n_layer "
                 f"{cfg.n_layer} over pp {stages} needs n_layer / pp each "
                 f"(shard_params gives a rank its stage)")
-        x, pp_aux = pipeline_apply(lambda p, h: _block_with_aux(h, p, cfg),
+        block = _with_mesh(mesh, _block_with_aux)
+        x, pp_aux = pipeline_apply(lambda p, h: block(h, p, cfg),
                                    params["blocks"], x, mesh,
                                    pp_microbatches)
         if aux_acc is not None and cfg.moe_experts > 0:
             aux_acc.append(pp_aux / cfg.n_layer)
     else:
+        block = _with_mesh(mesh, _block_with_aux)
         for i in range(cfg.n_layer):
             if cfg.remat:
                 # the blocks draw no random numbers: no RNG state to restore
-                x, aux = checkpoint(_block_with_aux, x, params[f"h_{i}"],
-                                    cfg, use_reentrant=False,
+                x, aux = checkpoint(block, x, params[f"h_{i}"], cfg,
+                                    use_reentrant=False,
                                     preserve_rng_state=False)
                 if aux_acc is not None and cfg.moe_experts > 0:
                     aux_acc.append(aux)
@@ -449,6 +551,48 @@ def _trunk(params, tokens, cfg: GPT2Config, aux_acc=None,
                 x = _block(x, params[f"h_{i}"], cfg, aux_acc)
     x = _layer_norm(x.float(), params["ln_f"])
     return x.to(cfg.compute_dtype)
+
+
+def _rows_in_block(table, idx, rank):
+    """``table[idx]`` where ``table`` holds rank's block of the rows of a
+    whole table, zeros where idx lies outside it."""
+    rows = table.shape[0]
+    local = idx - rank * rows
+    inside = (local >= 0) & (local < rows)
+    return torch.where(inside[..., None], table[local.clamp(0, rows - 1)], 0)
+
+
+def _embed(wte, wpe, tokens, start: int):
+    """``wte[tokens]`` plus the positions [start, start + S) of ``wpe``, in
+    the tables' dtype.  Under tp JAX's rules cut both tables' rows ("vocab":
+    wpe's name matches it too), and each rank adds the rows of its blocks,
+    zeros for the others; the sum over tp ("g") has at most a token's and a
+    position's row as nonzero terms, so it rounds their sum once: the whole
+    lookup bit for bit."""
+    rank, tp = _tp_rank_and_size()
+    S = tokens.shape[-1]
+    if tp == 1:
+        return wte[tokens] + wpe[start:start + S][None]
+    pos = torch.arange(start, start + S, device=tokens.device)
+    return c10d.allreduce(_rows_in_block(wte, tokens, rank)
+                          + _rows_in_block(wpe, pos, rank)[None], "tp")
+
+
+class _GatherVocab(torch.autograd.Function):
+    """The tp ranks' blocks of the logits side by side along the
+    vocabulary: a value every rank holds whole, so each rank's block takes
+    its own part of the (whole, same) cotangent, as ``_AllReduce`` hands
+    its input the cotangent whole."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.rank, ctx.n = group.rank(), group.size()
+        return _all_gather(x, group, x.dim() - 1)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        return g.chunk(ctx.n, -1)[ctx.rank], None
 
 
 def _lm_head(x, wte):
@@ -465,34 +609,64 @@ def forward(params, tokens, cfg: GPT2Config, aux_acc=None,
     """tokens (B, S) int64 -> logits (B, S, vocab) f32 (under sequence
     parallelism: the rank's chunk of tokens and of logits; with pipeline
     ``blocks``: the rank's rows, or every row when ``pp_microbatches`` does
-    not divide by the pp axis)."""
+    not divide by the pp axis).  Under tp each rank's head gives its block
+    of the vocabulary, and the blocks are gathered over tp: every tp rank
+    returns the whole vocabulary."""
     x = _trunk(params, tokens, cfg, aux_acc, pp_microbatches)
-    return _lm_head(x, params["wte"]["embedding"].to(cfg.compute_dtype))
+    _, tp = _tp_rank_and_size()
+    logits = _lm_head(_copy_to_tp(x, tp),
+                      params["wte"]["embedding"].to(cfg.compute_dtype))
+    if tp > 1:
+        logits = _GatherVocab.apply(logits, require_mesh().get_group("tp"))
+    return logits
 
 
-def _xent_sum(x, wf, targets):
+def _xent_terms(logits, targets, vocab_lo=None):
+    """lse - target logit of each row of f32 logits.  ``vocab_lo`` (under
+    tp): the logits are the rank's block of the vocabulary, which starts
+    there, and the terms come from the blocks of every tp rank without
+    gathering them: the max over tp (no gradient), the sum of exp(l - max)
+    summed over tp ("g"), and the target's logit from the rank whose block
+    holds it, zeros elsewhere, summed over tp."""
+    if vocab_lo is None:
+        lse = torch.logsumexp(logits, dim=-1)
+        return lse - logits.gather(-1, targets[..., None])[..., 0]
+    V = logits.shape[-1]
+    m = c10d.allreduce(logits.detach().amax(-1), "tp", op="max")
+    lse = m + torch.log(c10d.allreduce(
+        torch.exp(logits - m[..., None]).sum(-1), "tp"))
+    local = targets - vocab_lo
+    inside = (local >= 0) & (local < V)
+    tgt = logits.gather(-1, local.clamp(0, V - 1)[..., None])[..., 0]
+    return lse - c10d.allreduce(torch.where(inside, tgt, 0.0), "tp")
+
+
+def _xent_sum(x, wf, targets, vocab_lo=None):
     """Summed cross-entropy of one chunk: ``_lm_head``'s f32 logits, then
-    lse - target logit."""
-    logits = torch.matmul(x.float(), wf.T)
-    lse = torch.logsumexp(logits, dim=-1)
-    return (lse - logits.gather(-1, targets[:, None])[:, 0]).sum()
+    ``_xent_terms``."""
+    return _xent_terms(torch.matmul(x.float(), wf.T), targets,
+                       vocab_lo).sum()
 
 
-def _chunked_xent(x, wte, targets, n_chunks: int):
+def _chunked_xent(x, wte, targets, n_chunks: int, vocab_lo=None):
     """Linear + softmax cross-entropy over token chunks, each under
     ``checkpoint``: the backward recomputes a chunk's logits and contracts
     them at once, so the (N, V) f32 logits never exist (3.3 GB at B=16,
     S=1024).  x: (N, E) compute dtype; wte: (V, E); targets: (N,).  The
     chunk count falls to the nearest divisor of N, as in the reference.
-    Returns the summed loss (f32)."""
+    Under tp (``vocab_lo``: ``_xent_terms``) each chunk's collectives run
+    again in its recompute, in the same order on every rank.  Returns the
+    summed loss (f32)."""
     N = x.shape[0]
     n_chunks = max(1, min(n_chunks, N))
     while N % n_chunks:
         n_chunks -= 1
     wf = wte.float()  # once for every chunk: 322 MB at GPT-2 XL
+    xent_sum = _with_mesh(get_mesh(), _xent_sum)
     total = torch.zeros((), device=x.device)
     for xi, ti in zip(x.chunk(n_chunks), targets.chunk(n_chunks)):
-        total = total + checkpoint(_xent_sum, xi, wf, ti, use_reentrant=False,
+        total = total + checkpoint(xent_sum, xi, wf, ti, vocab_lo,
+                                   use_reentrant=False,
                                    preserve_rng_state=False)
     return total
 
@@ -514,7 +688,10 @@ def loss_fn(params, batch, cfg: GPT2Config, pp_microbatches: int = 2,
     divide by the stages gives every stage all rows, and each stage's
     share is then 1/pp of their sum (``pipeline_apply`` sums the stages'
     cotangents back onto the last stage's output).  The MoE aux is the same
-    global value on every rank and is added once, after the all-reduce."""
+    global value on every rank and is added once, after the all-reduce.
+    Under tp the loss is a vocabulary-parallel cross-entropy
+    (``_xent_terms``), the same on every tp rank; tp holds no other terms
+    of it."""
     tokens = batch["tokens"]
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
     aux_acc: list = []
@@ -526,14 +703,15 @@ def loss_fn(params, batch, cfg: GPT2Config, pp_microbatches: int = 2,
     axes = _loss_axes(params, cfg)
     ranks = math.prod(size for _, size in axes)
     wte = params["wte"]["embedding"].to(cfg.compute_dtype)
+    tp_rank, tp = _tp_rank_and_size()
+    x = _copy_to_tp(x, tp)
+    vocab_lo = tp_rank * wte.shape[0] if tp > 1 else None
     if xent_chunks > 0:
         loss = _chunked_xent(x.reshape(B * S, E), wte,
-                             targets.reshape(B * S),
-                             xent_chunks) / (B * S * ranks)
+                             targets.reshape(B * S), xent_chunks,
+                             vocab_lo) / (B * S * ranks)
     else:
-        logits = _lm_head(x, wte)
-        lse = torch.logsumexp(logits, dim=-1)
-        terms = lse - logits.gather(-1, targets[..., None])[..., 0]
+        terms = _xent_terms(_lm_head(x, wte), targets, vocab_lo)
         loss = terms.mean() if ranks == 1 else terms.sum() / (B * S * ranks)
     for axis, _ in axes:
         loss = c10d.allreduce(loss, axis)
@@ -599,22 +777,33 @@ def make_train_step(cfg: GPT2Config, optimizer, pp_microbatches: int = 2,
     return train_step
 
 
+#: the whole bias leaves of which a tp rank adds only its slice
+_TP_SLICED = ("attn/c_attn/bias", "mlp/c_fc/bias")
+
+
 def _sum_grads(params, cfg: GPT2Config):
     """Each leaf's gradient summed over the loss's axes (``_loss_axes``),
     one all-reduce of the flattened gradients per axis: every leaf over dp
     and sp; over pp the leaves outside ``blocks`` (wte and wpe take their
     embedding terms from stage 0, wte and ln_f their head terms from each
     stage's rows), not the stacked blocks, whose layers differ by stage.
-    A leaf with no gradient (wpe beyond stage 0) counts as zeros."""
-    axes = _loss_axes(params, cfg)
-    if not axes:
+    Over tp only the biases of which each rank adds a slice (``c_attn``'s
+    and ``c_fc``'s: zero elsewhere, so the sum is exact); every other
+    leaf's gradient is already whole and the same bits on every tp rank,
+    the residual stream's cotangent being summed by each "f".  A leaf with
+    no gradient (wpe beyond stage 0) counts as zeros."""
+    sums = [(axis, lambda name, a=axis: a != "pp"
+             or not name.startswith("blocks/"))
+            for axis, _ in _loss_axes(params, cfg)]
+    if _tp_rank_and_size()[1] > 1:
+        sums.append(("tp", lambda name: name.endswith(_TP_SLICED)))
+    if not sums:
         return
     named = named_leaves(params)
     for t in (t for _, t in named if t.grad is None):
         t.grad = torch.zeros_like(t)
-    for axis, _ in axes:
-        grads = [t.grad for name, t in named
-                 if axis != "pp" or not name.startswith("blocks/")]
+    for axis, takes in sums:
+        grads = [t.grad for name, t in named if takes(name)]
         with torch.no_grad():
             flat = c10d.allreduce(torch.cat([g.reshape(-1) for g in grads]),
                                   axis)

@@ -13,11 +13,16 @@ A rank whose ``fn`` raises reports its traceback, and ``run`` raises
 ``RankError`` with every failed rank's; a rank that dies, or a call that
 outlasts ``timeout_s``, ends the pool and raises as well.  The process
 group's own timeout makes a collective that a failed rank never joins fail
-on the others instead of hanging.
+on the others instead of hanging.  A rank waiting for work looks every
+``_POLL_S`` seconds whether its parent still lives, and leaves the process
+group and exits when it does not: a parent that dies without ``close()``
+(an abort skips the exit handlers that reap daemon processes) leaves no
+rank behind.
 """
 
 from __future__ import annotations
 
+import multiprocessing
 import queue
 import time
 import traceback
@@ -27,6 +32,10 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 from ray_tpu_torch.parallel.mesh import init_process_group
+
+
+#: seconds a rank waits for a task before it looks for its parent
+_POLL_S = 1.0
 
 
 class RankError(RuntimeError):
@@ -42,9 +51,18 @@ def _rank_main(rank, world_size, init_method, backend, device, timeout_s,
         results.put((rank, False, traceback.format_exc()))
         return
     results.put((rank, True, None))
+    parent = multiprocessing.parent_process()
     try:
         while True:
-            item = tasks.get()
+            try:
+                item = tasks.get(timeout=_POLL_S)
+            except queue.Empty:
+                if parent.is_alive():
+                    continue
+                # nobody reads the results any more: exit without waiting
+                # for the queue's feeder
+                results.cancel_join_thread()
+                break
             if item is None:
                 break
             fn, args = item

@@ -46,6 +46,14 @@ The outputs leave as in JAX: ``c10d.reducescatter`` of the (microbatches,
 ...) buffer, zero except on the last stage, when M divides by the stages
 (rank r gets microbatches [rM/n, (r+1)M/n), rows [rB/n, (r+1)B/n)); a sum
 over the stages otherwise, every rank getting the whole output.
+
+The stage groups are per mesh coordinate: under tensor parallelism each tp
+rank of a stage runs the same schedule with its own pp group, and the
+stage body's collectives over tp (in the no-grad forward, the recompute
+and ``torch.autograd.grad``) pair up across the stage's tp ranks because
+every one of them runs every tick the others run.  A body that needs the
+mesh binds it itself: the backward runs on autograd's device thread when
+the tensors are on a card, where the caller's ``use_mesh`` is not seen.
 """
 
 from __future__ import annotations

@@ -185,8 +185,12 @@ def ring_attention_sharded(q, k, v, mesh, causal: bool = True,
                            sm_scale: Optional[float] = None,
                            variant: str = "ring"):
     """q, k, v: this rank's (batch, heads, seq, head_dim) chunks, the
-    sequence sharded on the ``sp`` axis of ``mesh``.  ``variant`` "ring" or
-    "ulysses"; with no ``sp`` axis over 1, plain ``flash_attention``."""
+    sequence sharded on the ``sp`` axis of ``mesh``.  The heads are the
+    rank's own: under tensor parallelism its tp share (n_head / tp, its
+    head group's q, k and v), which the ring over sp treats as any heads
+    and Ulysses splits over sp, so (n_head / tp) % sp must be 0.
+    ``variant`` "ring" or "ulysses"; with no ``sp`` axis over 1, plain
+    ``flash_attention``."""
     if mesh_axis_size(mesh, "sp") <= 1:
         return flash_attention(q, k, v, causal, sm_scale)
     inner = ring_attention if variant == "ring" else ulysses_attention

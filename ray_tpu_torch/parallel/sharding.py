@@ -18,11 +18,13 @@ entries of the JAX ``PartitionSpec``.  Each rank holds its own shard of the
 data: ``batch_shard`` cuts a rank's rows on the "batch" rule (dp, fsdp),
 ``seq_shard`` its sequence chunk on sp.  ``shard_params`` gives a rank its
 local parameters: a leaf whose spec names ``pp`` (the "stage" dim of
-pipeline-stacked blocks) is narrowed to the rank's layers, a leaf
-replicated on every axis comes back whole; ``param_shardings`` gives every
-leaf's spec.  Placing parameters on fsdp/tp/ep (a spec naming one of them,
-``named_sharding``, ``constraint``) is not ported yet and raises
-``NotImplementedError``.
+pipeline-stacked blocks) is narrowed to the rank's layers, a dim on ``tp``
+("heads", "mlp", "vocab") to the rank's block of it, and a leaf replicated
+on every axis comes back whole; ``param_shardings`` gives every leaf's
+spec, and ``gather_params`` the whole leaves back from the ranks' shards
+(what reading a global ``jax.Array`` gives).  Placing parameters on fsdp or
+ep raises ``NotImplementedError``, and so do ``named_sharding`` and
+``constraint``, which nothing of the port needs.
 """
 
 from __future__ import annotations
@@ -30,8 +32,10 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Any, Dict, Optional, Sequence, Tuple
 
+import torch
 from torch.distributed.device_mesh import DeviceMesh
 
+from ray_tpu_torch.collective import _all_gather
 from ray_tpu_torch.parallel.mesh import create_mesh, mesh_shape
 
 DEFAULT_RULES: Dict[str, Any] = {
@@ -47,8 +51,10 @@ DEFAULT_RULES: Dict[str, Any] = {
     None: None,
 }
 
-_PLACEMENT = ("placing tensors on fsdp/tp/ep axes is not ported yet "
-              "(ROADMAP.md §A9: fsdp/tp/ep placement)")
+_PLACEMENT = ("placing tensors on the fsdp or ep axis is not ported yet "
+              "(ROADMAP.md §A9b: ep, §A9c: fsdp)")
+_NAMED = ("named_sharding and constraint are not ported (ROADMAP.md §A9c: "
+          "nothing of the port places a tensor by them yet)")
 
 
 @dataclass
@@ -107,10 +113,10 @@ class ShardingConfig:
         return tuple(parts)
 
     def named_sharding(self, mesh: DeviceMesh, *logical_dims):
-        raise NotImplementedError(_PLACEMENT)
+        raise NotImplementedError(_NAMED)
 
     def constraint(self, x, mesh: DeviceMesh, *logical_dims):
-        raise NotImplementedError(_PLACEMENT)
+        raise NotImplementedError(_NAMED)
 
 
 def infer_param_logical_dims(path: Tuple[str, ...], shape: Tuple[int, ...]):
@@ -163,8 +169,8 @@ def infer_param_logical_dims(path: Tuple[str, ...], shape: Tuple[int, ...]):
 
 def _leaf_specs(params, config: ShardingConfig, mesh: DeviceMesh,
                 path=()):
-    """{name: (leaf, spec)} over the nested dicts, with the spec of each
-    leaf's inferred logical dims; raises for a spec that names fsdp, tp or
+    """{name: (leaf, spec, path)} over the nested dicts, with the spec of
+    each leaf's inferred logical dims; raises for a spec that names fsdp or
     ep."""
     if isinstance(params, dict):
         return {k: _leaf_specs(v, config, mesh, path + (k,))
@@ -173,9 +179,9 @@ def _leaf_specs(params, config: ShardingConfig, mesh: DeviceMesh,
     spec = config.spec(mesh, *dims)
     named = {a for part in spec if part is not None
              for a in (part if isinstance(part, tuple) else (part,))}
-    if named & {"fsdp", "tp", "ep"}:
+    if named & {"fsdp", "ep"}:
         raise NotImplementedError(f"{'/'.join(path)}: {_PLACEMENT}")
-    return params, spec
+    return params, spec, path
 
 
 def _map_specs(fn, tree):
@@ -184,39 +190,100 @@ def _map_specs(fn, tree):
     return fn(*tree)
 
 
+def _fused_qkv(path) -> bool:
+    """GPT-2's fused [q | k | v] projection kernel, cut on tp by heads."""
+    return "c_attn" in path and path[-1] == "kernel"
+
+
+def _divisible(path, leaf, dim, n):
+    c, rem = divmod(leaf.shape[dim], n)
+    if rem:
+        raise ValueError(
+            f"{'/'.join(path)}: the global size of its dimension {dim} should "
+            f"be divisible by {n}, but it is equal to {leaf.shape[dim]} "
+            f"(full shape: {tuple(leaf.shape)})")
+    return c
+
+
 def shard_params(params, config: ShardingConfig, mesh: DeviceMesh):
     """The calling rank's local parameters: each leaf cut as its inferred
     logical dims place it on ``mesh`` (JAX: ``device_put`` with the
     ``NamedSharding``, of which a rank holds its shard).  A dim on ``pp``
     (the "stage" dim of ``blocks``) is narrowed to the rank's n_layer / pp
-    consecutive layers, a copy; a leaf replicated on every axis comes back
-    whole, the given tensor.  Raises ``ValueError`` when the layers do not
-    divide by the pp axis, ``NotImplementedError`` for fsdp/tp/ep."""
+    consecutive layers, a dim on ``tp`` to the rank's contiguous block of
+    it (the rows of wte and wpe, ``c_fc``'s columns, both ``c_proj``'s
+    rows, the MoE ``wi``/``wo`` hidden dim): JAX's device shard at the same
+    mesh coordinates.  One exception, by design: the fused (E, 3E) ``c_attn``
+    kernel, whose columns are [q | k | v], is cut by heads.  tp rank t
+    holds [q_t | k_t | v_t], q_t the columns [t E/tp, (t+1) E/tp) of the q
+    block and the same of k and v, so its (E, 3E/tp) leaf splits into its
+    heads' q, k and v as the whole leaf does; JAX's shard is 3E/tp
+    contiguous columns instead (at tp = 2 all of q and half of k), and
+    ``param_shardings`` still gives JAX's spec.  Every cut is a copy; a
+    leaf replicated on every axis comes back whole, the given tensor.
+    Raises ``ValueError`` for a dim that does not divide by its axis (as
+    ``device_put`` does), ``NotImplementedError`` for fsdp and ep."""
     shape = mesh_shape(mesh)
 
-    def local(leaf, spec):
+    def local(leaf, spec, path):
         for dim, part in enumerate(spec):
             if part is None:
                 continue
-            if part != "pp":  # dp and sp name no parameter dim
+            n, r = shape[part], mesh.get_local_rank(part)
+            if part == "pp":
+                c, rem = divmod(leaf.shape[dim], n)
+                if rem:
+                    raise ValueError(
+                        f"{leaf.shape[dim]} layers do not divide by the pp "
+                        f"axis size {n}")
+                leaf = leaf.narrow(dim, r * c, c).clone()
+            elif part == "tp" and _fused_qkv(path):
+                # [q | k | v] as (3, n, E / n): each block's rank-r columns
+                c = _divisible(path, leaf, dim, 3 * n)
+                leaf = leaf.unflatten(dim, (3, n, c)).select(
+                    dim + 1, r).flatten(dim, dim + 1).clone()
+            elif part == "tp":
+                c = _divisible(path, leaf, dim, n)
+                leaf = leaf.narrow(dim, r * c, c).clone()
+            else:  # dp and sp name no parameter dim
                 raise NotImplementedError(_PLACEMENT)
-            n = shape["pp"]
-            c, rem = divmod(leaf.shape[dim], n)
-            if rem:
-                raise ValueError(
-                    f"{leaf.shape[dim]} layers do not divide by the pp axis "
-                    f"size {n}")
-            leaf = leaf.narrow(dim, mesh.get_local_rank("pp") * c,
-                               c).clone()
         return leaf
 
     return _map_specs(local, _leaf_specs(params, config, mesh))
 
 
+def gather_params(local, config: ShardingConfig, mesh: DeviceMesh):
+    """The whole leaves on every rank from each rank's tp shards (of
+    parameters or of their gradients, named as the parameters): every dim
+    ``shard_params`` cut on tp all-gathered over the tp axis, the ``c_attn``
+    kernel put back from head order into [q | k | v].  What reading a
+    global ``jax.Array`` gives, for the port's tests and checks; a stage
+    cut on pp stays the rank's stage.  Every rank calls it together."""
+    shape = mesh_shape(mesh)
+    if shape.get("tp", 1) == 1:
+        return local
+    group = mesh.get_group("tp")
+
+    def whole(leaf, spec, path):
+        for dim, part in enumerate(spec):
+            if part != "tp":
+                continue
+            with torch.no_grad():
+                full = _all_gather(leaf.detach(), group, dim)
+            if _fused_qkv(path):
+                n = shape["tp"]
+                full = full.unflatten(dim, (n, 3, -1)).transpose(
+                    dim, dim + 1).flatten(dim, dim + 2)
+            leaf = full
+        return leaf
+
+    return _map_specs(whole, _leaf_specs(local, config, mesh))
+
+
 def param_shardings(params, config: ShardingConfig, mesh: DeviceMesh):
     """Every leaf's spec (a tuple as ``spec`` gives it: the entries of the
     JAX ``NamedSharding``'s ``PartitionSpec``), nested as the params."""
-    return _map_specs(lambda leaf, spec: spec,
+    return _map_specs(lambda leaf, spec, path: spec,
                       _leaf_specs(params, config, mesh))
 
 

@@ -1,8 +1,9 @@
 """The CUDA flash-attention kernels on the card, against their plain
 versions, a GPT-2 train step through them, a small Llama whose
 uncached forward runs the forward kernel, ring attention's steps and a
-two-rank ring (gloo, both ranks on the card) through them, and a
-two-stage pipeline of both ranks on the card.
+two-rank ring (gloo, both ranks on the card) through them, a two-stage
+pipeline of both ranks on the card, a tp rank's heads as strided views of
+its qkv buffer, and a two-rank tensor-parallel GPT-2 forward.
 
 Marked ``cuda``: every test skips where there is no CUDA device.  On a
 machine with one (no JAX needed, hence ``--noconftest``):
@@ -17,14 +18,17 @@ from dataclasses import replace
 import pytest
 import torch
 
-from chip_smoke import (G_PTOL, G_RTOL, LOGITS_TOL, bwd_magnitudes,
+from chip_smoke import (G_PTOL, G_RTOL, LOGITS_TOL, TRAIN_GRAD_REL_TOL,
+                        TRAIN_LOSS_TOL, bwd_magnitudes, grad_tree,
                         sp_attention_errors)
 from ray_tpu_torch import collective
 from ray_tpu_torch.models import gpt2, llama
 from ray_tpu_torch.ops import flash_attention as fa
 from ray_tpu_torch.parallel import ring_attention as ra
 from ray_tpu_torch.parallel.launch import RankPool
-from ray_tpu_torch.parallel.sharding import ShardingConfig, seq_shard
+from ray_tpu_torch.parallel.context import use_mesh
+from ray_tpu_torch.parallel.sharding import (ShardingConfig, gather_params,
+                                             seq_shard, shard_params)
 
 pytestmark = pytest.mark.cuda
 
@@ -550,6 +554,127 @@ def test_pp_microbatch_shapes_match_plain(cuda, B):
         bound = G_RTOL * r.float().abs() + G_PTOL[name] * m
         assert ((g.transpose(1, 2).float() - r.float()).abs()
                 <= bound).all(), name
+
+
+@pytest.mark.parametrize("B", [2, 1])
+def test_tp_rank_heads_as_strided_views_match_plain(cuda, B):
+    """A tp = 2 rank of GPT-2 124M hands the kernels its 6 heads as strided
+    views of its (B, S, 3 x 384) qkv buffer (a row stride of 1152
+    elements): o and lse against the plain forward, dq, dk, dv against the
+    plain backward, with chip_smoke.py's per-element bounds."""
+    H, S, D = 6, 1024, 64
+    qkv = torch.randn((B, S, 3 * H * D), generator=cuda, device="cuda",
+                      dtype=torch.bfloat16)
+    q, k, v = (t.reshape(B, S, H, D) for t in qkv.split(H * D, dim=-1))
+    assert q.stride(1) == 1152
+    o, res = fa._flash_fwd_bshd(q, k, v, True, None, None, None)
+    lse = res[4]
+    do = torch.randn(o.shape, generator=cuda, device="cuda",
+                     dtype=torch.bfloat16)
+    qh, kh, vh, oh, doh = (t.transpose(1, 2) for t in (q, k, v, o, do))
+    scale = D ** -0.5
+    o_ref, lse_ref = fa._reference_attention(qh, kh, vh, scale, True)
+    o_mag, _ = fa._reference_attention(qh, kh, vh.abs(), scale, True)
+    tol = O_RTOL * o_ref.float().abs() + O_PTOL * o_mag.float()
+    assert ((oh.float() - o_ref.float()).abs() <= tol).all()
+    assert (lse - lse_ref).abs().max().item() <= LSE_TOL
+    grads = fa._flash_bwd_bshd(True, None, None, None, res, do)
+    ref = fa._reference_attention_bwd(qh, kh, vh, oh, lse, doh, scale, True)
+    mags = bwd_magnitudes(qh, kh, vh, oh, lse, doh, scale, True)
+    for name, g, r, m in zip(("dq", "dk", "dv"), grads, ref, mags):
+        bound = G_RTOL * r.float().abs() + G_PTOL[name] * m
+        assert ((g.transpose(1, 2).float() - r.float()).abs()
+                <= bound).all(), name
+
+
+TP_TINY = replace(gpt2.GPT2_TINY, n_head=4, n_embd=256)
+
+
+def _rank_tp_forward():
+    """A tp rank's logits (the whole vocabulary, on the host) of GPT-2 with
+    4 heads of D = 64 on cuda:0, and its forward launches."""
+    import torch.distributed as dist
+
+    config = ShardingConfig(tp=dist.get_world_size())
+    mesh = config.build_mesh()
+    params = gpt2.init_params(torch.Generator(device="cuda").manual_seed(3),
+                              TP_TINY)
+    local = shard_params(params, config, mesh)
+    tokens = torch.arange(2 * 100, device="cuda").view(2, 100) % 512
+    before = fa.KERNEL_LAUNCHES
+    with torch.no_grad(), use_mesh(mesh):
+        logits = gpt2.forward(local, tokens, TP_TINY)
+    torch.cuda.synchronize()
+    return logits.cpu(), fa.KERNEL_LAUNCHES - before
+
+
+def test_two_rank_tensor_parallel_forward_on_one_card(cuda, tmp_path):
+    """GPT-2 (4 heads of D = 64) at tp = 2 on two ranks of cuda:0 (gloo):
+    each rank's kernels run its 2 heads, and the logits on every rank
+    match the single-rank kernels' within chip_smoke.py phase 3's gate."""
+    with RankPool(2, f"file://{tmp_path}/rendezvous", backend="gloo",
+                  device="cuda:0", timeout_s=120.0) as pool:
+        res = pool.run(_rank_tp_forward)
+    params = gpt2.init_params(torch.Generator(device="cuda").manual_seed(3),
+                              TP_TINY)
+    tokens = torch.arange(2 * 100, device="cuda").view(2, 100) % 512
+    with torch.no_grad():
+        ref = gpt2.forward(params, tokens, TP_TINY).cpu()
+    for logits, launches in res:
+        assert launches == TP_TINY.n_layer
+        assert logits.shape == ref.shape
+        assert (logits - ref).abs().max().item() <= LOGITS_TOL
+
+
+def _tp_remat_loss_and_grads(params, cfg):
+    """GPT-2's loss (chunked head) and every leaf's gradient on the card,
+    on the host; under a tp mesh ``params`` are the rank's shards and the
+    gradients come back whole."""
+    tokens = torch.arange(2 * 101, device="cuda").view(2, 101) % 512
+    loss = gpt2.loss_fn(gpt2._cast_weights(params, cfg.compute_dtype),
+                        {"tokens": tokens}, cfg, xent_chunks=2)
+    loss.backward()
+    return loss.item(), params
+
+
+def _rank_tp_remat():
+    import torch.distributed as dist
+
+    config = ShardingConfig(tp=dist.get_world_size())
+    mesh = config.build_mesh()
+    cfg = replace(TP_TINY, remat=True)
+    params = gpt2.init_params(torch.Generator(device="cuda").manual_seed(3),
+                              cfg)
+    local = shard_params(params, config, mesh)
+    for leaf in gpt2.param_leaves(local):
+        leaf.requires_grad_(True)
+    with use_mesh(mesh):
+        loss, local = _tp_remat_loss_and_grads(local, cfg)
+        gpt2._sum_grads(local, cfg)
+        grads = gather_params(grad_tree(local), config, mesh)
+    return loss, [g.cpu() for g in gpt2.param_leaves(grads)]
+
+
+def test_two_rank_tensor_parallel_remat_backward_on_one_card(cuda, tmp_path):
+    """tp = 2 with remat and the chunked head on two ranks of cuda:0: the
+    recomputed blocks and chunks run their tp collectives again on
+    autograd's device thread, which must find the mesh; the loss and every
+    gradient (gathered) against one rank's with chip_smoke.py phase 4's
+    tolerances."""
+    with RankPool(2, f"file://{tmp_path}/rendezvous", backend="gloo",
+                  device="cuda:0", timeout_s=120.0) as pool:
+        res = pool.run(_rank_tp_remat)
+    cfg = replace(TP_TINY, remat=True)
+    params = gpt2.init_params(torch.Generator(device="cuda").manual_seed(3),
+                              cfg)
+    for leaf in gpt2.param_leaves(params):
+        leaf.requires_grad_(True)
+    loss, params = _tp_remat_loss_and_grads(params, cfg)
+    ref = [t.grad.cpu() for t in gpt2.param_leaves(params)]
+    for got_loss, grads in res:
+        assert abs(got_loss - loss) <= TRAIN_LOSS_TOL
+        for g, r in zip(grads, ref):
+            assert ((g - r).norm() / r.norm()).item() <= TRAIN_GRAD_REL_TOL
 
 
 def _toy_pipeline_inputs():

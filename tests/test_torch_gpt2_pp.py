@@ -30,7 +30,8 @@ from ray_tpu_torch.models import gpt2 as tg
 from ray_tpu_torch.parallel.context import use_mesh
 from ray_tpu_torch.parallel.launch import RankPool
 from ray_tpu_torch.parallel.sharding import (ShardingConfig, batch_shard,
-                                             seq_shard, shard_params)
+                                             gather_params, seq_shard,
+                                             shard_params)
 
 # the tolerances of tests/test_torch_gpt2_sp.py (which states what each side
 # rounds): the pipeline only reorders the work per microbatch.  In bf16 the
@@ -41,6 +42,8 @@ LOSS_TOL = {"f32": 1e-5, "bf16": 1e-3}
 GRAD_REL = {"f32": 1e-5, "bf16": 5e-2}
 STEPS, LR = 3, 1e-3
 PARAM_ATOL = {"f32": 5e-5, "bf16": 2 * LR * STEPS}
+#: AdamW's eps (torch's and optax's default)
+ADAM_EPS = 1e-8
 B, S = 8, 64
 
 
@@ -154,14 +157,14 @@ def _rank_threads(n):
 
 
 def _rank_setup(tc, np_params, axes, tokens):
-    """The rank's mesh, master parameters (its stage under pp) and batch,
-    and its (dp, pp, sp) indices."""
+    """The rank's mesh, master parameters (its stage under pp, its shards
+    under tp) and batch, and its (dp, pp, sp, tp) indices."""
     config = ShardingConfig(**axes)
     mesh = config.build_mesh(device_type="cpu")
     params = tg.params_from_numpy(np_params, tc, device="cpu")
     if "pp" in axes:
-        params = shard_params(tg.to_pipeline_params(params, tc), config,
-                              mesh)
+        params = tg.to_pipeline_params(params, tc)
+    params = shard_params(params, config, mesh)
     for leaf in tg.param_leaves(params):
         leaf.requires_grad_(True)
     batch = batch_shard(torch.from_numpy(tokens), mesh)
@@ -171,11 +174,19 @@ def _rank_setup(tc, np_params, axes, tokens):
     return mesh, params, {"tokens": batch}, where
 
 
+def _grad_tree(params):
+    if isinstance(params, dict):
+        return {k: _grad_tree(v) for k, v in params.items()}
+    return params.grad
+
+
 def _rank_train(tc, np_params, tokens, axes, M, xent_chunks, steps):
     """The rank's logits, loss, every leaf's gradient summed as the train
     step sums them, the losses of ``steps`` AdamW steps, every leaf after
-    them, and where the rank sits on the mesh."""
+    them (gradients and leaves whole over tp: ``gather_params``), and where
+    the rank sits on the mesh."""
     mesh, params, batch, where = _rank_setup(tc, np_params, axes, tokens)
+    config = ShardingConfig(**axes)
     with use_mesh(mesh):
         with torch.no_grad():
             logits = tg.forward(params, batch["tokens"][:, :-1], tc, None,
@@ -184,7 +195,8 @@ def _rank_train(tc, np_params, tokens, axes, M, xent_chunks, steps):
                           tc, M, xent_chunks)
         loss.backward()
         tg._sum_grads(params, tc)
-        grads = [t.grad.numpy().copy() for t in tg.param_leaves(params)]
+        grads = [t.numpy().copy() for t in tg.param_leaves(
+            gather_params(_grad_tree(params), config, mesh))]
         for t in tg.param_leaves(params):
             t.grad = None
         opt = torch.optim.AdamW(tg.param_leaves(params), lr=LR,
@@ -192,9 +204,10 @@ def _rank_train(tc, np_params, tokens, axes, M, xent_chunks, steps):
                                 weight_decay=1e-4)
         step = tg.make_train_step(tc, opt, M, xent_chunks)
         losses = [step(params, batch)["loss"].item() for _ in range(steps)]
+        whole = gather_params(params, config, mesh)
     return {"logits": logits, "loss": loss.item(), "grads": grads,
             "losses": losses, "where": where,
-            "params": [t.detach().numpy() for t in tg.param_leaves(params)],
+            "params": [t.detach().numpy() for t in tg.param_leaves(whole)],
             "names": [n for n, _ in tg.named_leaves(params)]}
 
 
@@ -220,10 +233,24 @@ def _stage_slice(name, ref, where, axes):
     return ref
 
 
-def _check(results, want, axes, M, dtype, grad_rel=None):
+def _param_atol(dtype, ref_grad, grad_atol, adam):
+    """The tolerance of the leaves after the steps.  With ``adam``, each
+    element's also takes AdamW's amplification of the gradient's
+    tolerance: a gradient error d at an element whose gradient is g moves
+    its step by up to LR d / (|g| + eps), 2 LR at most, so where |g| is
+    near eps the step is set by the rounding of g on either side.  For
+    summation orders that differ from JAX's (tp's partial products)."""
+    if not adam:
+        return PARAM_ATOL[dtype]
+    return PARAM_ATOL[dtype] + STEPS * LR * np.minimum(
+        2.0, grad_atol / (np.abs(ref_grad) + ADAM_EPS))
+
+
+def _check(results, want, axes, M, dtype, grad_rel=None, adam=False):
     """Each rank against JAX (``want``, global), and the ranks against one
-    another: one loss on every rank, each leaf equal bit for bit on every
-    rank that holds it."""
+    another: one loss on every rank, each leaf and its gradient (whole over
+    tp) equal bit for bit on every rank that holds it.  ``adam``: the
+    leaves after the steps within ``_param_atol``'s AdamW term too."""
     grad_rel = grad_rel or GRAD_REL[dtype]
     for r in results:
         cols = slice(None)
@@ -241,19 +268,22 @@ def _check(results, want, axes, M, dtype, grad_rel=None):
                                          want["grads"], r["params"],
                                          want["params"]):
             ref = _stage_slice(name, ref, r["where"], axes)
-            np.testing.assert_allclose(g, ref, rtol=0,
-                                       atol=grad_rel * np.abs(ref).max(),
+            grad_atol = grad_rel * np.abs(ref).max()
+            np.testing.assert_allclose(g, ref, rtol=0, atol=grad_atol,
                                        err_msg=name)
-            np.testing.assert_allclose(
-                leaf, _stage_slice(name, p, r["where"], axes), rtol=0,
-                atol=PARAM_ATOL[dtype], err_msg=name)
-    r0 = results[0]
-    for r in results[1:]:
-        assert r["loss"] == r0["loss"] and r["losses"] == r0["losses"]
-        same_stage = r["where"].get("pp") == r0["where"].get("pp")
-        for name, a, b in zip(r["names"], r["params"], r0["params"]):
-            if same_stage or not name.startswith("blocks/"):
-                np.testing.assert_array_equal(a, b, err_msg=name)
+            diff = np.abs(leaf - _stage_slice(name, p, r["where"], axes))
+            over = diff - _param_atol(dtype, ref, grad_atol, adam)
+            assert (over <= 0).all(), (name, diff.max(), over.max())
+    for r0 in results:
+        for r in results:
+            assert r["loss"] == r0["loss"] and r["losses"] == r0["losses"]
+            same_stage = r["where"].get("pp") == r0["where"].get("pp")
+            for name, a, b, ga, gb in zip(r["names"], r["params"],
+                                          r0["params"], r["grads"],
+                                          r0["grads"]):
+                if same_stage or not name.startswith("blocks/"):
+                    np.testing.assert_array_equal(a, b, err_msg=name)
+                    np.testing.assert_array_equal(ga, gb, err_msg=name)
 
 
 # ---------------------------------------------------------------------------
@@ -314,7 +344,8 @@ def _rank_raises(case):
     tokens = torch.zeros((4, 9), dtype=torch.long)
     cfg = replace(tg.GPT2_TINY, n_layer=4)
     axes = {"moe_dp": {"dp": n}, "pp_ring": {"pp": n},
-            "pp_ulysses": {"pp": n}, "tp": {"tp": n}, "fsdp": {"fsdp": n},
+            "pp_ulysses": {"pp": n}, "fsdp": {"fsdp": n},
+            "tp_heads": {"tp": n}, "tp_whole": {"tp": n},
             "batch_vs_M": {"pp": n}, "layers_vs_pp": {"pp": n},
             "whole_stack": {"pp": n}}[case]
     config = ShardingConfig(**axes)
@@ -327,12 +358,14 @@ def _rank_raises(case):
         cfg = replace(cfg, attention="ulysses")
     if case == "layers_vs_pp":
         cfg = replace(cfg, n_layer=3)
+    if case == "tp_heads":
+        cfg = replace(cfg, n_head=1)
     params = tg.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
     try:
         if "pp" in axes:
             params = tg.to_pipeline_params(params, cfg)
-            if case != "whole_stack":
-                params = shard_params(params, config, mesh)
+        if case not in ("whole_stack", "tp_whole"):
+            params = shard_params(params, config, mesh)
         with use_mesh(mesh):
             tg.loss_fn(params, {"tokens": tokens}, cfg,
                        3 if case == "batch_vs_M" else 2)
@@ -344,8 +377,9 @@ def _rank_raises(case):
 RAISES = {"moe_dp": ("NotImplementedError", "A10"),
           "pp_ring": ("NotImplementedError", "A11: pp composed with sp"),
           "pp_ulysses": ("NotImplementedError", "A11: pp composed with sp"),
-          "tp": ("NotImplementedError", "ROADMAP"),
           "fsdp": ("NotImplementedError", "ROADMAP"),
+          "tp_heads": ("ValueError", "n_head 1 does not divide by the tp"),
+          "tp_whole": ("ValueError", "shard_params"),
           "batch_vs_M": ("ValueError", "num_microbatches 3"),
           "layers_vs_pp": ("ValueError", "do not divide by the pp axis"),
           "whole_stack": ("ValueError", "shard_params")}

@@ -16,6 +16,11 @@ JAX is imported inside the tests: the ranks import this module to find
 their functions and must not import JAX.
 """
 
+import os
+import subprocess
+import sys
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -27,6 +32,7 @@ from ray_tpu_torch.parallel import context, ring_attention as tra
 from ray_tpu_torch.parallel.launch import RankError, RankPool
 from ray_tpu_torch.parallel.mesh import create_mesh, mesh_shape
 from ray_tpu_torch.parallel.sharding import (ShardingConfig, batch_shard,
+                                             gather_params,
                                              infer_param_logical_dims,
                                              param_shardings, seq_shard,
                                              shard_params)
@@ -98,19 +104,21 @@ def _rank_specs(config, queries):
 
 def _rank_placement(axes, np_params):
     """The rank's coordinates on the mesh, its local leaves
-    (``shard_params``) and every leaf's spec (``param_shardings``), or the
-    NotImplementedError either raises."""
+    (``shard_params``), every leaf's spec (``param_shardings``) and the
+    leaves whole again (``gather_params``), or the NotImplementedError or
+    ValueError either raises."""
     config = ShardingConfig(**axes)
     mesh = config.build_mesh(device_type="cpu")
     params = _map_np(torch.from_numpy, np_params)
     try:
-        local = _map_np(lambda t: t.numpy(),
-                        shard_params(params, config, mesh))
+        local = shard_params(params, config, mesh)
         specs = param_shardings(params, config, mesh)
-    except NotImplementedError as e:
-        return "raised", str(e)
+    except (NotImplementedError, ValueError) as e:
+        return "raised", type(e).__name__, str(e)
+    whole = gather_params(local, config, mesh)
     return ({a: mesh.get_local_rank(a) for a in mesh.mesh_dim_names},
-            local, specs)
+            _map_np(lambda t: t.numpy(), local), specs,
+            _map_np(lambda t: t.numpy(), whole))
 
 
 def _rank_batch_rows(axes, x):
@@ -277,11 +285,10 @@ def test_infer_param_logical_dims_matches_jax(moe):
     assert n > 30
 
 
-@pytest.mark.parametrize("axes,moe", [({"tp": 2}, 0), ({"fsdp": 2}, 0),
-                                      ({"ep": 2}, 4)],
-                         ids=["tp", "fsdp", "ep"])
+@pytest.mark.parametrize("axes,moe", [({"fsdp": 2}, 0), ({"ep": 2}, 4)],
+                         ids=["fsdp", "ep"])
 def test_placement_is_not_ported_yet(pool, axes, moe):
-    """Placing GPT-2's leaves on tp, fsdp or ep (the MoE experts) raises on
+    """Placing GPT-2's leaves on fsdp or ep (the MoE experts) raises on
     every rank, pointing at ROADMAP; so do named_sharding and constraint."""
     import jax
 
@@ -291,7 +298,8 @@ def test_placement_is_not_ported_yet(pool, axes, moe):
     params = jax.tree.map(np.asarray, jg.init_params(
         jax.random.PRNGKey(0), cfg))
     for got in pool(2).run(_rank_placement, axes, params):
-        assert got[0] == "raised" and "ROADMAP" in got[1], got
+        assert got[:2] == ("raised", "NotImplementedError"), got
+        assert "ROADMAP" in got[2], got
     config = ShardingConfig(**axes)
     for call in (lambda: config.named_sharding(None, "embed"),
                  lambda: config.constraint(None, None, "embed")):
@@ -331,7 +339,7 @@ def test_pipeline_placement_matches_jax(pool, axes, moe):
                               jspecs(tree, jcfg, mesh))
     results = pool(n).run(_rank_placement, axes,
                           jax.tree.map(np.asarray, tree))
-    for where, local, specs in results:
+    for where, local, specs, _ in results:
         dev = mesh.devices[tuple(where[a] for a in mesh.axis_names)]
         flat = jax.tree_util.tree_flatten_with_path(placed)[0]
         got = dict(tg.named_leaves(_map_np(torch.from_numpy, local)))
@@ -343,6 +351,102 @@ def test_pipeline_placement_matches_jax(pool, axes, moe):
             np.testing.assert_array_equal(got[name].numpy(),
                                           np.asarray(shard), err_msg=name)
         assert specs == want_specs
+
+
+@pytest.mark.parametrize("axes", [{"tp": 2}, {"tp": 4}, {"pp": 2, "tp": 2}])
+@pytest.mark.parametrize("moe", [0, 4])
+def test_tp_placement_matches_jax(pool, axes, moe):
+    """``shard_params`` on tp (with pp: of ``to_pipeline_params``'s tree)
+    for GPT2_TINY with 4 layers, dense and MoE: ``param_shardings`` against
+    JAX's specs, every local leaf but the fused ``c_attn`` kernel against
+    the shard JAX puts on the device at the same mesh coordinates, that
+    kernel against the rank's head group's q, k and v columns, and every
+    leaf after ``gather_params`` against the whole leaf."""
+    import jax
+
+    from ray_tpu.models import gpt2 as jg
+    from ray_tpu.parallel.sharding import ShardingConfig as JConfig
+    from ray_tpu.parallel.sharding import param_shardings as jspecs
+    from ray_tpu.parallel.sharding import shard_params as jshard
+    from ray_tpu_torch.models import gpt2 as tg
+
+    cfg = jg.GPT2Config(**{**jg.GPT2_TINY.__dict__, "n_layer": 4,
+                           "moe_experts": moe})
+    tree = jg.init_params(jax.random.PRNGKey(0), cfg)
+    if "pp" in axes:
+        tree = jg.to_pipeline_params(tree, cfg)
+    n = int(np.prod(list(axes.values())))
+    jcfg = JConfig(**axes)
+    mesh = jcfg.build_mesh(devices=jax.devices()[:n])
+    placed = jshard(tree, jcfg, mesh)
+    want_specs = jax.tree.map(lambda ns: tuple(ns.spec),
+                              jspecs(tree, jcfg, mesh))
+    flat = jax.tree_util.tree_flatten_with_path(placed)[0]
+    cut = 0
+    for where, local, specs, whole in pool(n).run(
+            _rank_placement, axes, jax.tree.map(np.asarray, tree)):
+        assert specs == want_specs
+        dev = mesh.devices[tuple(where[a] for a in mesh.axis_names)]
+        got = dict(tg.named_leaves(_map_np(torch.from_numpy, local)))
+        back = dict(tg.named_leaves(_map_np(torch.from_numpy, whole)))
+        assert len(got) == len(back) == len(flat)
+        for path, leaf in flat:
+            name = "/".join(k.key for k in path)
+            full = np.asarray(leaf)
+            shard = [x.data for x in leaf.addressable_shards
+                     if x.device == dev][0]
+            if name.endswith("c_attn/kernel"):
+                if "pp" in axes:
+                    c = full.shape[0] // axes["pp"]
+                    full = full[where["pp"] * c:(where["pp"] + 1) * c]
+                # q, k, v blocks of E columns; the rank's heads are
+                # columns [t e, (t + 1) e) of each, e = E / tp
+                E, t = full.shape[-1] // 3, where["tp"]
+                e = E // axes["tp"]
+                heads = np.concatenate(
+                    [full[..., j * E + t * e:j * E + (t + 1) * e]
+                     for j in range(3)], -1)
+                np.testing.assert_array_equal(got[name].numpy(), heads,
+                                              err_msg=name)
+                assert got[name].shape == np.asarray(shard).shape
+                cut += 1
+            else:
+                np.testing.assert_array_equal(got[name].numpy(),
+                                              np.asarray(shard),
+                                              err_msg=name)
+            if "pp" in axes and name.startswith("blocks/"):
+                c = np.asarray(leaf).shape[0] // axes["pp"]
+                full = np.asarray(leaf)[where["pp"] * c:
+                                        (where["pp"] + 1) * c]
+            np.testing.assert_array_equal(back[name].numpy(), full,
+                                          err_msg=name)
+    assert cut > 0
+
+
+TP_DIVIDES = {"wte rows": ({"tp": 4}, {"wte": {"embedding": (10, 8)}}),
+              "c_fc columns": ({"tp": 4},
+                               {"mlp": {"c_fc": {"kernel": (8, 10)}}}),
+              "stacked layers": ({"pp": 2, "tp": 2}, {"blocks": {
+                  "attn": {"c_attn": {"kernel": (3, 8, 24)}}}})}
+
+
+@pytest.mark.parametrize("case", list(TP_DIVIDES))
+def test_tp_placement_dims_must_divide_like_jax(pool, case):
+    """A dim that does not divide by its axis raises ValueError in the
+    port's ``shard_params`` on every rank, as JAX's ``device_put`` does."""
+    import jax
+
+    from ray_tpu.parallel.sharding import ShardingConfig as JConfig
+    from ray_tpu.parallel.sharding import shard_params as jshard
+
+    axes, shapes = TP_DIVIDES[case]
+    tree = _map_np(lambda shape: np.zeros(shape, np.float32), shapes)
+    jcfg = JConfig(**axes)
+    with pytest.raises(ValueError, match="divisible"):
+        jshard(tree, jcfg, jcfg.build_mesh(devices=jax.devices()[:4]))
+    for got in pool(4).run(_rank_placement, axes, tree):
+        assert got[:2] == ("raised", "ValueError"), got
+        assert "divi" in got[2], got
 
 
 @pytest.mark.parametrize("axes", [{"dp": 4}, {"dp": 2, "fsdp": 2},
@@ -438,6 +542,52 @@ def test_allreduce_gradient_is_each_ranks_share(pool):
                                2 * x, rtol=1e-6)
 
 
+def _rank_identity_grad(x, w):
+    """The gradient of a replicated x through ``c10d.identity`` into the
+    rank's columns of w (a column-parallel product), the loss summed over
+    the ranks; the host seconds the transport recorded, by kind."""
+    mesh = _sp_mesh()
+    with context.use_mesh(mesh):
+        xr = torch.from_numpy(x).clone().requires_grad_(True)
+        wr = seq_shard(torch.from_numpy(w), mesh, dim=1)
+        with collective.timing() as comm:
+            y = c10d.identity(xr, "sp") @ wr
+            loss = c10d.allreduce((torch.tanh(y) ** 2).sum(), "sp")
+            loss.backward()
+    return loss.item(), xr.grad.numpy(), sorted(comm.blocked_s)
+
+
+def test_identity_gradient_is_summed_over_the_axis(pool):
+    """``c10d.identity`` (Megatron's "f", the transpose of ``allreduce``'s
+    sum): a replicated input consumed by work cut over the axis gets, on
+    every rank, the whole gradient, as ``jax.grad`` gives it through
+    ``shard_map`` with the input replicated (P()) and the weight's columns
+    sharded; its backward is an all-reduce in ``collective.timing()``."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import PartitionSpec as P
+
+    x, w = _arrays((6, 5), 1, seed=5)[0], _arrays((5, 8), 1, seed=6)[0]
+
+    def sharded_loss(x, w):
+        def body(x, w):
+            return jax.lax.psum(jnp.sum(jnp.tanh(x @ w) ** 2), "sp")
+
+        return jax.shard_map(body, mesh=_jax_mesh(4),
+                             in_specs=(P(), P(None, "sp")),
+                             out_specs=P())(x, w)
+
+    want = np.asarray(jax.grad(sharded_loss)(jnp.asarray(x), jnp.asarray(w)))
+    whole = np.asarray(jax.grad(lambda x: jnp.sum(
+        jnp.tanh(x @ jnp.asarray(w)) ** 2))(jnp.asarray(x)))
+    np.testing.assert_allclose(want, whole, rtol=0, atol=1e-5)
+    for loss, grad, kinds in pool(4).run(_rank_identity_grad, x, w):
+        assert loss == pytest.approx(float(np.sum(np.tanh(x @ w) ** 2)),
+                                     rel=1e-5)
+        np.testing.assert_allclose(grad, want, rtol=0, atol=1e-5)
+        assert kinds == ["all_reduce"]
+
+
 # ---------------------------------------------------------------------------
 # ring and Ulysses attention
 # ---------------------------------------------------------------------------
@@ -508,6 +658,34 @@ def test_sp_attention_matches_jax_and_dense(pool, pallas_calls, variant, n,
             assert calls == {"fwd": steps, "bwd": steps}, (rank, calls)
 
 
+def _rank_ulysses_under_tp():
+    """The error GPT-2 with Ulysses attention raises on a tp = 2 x sp = 2
+    mesh when its 2 heads give each tp rank 1, fewer than sp."""
+    from dataclasses import replace
+
+    from ray_tpu_torch.models import gpt2 as tg
+
+    config = ShardingConfig(sp=2, tp=2)
+    mesh = config.build_mesh(device_type="cpu")
+    cfg = replace(tg.GPT2_TINY, attention="ulysses", n_layer=1)
+    params = shard_params(tg.init_params(torch.Generator().manual_seed(0),
+                                         cfg, "cpu"), config, mesh)
+    with context.use_mesh(mesh):
+        try:
+            tg.forward(params, torch.zeros((1, 8), dtype=torch.long), cfg)
+        except ValueError as e:
+            return str(e)
+    return None
+
+
+def test_ulysses_needs_the_heads_of_a_tp_rank_to_divide_by_sp(pool):
+    """Under tp each rank's Ulysses all-to-all splits its n_head / tp heads
+    over sp, so (n_head / tp) % sp must be 0; it raises as Ulysses does for
+    n_head % sp."""
+    assert pool(4).run(_rank_ulysses_under_tp) == [
+        "num heads 1 must divide by sp axis size 2"] * 4
+
+
 def test_ulysses_heads_must_divide_like_jax(pool):
     import jax
     import jax.numpy as jnp
@@ -564,6 +742,42 @@ def test_merge_guards_skipped_and_first_steps():
                          torch.full_like(lse0, tra._NEG_INF))
     for a, b in zip(skipped, (num, m, den)):
         assert torch.equal(a, b)
+
+
+_ABORTING_PARENT = """
+import os, sys
+from ray_tpu_torch.parallel.launch import RankPool
+pool = RankPool(2, "file://" + sys.argv[1], backend="gloo", device="cpu",
+                timeout_s=60.0)
+print(" ".join(str(p.pid) for p in pool._procs), flush=True)
+os.abort()
+"""
+
+
+def _alive(pid):
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return False
+    with open(f"/proc/{pid}/stat") as f:  # a zombie has exited
+        return f.read().split(") ")[-1][0] != "Z"
+
+
+def test_rank_pool_ranks_exit_when_their_parent_aborts(tmp_path):
+    """A parent that aborts runs no exit handler, so nothing closes its
+    pool: its ranks see that it is gone and exit within a few seconds."""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run(
+        [sys.executable, "-c", _ABORTING_PARENT, str(tmp_path / "init")],
+        capture_output=True, text=True, timeout=120,
+        env={**os.environ, "PYTHONPATH": repo})
+    assert proc.returncode == -6, proc.stderr  # SIGABRT
+    pids = [int(p) for p in proc.stdout.split()]
+    assert len(pids) == 2
+    deadline = time.monotonic() + 15.0
+    while any(_alive(p) for p in pids) and time.monotonic() < deadline:
+        time.sleep(0.2)
+    assert not [p for p in pids if _alive(p)]
 
 
 def test_rank_pool_reports_a_failed_rank(pool):
