@@ -143,7 +143,24 @@ Phases; any failure exits non-zero:
    flight by kind and without, and the MB it hands the transport a step
    by kind.  Phases 2 and 2b also run a tp rank's heads (H = 6 at B = 16,
    8, 4, bshd strided views of a (B, S, 1152) qkv buffer) and the tp x sp
-   ring chunk (B=16, H=6, S=512, bhsd).
+   ring chunk (B=16, H=6, S=512, bhsd);
+11. ep — the MoE (8 experts) across ranks that share the card
+   (``RankPool`` on cuda:0, one gloo group), each rank its
+   ``shard_params`` shard (on ep its 4 experts): at ep = 2, dp = 2, ring
+   sp = 2 and ep = 2 x tp = 2 (B=4, S=1024) each rank's logits against
+   the single-rank kernels' on the same global batch with phase 3's gate,
+   the choices dropped at capacity in each layer summed over the ranks
+   (must equal the single-rank run's: the capacity and slot positions
+   count the global batch) and the share of token-choices that differ
+   between the ranks that hold the same tokens (must be 0), the
+   single-rank run replaying the ranks' choices where they part; at ep =
+   2 and ep = 2 x tp = 2 also the loss and every leaf's gradient (gathered
+   over ep and tp) with phase 6's gates; then AdamW steps (a warm-up, then
+   5 timed) at B=16, S=1024 for ep = 2, dp = 2, ring sp = 2, ep = 2 x tp =
+   2 and pp = 2 x ep = 2 (M = 4), and at B=8 for dp = 2 x ep = 2 (four
+   such ranks at B=16 do not fit on the card), printed and held as phase
+   10's.  Phases 2 and 2b also run a dp = 2 rank's shape (B=8, H=12,
+   S=1024, bshd).  Each phase's seconds are printed after it.
 
 The last two lines are a JSON object of per-kernel numbers and the
 result line ``{"ok": true, "device": {...}}``.  ``--profile`` adds
@@ -421,6 +438,9 @@ TP_SHAPES = {(16, 6, 1024, 64): "tp rank heads (tp=2, B=16)",
              (4, 6, 1024, 64): "tp rank heads (pp=2 x tp=2, B=4)"}
 #: and the ring chunks of tp = 2 x sp = 2 (bhsd)
 TP_SP_SHAPES = {(16, 6, 512, 64): "tp x sp ring chunk (tp=2, sp=2)"}
+#: phase 11's new kernel shape (bshd): a dp = 2 rank's 8 rows of 12 heads
+#: (MoE dp = 2 and dp = 2 x ep = 2)
+EP_SHAPES = {(8, 12, 1024, 64): "dp rank (dp=2, B=8)"}
 SP_LABELS |= set(TP_SP_SHAPES.values())
 #: ms per step and peak GB of the single-rank train steps (phases 4, 6),
 #: printed beside phases 9's and 10's
@@ -601,6 +621,7 @@ def phase_kernels(seed):
               if shape[0] not in (1, 4)]  # B = 4 is in the grid above
     cases += [shape + ("bshd",) for shape in TP_SHAPES]
     cases += [shape + ("bhsd",) for shape in TP_SP_SHAPES]
+    cases += [shape + ("bshd",) for shape in EP_SHAPES]
     served = None
     worst = 0.0
     for B, H, S, D, layout in cases:
@@ -665,7 +686,8 @@ def phase_kernels(seed):
                      LLAMA_SHAPE: "llama", **SP_SHAPES,
                      **TP_SP_SHAPES}.get((B, H, S, D))
             if layout == "bshd":
-                label = {**PP_SHAPES, **TP_SHAPES}.get((B, H, S, D), label)
+                label = {**PP_SHAPES, **TP_SHAPES, **EP_SHAPES}.get(
+                    (B, H, S, D), label)
             if label:
                 print(f"[kernel] {label} shape, causal={int(causal)}: "
                       f"kernel_ms={ms:.4f} library_ms={lib_ms:.4f} "
@@ -720,6 +742,7 @@ def phase_bwd_kernels(seed):
     cases += [(shape, ("bshd",)) for shape in PP_SHAPES]
     cases += [(shape, ("bshd",)) for shape in TP_SHAPES]
     cases += [(shape, ("bhsd",)) for shape in TP_SP_SHAPES]
+    cases += [(shape, ("bshd",)) for shape in EP_SHAPES]
     worst = {"dq": 0.0, "dkv": 0.0}
     rec = {}
     for (B, H, S, D), layouts in cases:
@@ -796,7 +819,8 @@ def phase_bwd_kernels(seed):
                          **SP_SHAPES, **TP_SP_SHAPES,
                          **PP_SHAPES}.get((B, H, S, D))
                 if layout == "bshd":
-                    label = TP_SHAPES.get((B, H, S, D), label)
+                    label = {**TP_SHAPES, **EP_SHAPES}.get((B, H, S, D),
+                                                           label)
                 if label in SP_LABELS or (label and layout == "bshd"
                                           and causal):
                     if label == "training":
@@ -1336,16 +1360,17 @@ def phase_llama(seed, profile):
 
 @contextlib.contextmanager
 def moe_probe():
-    """Records each MoE FFN call's aux loss, expert choices (T, k) and
-    share of token-choices kept within capacity, as device tensors."""
-    rec = {"aux": [], "idx": [], "kept": []}
-    route, mlp = gpt2._moe_route, gpt2._moe_mlp
+    """Records each MoE FFN call's aux loss, expert choices (T, k), share
+    of token-choices kept within capacity and count of those dropped, as
+    device tensors."""
+    rec = {"aux": [], "idx": [], "kept": [], "dropped": []}
+    route, mlp = gpt2._routes, gpt2._moe_mlp
 
-    def route_spy(xt, router, cfg):
-        out = route(xt, router, cfg)
-        _, _, idx, pos, capacity = out
-        rec["idx"].append(idx)
-        rec["kept"].append((pos < capacity).float().mean())
+    def route_spy(*args):
+        out = route(*args)
+        rec["idx"].append(out.idx)
+        rec["kept"].append((out.pos < out.capacity).float().mean())
+        rec["dropped"].append((out.pos >= out.capacity).sum())
         return out
 
     def mlp_spy(x, p, cfg):
@@ -1353,11 +1378,11 @@ def moe_probe():
         rec["aux"].append(aux.detach())
         return y, aux
 
-    gpt2._moe_route, gpt2._moe_mlp = route_spy, mlp_spy
+    gpt2._routes, gpt2._moe_mlp = route_spy, mlp_spy
     try:
         yield rec
     finally:
-        gpt2._moe_route, gpt2._moe_mlp = route, mlp
+        gpt2._routes, gpt2._moe_mlp = route, mlp
 
 
 @contextlib.contextmanager
@@ -2334,8 +2359,8 @@ def tp_check_moe(pool, seed):
                   "gathered over tp")
 
 
-def tp_digests(config, mesh, local):
-    """sha256 digests of the rank's leaves cut on tp, of its stacked
+def mesh_digests(config, mesh, local):
+    """sha256 digests of the rank's leaves cut on tp or ep, of its stacked
     blocks' whole leaves and of every other whole leaf."""
     digests = {k: hashlib.sha256() for k in ("cut", "blocks", "rest")}
 
@@ -2344,7 +2369,7 @@ def tp_digests(config, mesh, local):
             for k in sorted(tree):
                 walk(tree[k], spec[k], f"{name}/{k}" if name else k)
             return
-        kind = ("cut" if "tp" in spec else "blocks"
+        kind = ("cut" if "tp" in spec or "ep" in spec else "blocks"
                 if name.startswith("blocks/") else "rest")
         digests[kind].update(tree.detach().float().contiguous().cpu().numpy())
 
@@ -2356,12 +2381,12 @@ def transport_counts():
     return (dict(collective.SENT_BYTES),) + hop_counts()
 
 
-def tp_want(axes, M, L):
-    """Launches of each kernel a step summed over the ranks: each tp and
-    dp replica runs the model's layers once (a causal ring over sp: n(n+1)/2
-    chunk steps a layer), under pp in M microbatches with each stage
-    recomputed in the backward."""
-    reps = axes.get("tp", 1) * axes.get("dp", 1)
+def mesh_want(axes, M, L):
+    """Launches of each kernel a step summed over the ranks: each tp, ep
+    and dp replica runs the model's layers once (a causal ring over sp:
+    n(n+1)/2 chunk steps a layer), under pp in M microbatches with each
+    stage recomputed in the backward."""
+    reps = axes.get("tp", 1) * axes.get("ep", 1) * axes.get("dp", 1)
     n = axes.get("sp", 1)
     per = reps * L * n * (n + 1) // 2
     if "pp" in axes:
@@ -2370,15 +2395,15 @@ def tp_want(axes, M, L):
     return dict.fromkeys(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"), per)
 
 
-def tp_train_rank(seed, axes, M, moe, steps):
+def mesh_train_rank(seed, axes, M, moe, steps, batch_shape):
     """A warm-up and ``steps`` timed AdamW steps of GPT-2 124M (or its MoE)
-    at TP_TRAIN_BATCH over a mesh of ``axes``: losses, ms per step (CUDA
-    events), the transport's share of it and its bytes by kind, peak
+    at ``batch_shape`` (B, S) over a mesh of ``axes``: losses, ms per step
+    (CUDA events), the transport's share of it and its bytes by kind, peak
     memory, launches, hops and digests of the parameters after them."""
     set_precision()
     cfg = replace(gpt2.GPT2_SMALL, moe_experts=8 if moe else 0,
                   attention="ring" if "sp" in axes else "flash")
-    config, mesh, params, local, tokens = tp_setup(cfg, seed, TP_TRAIN_BATCH,
+    config, mesh, params, local, tokens = tp_setup(cfg, seed, batch_shape,
                                                    axes)
     del params
     batch = batch_shard(tokens, mesh)
@@ -2406,7 +2431,7 @@ def tp_train_rank(seed, axes, M, moe, steps):
                      for k, (a, b) in comm.split_ms().items()}
         launches = read_launches()
         c1 = transport_counts()
-        digests = tp_digests(config, mesh, local)
+        digests = mesh_digests(config, mesh, local)
     sent = {k: (v - c0[0].get(k, 0)) / steps for k, v in c1[0].items()
             if v != c0[0].get(k, 0)}
     return {"losses": [first] + [x.item() for x in out], "warm_s": warm_s,
@@ -2418,36 +2443,38 @@ def tp_train_rank(seed, axes, M, moe, steps):
             "where": {a: mesh.get_local_rank(a) for a in axes}}
 
 
-def tp_train(pool, seed, axes, M=1, moe=False):
-    """Phase 10's training in one layout; returns the launches of the
-    timed steps summed over the ranks."""
-    res = pool.run(tp_train_rank, seed, axes, M, moe, TP_STEPS)
+def mesh_train(pool, seed, axes, M=1, moe=False, phase="tp",
+               batch_shape=TP_TRAIN_BATCH, steps=TP_STEPS):
+    """Phases 10's and 11's training in one layout; returns the launches
+    of the timed steps summed over the ranks."""
+    res = pool.run(mesh_train_rank, seed, axes, M, moe, steps, batch_shape)
     r0 = res[0]
-    (B, S), L = TP_TRAIN_BATCH, gpt2.GPT2_SMALL.n_layer
+    (B, S), L = batch_shape, gpt2.GPT2_SMALL.n_layer
     tag = ("MoE " if moe else "") + " x ".join(
         f"{a}={n}" for a, n in axes.items()) + (" ring" if "sp" in axes
                                                 else "") \
         + (f" M={M}" if "pp" in axes else "")
     launches = {k: sum(r["launches"][k] for r in res)
                 for k in r0["launches"]}
-    want = {k: v * TP_STEPS for k, v in tp_want(axes, M, L).items()}
+    want = {k: v * steps for k, v in mesh_want(axes, M, L).items()}
     single_ms, single_gb = SINGLE_RANK_STEPS["moe" if moe else "gpt2"]
-    print(f"[tp] train {tag} B={B} S={S}: losses "
+    print(f"[{phase}] train {tag} B={B} S={S}: losses "
           f"{' '.join(f'{x:.4f}' for x in r0['losses'])} (warm-up "
           f"{r0['warm_s']:.2f} s); rank 0 {r0['ms']:.3f} ms per step (CUDA "
-          f"events over {TP_STEPS} steps), {B * S / (r0['ms'] / 1e3):.1f} "
-          f"tokens/s over the ranks (single-rank step, phase "
+          f"events over {steps} steps), {B * S / (r0['ms'] / 1e3):.1f} "
+          f"tokens/s over the ranks (single-rank step at B=16, phase "
           f"{6 if moe else 4}: {single_ms:.3f} ms, peak {single_gb:.2f} GB); "
           f"{len(res)} ranks share one card over gloo: these times measure "
-          f"correctness and the kernels' work at the tp shapes, not tp "
-          f"speed; card {card_line()}", flush=True)
+          f"correctness and the kernels' work at the ranks' shapes, not "
+          f"the speed of {phase}; card {card_line()}", flush=True)
     for rank, r in enumerate(res):
         comm, blocked = r["split"]["all"]
         kinds = ", ".join(f"{k} {a:.3f} ({b:.3f} blocked)"
                           for k, (a, b) in r["split"].items() if k != "all")
         sent = ", ".join(f"{k} {v / 1e6:.1f}" for k, v in
                          sorted(r["sent"].items()))
-        print(f"[tp]   rank {rank} {r['where']}: {r['ms']:.3f} ms per step "
+        print(f"[{phase}]   rank {rank} {r['where']}: {r['ms']:.3f} ms per "
+              f"step "
               f"= {r['ms'] - comm:.3f} with no transport call in flight "
               f"(host dispatch and idle gaps included) + {comm:.3f} with "
               f"one in flight (the union of the CUDA-event spans of the "
@@ -2464,12 +2491,12 @@ def tp_train(pool, seed, axes, M=1, moe=False):
                 r["digests"][kind])
         return all(len(d) == 1 for d in groups.values())
 
-    cut_equal = equal(0, lambda w: (w.get("pp"), w.get("tp")))
+    cut_equal = equal(0, lambda w: (w.get("pp"), w.get("tp"), w.get("ep")))
     blocks_equal = equal(1, lambda w: w.get("pp"))
     rest_equal = equal(2, lambda w: None)
-    print(f"[tp] train {tag}: launches over the ranks in {TP_STEPS} steps "
-          f"{launches} (want {want}); leaves cut on tp equal bit for bit "
-          f"across the replicas that hold them: {cut_equal}; replicated "
+    print(f"[{phase}] train {tag}: launches over the ranks in {steps} steps "
+          f"{launches} (want {want}); leaves cut on tp or ep equal bit for "
+          f"bit across the replicas that hold them: {cut_equal}; replicated "
           f"leaves equal bit for bit on every rank (stacked blocks: on "
           f"every rank of a stage): {rest_equal and blocks_equal}",
           flush=True)
@@ -2506,16 +2533,234 @@ def phase_tp(seed):
             if n == 2:
                 tp_check_gpt2(pool, seed)
                 tp_check_moe(pool, seed)
-                launches["tp2"] = tp_train(pool, seed, {"tp": 2})
-                launches["moe_tp2"] = tp_train(pool, seed, {"tp": 2},
-                                               moe=True)
+                launches["tp2"] = mesh_train(pool, seed, {"tp": 2})
+                launches["moe_tp2"] = mesh_train(pool, seed, {"tp": 2},
+                                                 moe=True)
             else:
-                launches["dp2_tp2"] = tp_train(pool, seed,
-                                               {"dp": 2, "tp": 2})
-                launches["tp2_sp2_ring"] = tp_train(pool, seed,
-                                                    {"sp": 2, "tp": 2})
-                launches["pp2_tp2_m4"] = tp_train(pool, seed,
-                                                  {"pp": 2, "tp": 2}, M=4)
+                launches["dp2_tp2"] = mesh_train(pool, seed,
+                                                 {"dp": 2, "tp": 2})
+                launches["tp2_sp2_ring"] = mesh_train(pool, seed,
+                                                      {"sp": 2, "tp": 2})
+                launches["pp2_tp2_m4"] = mesh_train(pool, seed,
+                                                    {"pp": 2, "tp": 2}, M=4)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the MoE across ranks (experts on ep; the global capacity under
+# dp and sp)
+# ---------------------------------------------------------------------------
+
+#: (B, S) of phase 11's checks and of its training
+EP_CHECK_BATCH = (4, 1024)
+EP_TRAIN_BATCH = (16, 1024)
+#: dp = 2 x ep = 2 trains at B = 8: at B = 16 its four ranks (8 rows and
+#: 4 experts each) stopped answering on an H100 80GB HBM3 (700.00 W), and
+#: a rank of dp = 2 at B = 16 peaks at 27.29 GB, one of ep = 2 at 31.74
+#: GB: four ranks of about 20 GB leave the card no room
+EP_DP_TRAIN_BATCH = (8, 1024)
+#: timed train steps a configuration of phase 11 takes after its warm-up
+EP_STEPS = 5
+
+
+def global_routes(mesh, mine, rows):
+    """The (L, T, k) expert choices of the global batch in its token order
+    (t = b S + s) from each rank's (L, T_rank, k) choices of its ``rows``
+    rows and positions: gathered over sp (the chunks of each row side by
+    side) and dp (the ranks' rows one after another)."""
+    L, _, k = mine.shape
+    every = mine.view(L, rows, -1, k)
+    if mesh_axis_size(mesh, "sp") > 1:
+        every = c10d.allgather(every, "sp", axis=2)
+    if mesh_axis_size(mesh, "dp") > 1:
+        every = c10d.allgather(every, "dp", axis=1)
+    return every.reshape(L, -1, k)
+
+
+def ep_check_rank(seed, axes, grads):
+    """The MoE (8 experts) at EP_CHECK_BATCH over ``axes`` against the
+    single-rank model on the same global batch, with the ranks' routes
+    replayed there if any part: the rank's logits (its rows and
+    positions), the dropped choices of each layer summed over the ranks
+    that hold other tokens, the share of token-choices that differ between
+    the ranks that hold the same tokens (ep, tp) and, with ``grads``, the
+    loss and every leaf's gradient (gathered over ep and tp; the reference's
+    on rank 0 only, where the card has room for one)."""
+    set_precision()
+    cfg = replace(gpt2.GPT2_SMALL, moe_experts=8,
+                  attention="ring" if "sp" in axes else "flash")
+    config, mesh, params, local, tokens = tp_setup(cfg, seed, EP_CHECK_BATCH,
+                                                   axes)
+    names = [n for n, _ in gpt2.named_leaves(params)]
+    batch = batch_shard(tokens, mesh)
+    if "sp" in axes:
+        batch = seq_shard(batch, mesh, overlap=1)
+    L, rows = cfg.n_layer, batch.shape[0]
+    with use_mesh(mesh):
+        with torch.no_grad(), moe_probe() as rec:
+            logits = gpt2.forward(local, batch[:, :-1], cfg)
+        mine = torch.stack(rec["idx"])                          # (L, T, k)
+        dropped = torch.stack(rec["dropped"])
+        for axis, _ in gpt2._token_axes(cfg):
+            dropped = c10d.allreduce(dropped, axis)
+        between = 0.0
+        for axis in ("ep", "tp"):
+            if axis in axes:
+                every = c10d.allgather(mine, axis, tiled=False)
+                between = max(between, (every != mine).float().mean().item())
+        routes = global_routes(mesh, mine, rows)
+        if grads:
+            with moe_probe() as loss_rec:
+                loss = gpt2.loss_fn(gpt2._cast_weights(local,
+                                                       cfg.compute_dtype),
+                                    {"tokens": batch}, cfg)
+            # the loss's own choices: of the weights cast to bf16
+            loss_routes = global_routes(mesh, torch.stack(loss_rec["idx"]),
+                                        rows)
+            loss.backward()
+            gpt2._sum_grads(local, cfg)
+            whole = gpt2.named_leaves(gather_params(grad_tree(local), config,
+                                                    mesh))
+    ref_cfg = replace(cfg, attention="flash")
+    with torch.no_grad(), moe_probe() as ref_rec:
+        ref = gpt2.forward(params, tokens[:, :-1], ref_cfg)
+    parted = (torch.stack(ref_rec["idx"]) != routes).float().mean().item()
+    if parted:
+        with torch.no_grad(), pinned_routes(list(routes)), \
+                moe_probe() as ref_rec:
+            ref = gpt2.forward(params, tokens[:, :-1], ref_cfg)
+    ref_dropped = torch.stack(ref_rec["dropped"])
+    ref = batch_shard(ref, mesh)
+    if "sp" in axes:
+        ref = seq_shard(ref, mesh)
+    out = {"shape": tuple(logits.shape),
+           "finite": bool(torch.isfinite(logits).all()),
+           "logits_err": (logits - ref).abs().max().item(),
+           "between": between, "parted": parted,
+           "dropped": dropped.tolist(), "ref_dropped": ref_dropped.tolist()}
+    del logits, ref
+    if grads:
+        out["loss"] = loss.item()
+        h = hashlib.sha256()
+        for _, g in whole:
+            h.update(g.float().contiguous().cpu().numpy())
+        out["grad_digest"] = h.hexdigest()
+        if dist.get_rank() == 0:
+            with moe_probe() as ref_rec:
+                out["ref_loss"], ref_grads = loss_and_grads(
+                    params, {"tokens": tokens}, ref_cfg)
+            out["loss_parted"] = (torch.stack(ref_rec["idx"]) != loss_routes
+                                  ).float().mean().item()
+            if out["loss_parted"]:
+                with pinned_routes(list(loss_routes)):
+                    out["ref_loss"], ref_grads = loss_and_grads(
+                        params, {"tokens": tokens}, ref_cfg)
+            out["rel"] = {name: ((g - r).norm() / r.norm()).item()
+                          for (name, g), r in zip(whole, ref_grads)}
+    return out
+
+
+def ep_check(pool, seed, axes, grads=False):
+    """Phase 11's check of one layout (``ep_check_rank``), printed and
+    held: logits with phase 3's gate, dropped choices equal to the
+    single-rank run's, no route parting between the ranks that hold the
+    same tokens, and with ``grads`` the loss and gradients with phase 6's
+    gates."""
+    res = pool.run(ep_check_rank, seed, axes, grads)
+    B, S = EP_CHECK_BATCH
+    tag = " x ".join(f"{a}={n}" for a, n in axes.items()) + (
+        " ring" if "sp" in axes else "")
+    err = max(r["logits_err"] for r in res)
+    between = max(r["between"] for r in res)
+    r0 = res[0]
+    print(f"[ep] MoE (8 experts) {tag} B={B} S={S}: logits {r0['shape']} a "
+          f"rank vs the single-rank kernels' on the same global batch: max "
+          f"abs err {err:.4e} over the ranks (tol {LOGITS_TOL}); routed "
+          f"otherwise by the single-rank model {r0['parted']:.6f}"
+          + (" (replayed: the reference takes the ranks' choices)"
+             if r0["parted"] else " (no replay)")
+          + f"; share of token-choices that differ between the ranks holding "
+          f"the same tokens {between:.6f} (must be 0)", flush=True)
+    print(f"[ep] MoE {tag}: choices dropped at capacity per layer, summed "
+          f"over the ranks: {r0['dropped']}; single-rank run on the same "
+          f"global batch: {r0['ref_dropped']} (must be equal; a capacity "
+          f"over each rank's own tokens would drop others)", flush=True)
+    if any(r["shape"][:2] != (B // axes.get("dp", 1), S // axes.get("sp", 1))
+           or not r["finite"] for r in res) or err > LOGITS_TOL:
+        fail(f"MoE logits at {tag} malformed or apart")
+    if between:
+        fail(f"MoE {tag}: ranks that hold the same tokens routed them "
+             f"differently")
+    if any(r["dropped"] != r["ref_dropped"] for r in res):
+        fail(f"MoE {tag}: the dropped choices differ from the single-rank "
+             f"run's")
+    if not grads:
+        return
+    ref = res[0]  # the rank that ran the single-rank reference
+    d = abs(ref["loss"] - ref["ref_loss"])
+    worst = max(ref["rel"], key=ref["rel"].get)
+    same = len({r["grad_digest"] for r in res}) == 1
+    print(f"[ep] MoE {tag} B={B} S={S}: the loss's token-choices routed "
+          f"otherwise by the single-rank model {ref['loss_parted']:.6f}"
+          + (" (replayed)" if ref["loss_parted"] else " (no replay)")
+          + f"; loss {ref['loss']:.6f} vs the "
+          f"single-rank model {ref['ref_loss']:.6f}, |diff| {d:.3e} (tol "
+          f"{MOE_LOSS_TOL}); largest ||g - g_ref|| / ||g_ref|| over the "
+          f"{len(ref['rel'])} leaves (gathered over ep and tp, summed over dp "
+          f"and sp as the step sums them) {ref['rel'][worst]:.3e} at {worst} "
+          f"(tol {MOE_GRAD_REL_TOL}); median "
+          f"{sorted(ref['rel'].values())[len(ref['rel']) // 2]:.3e}; every "
+          f"rank's whole gradients equal bit for bit: {same}", flush=True)
+    if any(r["loss"] != ref["loss"] for r in res):
+        fail(f"MoE {tag}: the ranks' losses differ")
+    if d > MOE_LOSS_TOL or ref["rel"][worst] > MOE_GRAD_REL_TOL:
+        fail(f"MoE {tag}: loss or gradients disagree with the single-rank "
+             f"model")
+    if not same:
+        fail(f"MoE {tag}: the ranks' gathered gradients differ")
+
+
+def phase_ep(seed):
+    """The MoE across ranks that share the card (one gloo group): its
+    logits, dropped choices, loss and gradients at ep = 2, dp = 2, ring
+    sp = 2 and ep = 2 x tp = 2 against the single-rank model, then its
+    training at ep = 2, dp = 2, ring sp = 2, dp = 2 x ep = 2 (at B = 8),
+    ep = 2 x tp = 2 and pp = 2 x ep = 2 (M = 4).  Returns the launches of
+    the training runs, by layout."""
+    free_memory("ep")
+    launches = {}
+    for n in (2, 4):
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp, RankPool(
+                n, f"file://{tmp}/rendezvous", backend="gloo",
+                device="cuda:0", timeout_s=300.0) as pool:
+            print(f"[ep] {n} ranks on cuda:0 up in "
+                  f"{time.perf_counter() - t0:.2f} s; one gloo group: the "
+                  "expert outputs' all-gather over ep, the tokens' gradient "
+                  "sums over ep, and the routing counts' all-gathers and "
+                  "the aux's all-reduce over dp and sp", flush=True)
+            if n == 2:
+                ep_check(pool, seed, {"ep": 2}, grads=True)
+                ep_check(pool, seed, {"dp": 2})
+                ep_check(pool, seed, {"sp": 2})
+                for key, axes in (("moe_ep2", {"ep": 2}),
+                                  ("moe_dp2", {"dp": 2}),
+                                  ("moe_sp2_ring", {"sp": 2})):
+                    launches[key] = mesh_train(
+                        pool, seed, axes, moe=True, phase="ep",
+                        batch_shape=EP_TRAIN_BATCH, steps=EP_STEPS)
+            else:
+                ep_check(pool, seed, {"ep": 2, "tp": 2}, grads=True)
+                for key, axes, M, shape in (
+                        ("moe_dp2_ep2", {"dp": 2, "ep": 2}, 1,
+                         EP_DP_TRAIN_BATCH),
+                        ("moe_ep2_tp2", {"ep": 2, "tp": 2}, 1,
+                         EP_TRAIN_BATCH),
+                        ("moe_pp2_ep2_m4", {"pp": 2, "ep": 2}, 4,
+                         EP_TRAIN_BATCH)):
+                    launches[key] = mesh_train(
+                        pool, seed, axes, M, moe=True, phase="ep",
+                        batch_shape=shape, steps=EP_STEPS)
     return launches
 
 
@@ -2531,22 +2776,34 @@ def main():
     print(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}",
           flush=True)
-    phase_build()
-    phase_sm90_checks(args.seed)
-    kern = phase_kernels(args.seed)
-    bwd = phase_bwd_kernels(args.seed)
-    serve_launches = phase_serve(args.seed, args.profile)
-    train = phase_train(args.seed, args.profile)
-    llama_launches = phase_llama(args.seed, args.profile)
-    moe_serve, moe_train = phase_moe(args.seed, args.profile)
-    xl_train = phase_xl(args.seed, args.profile)
-    sp_runs = phase_sp(args.seed)
-    pp_runs = phase_pp(args.seed)
-    tp_runs = phase_tp(args.seed)
+    seconds = {}
+
+    def run(name, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        seconds[name] = round(time.perf_counter() - t0, 1)
+        print(f"[time] phase {name}: {seconds[name]} s", flush=True)
+        return out
+
+    run("1 build", phase_build)
+    run("1b sm90", phase_sm90_checks, args.seed)
+    kern = run("2 kernels", phase_kernels, args.seed)
+    bwd = run("2b backward kernels", phase_bwd_kernels, args.seed)
+    serve_launches = run("3 serve", phase_serve, args.seed, args.profile)
+    train = run("4 train", phase_train, args.seed, args.profile)
+    llama_launches = run("5 llama", phase_llama, args.seed, args.profile)
+    moe_serve, moe_train = run("6 moe", phase_moe, args.seed, args.profile)
+    xl_train = run("7 xl", phase_xl, args.seed, args.profile)
+    sp_runs = run("8 sp", phase_sp, args.seed)
+    pp_runs = run("9 pp", phase_pp, args.seed)
+    tp_runs = run("10 tp", phase_tp, args.seed)
+    ep_runs = run("11 ep", phase_ep, args.seed)
+    print(f"[time] phases: {seconds}; all {sum(seconds.values()):.1f} s",
+          flush=True)
     print(card_line())
     src = "ray_tpu/ops/flash_attention.py"
     trained = {"train": train, "moe_train": moe_train, "xl_train": xl_train,
-               **sp_runs, **pp_runs, **tp_runs}
+               **sp_runs, **pp_runs, **tp_runs, **ep_runs}
     paths = {
         "flash_fwd": {"serve": serve_launches, "llama": llama_launches,
                       "moe_serve": moe_serve},

@@ -49,7 +49,13 @@ that computed other terms of it, so every replica takes the same step.
 ``moe_experts > 0`` swaps every block's dense FFN for the top-k routed
 mixture of experts (``_moe_mlp``: the reference's capacity dispatch,
 computed with index gathers in place of its dense one-hot tensors), whose
-Switch load-balancing loss ``loss_fn`` adds.
+Switch load-balancing loss ``loss_fn`` adds.  Over ranks it computes the
+reference's function of the global batch: under dp and sp the capacity,
+the slot positions and the aux loss count every rank's tokens
+(``_moe_route``), though no token leaves its rank; on ``ep`` each rank
+holds its ``shard_params`` block of the experts, every ep rank routes the
+same tokens and runs its own experts, and their outputs are gathered over
+ep before the combine.
 
 Training: ``loss_fn`` (next-token cross-entropy through the dense tied
 head, or ``_chunked_xent`` over token chunks with ``xent_chunks > 0``) and
@@ -60,16 +66,15 @@ block (``torch.utils.checkpoint``), so the backward recomputes it.
 Gradients of attention go through the flash backward kernels on the card.
 
 Not ported yet, raising ``NotImplementedError`` (ROADMAP.md): the MoE FFN
-under sequence or data parallelism (the reference's capacity counts the
-global tokens), pipeline stages with ring or Ulysses attention, and a mesh
-with fsdp or ep over 1.
+under pipeline and data parallelism together (§A10b), pipeline stages with
+ring or Ulysses attention (§A11), and a mesh with fsdp over 1 (§A9c).
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -120,14 +125,6 @@ _SP = ("ring", "ulysses")
 def _check_ported(cfg: GPT2Config):
     if cfg.attention not in ("flash", "dense") + _SP:
         raise ValueError(f"unknown attention {cfg.attention!r}")
-    if cfg.moe_experts > 0 and cfg.attention in _SP:
-        # the reference routes with a capacity over the global tokens (one
-        # GSPMD program); routing each rank's tokens alone computes another
-        # function
-        raise NotImplementedError(
-            "the MoE FFN under sequence parallelism is not ported yet "
-            "(ROADMAP.md §A10: MoE with a capacity over tokens spread "
-            "across ranks)")
 
 
 def _sp_rank_and_size(cfg: GPT2Config):
@@ -140,11 +137,11 @@ def _sp_rank_and_size(cfg: GPT2Config):
     return (mesh.get_local_rank("sp") if n > 1 else 0), n
 
 
-def _tp_rank_and_size():
-    """(rank, ranks) on the bound mesh's tp axis; (0, 1) without one."""
+def _axis_rank_and_size(axis: str):
+    """(rank, ranks) on the bound mesh's ``axis``; (0, 1) without one."""
     mesh = get_mesh()
-    n = mesh_axis_size(mesh, "tp") if mesh is not None else 1
-    return (mesh.get_local_rank("tp") if n > 1 else 0), n
+    n = mesh_axis_size(mesh, axis) if mesh is not None else 1
+    return (mesh.get_local_rank(axis) if n > 1 else 0), n
 
 
 def _check_mesh(params, cfg: GPT2Config):
@@ -152,10 +149,10 @@ def _check_mesh(params, cfg: GPT2Config):
     parameters that are not the rank's shard of it."""
     mesh = get_mesh()
     shape = mesh_shape(mesh) if mesh is not None else {}
-    if any(shape.get(a, 1) > 1 for a in ("fsdp", "ep")):
+    if shape.get("fsdp", 1) > 1:
         raise NotImplementedError(
-            "a mesh with fsdp or ep over 1 is not ported yet "
-            "(ROADMAP.md §A9b: ep, §A9c: fsdp)")
+            "a mesh with fsdp over 1 is not ported yet (ROADMAP.md §A9c: "
+            "fsdp)")
     tp = shape.get("tp", 1)
     if cfg.n_head % tp:
         raise ValueError(
@@ -166,13 +163,27 @@ def _check_mesh(params, cfg: GPT2Config):
             f"wte holds {rows} rows: vocab_size {cfg.vocab_size} over tp "
             f"{tp} needs vocab_size / tp each (shard_params gives a rank its "
             f"shard)")
-    if cfg.moe_experts > 0 and shape.get("dp", 1) > 1:
-        # as under sp: the reference routes with a capacity over the
-        # global microbatch's tokens
+    n, ep = cfg.moe_experts, shape.get("ep", 1)
+    if n > 0:
+        if n % ep:
+            raise ValueError(
+                f"moe_experts {n} does not divide by the ep axis size {ep}")
+        wi = (params["blocks"]["moe"]["wi"][0] if "blocks" in params
+              else params["h_0"]["moe"]["wi"])
+        if wi.shape[0] * ep != n:
+            raise ValueError(
+                f"wi holds {wi.shape[0]} experts: moe_experts {n} over ep "
+                f"{ep} needs moe_experts / ep each (shard_params gives a "
+                f"rank its shard)")
+    if n > 0 and "blocks" in params and shape.get("dp", 1) > 1:
+        # the reference's microbatch m is the global rows [m B/M, (m+1) B/M),
+        # routed with one capacity over every dp rank's share of them; the
+        # port's microbatch m on dp rank d is a block of d's own rows
+        # (batch_shard), which routes other tokens together
         raise NotImplementedError(
-            "the MoE FFN under data parallelism is not ported yet "
-            "(ROADMAP.md §A10: MoE with a capacity over tokens spread "
-            "across ranks)")
+            "the MoE FFN under pipeline and data parallelism together is not "
+            "ported yet (ROADMAP.md §A10b: the reference's microbatches are "
+            "blocks of the global rows, the port's blocks of a dp rank's)")
     if "blocks" in params and cfg.attention in _SP:
         raise NotImplementedError(
             "pipeline stages with ring or Ulysses attention are not ported "
@@ -326,7 +337,7 @@ def _row_linear(x, p, tp: int):
 
 def _attention(x, p, cfg: GPT2Config):
     B, S, _ = x.shape
-    rank, tp = _tp_rank_and_size()
+    rank, tp = _axis_rank_and_size("tp")
     H, D = cfg.n_head // tp, cfg.head_dim  # the rank's heads
     qkv = _linear(_copy_to_tp(x, tp), _column_shard(p["c_attn"], rank, tp,
                                                     fused_qkv=True))
@@ -347,7 +358,7 @@ def _attention(x, p, cfg: GPT2Config):
 
 
 def _mlp(x, p):
-    rank, tp = _tp_rank_and_size()
+    rank, tp = _axis_rank_and_size("tp")
     h = F.gelu(_linear(_copy_to_tp(x, tp), _column_shard(p["c_fc"], rank,
                                                          tp)),
                approximate="tanh")
@@ -387,7 +398,83 @@ def _top_k(probs, k):
     return torch.sort(probs, dim=-1, descending=True, stable=True)[1][:, :k]
 
 
-def _moe_route(xt, router, cfg: GPT2Config):
+def _token_axes(cfg: GPT2Config) -> List[Tuple[str, int]]:
+    """[(axis, size)] of the bound mesh's axes over which the global
+    batch's tokens are spread: dp (rows, ``batch_shard``) and, under ring
+    or Ulysses attention, sp (positions, ``seq_shard``).  Sizes of 1 are
+    left out."""
+    mesh = get_mesh()
+    if mesh is None:
+        return []
+    shape = mesh_shape(mesh)
+    names = ["dp"] + (["sp"] if cfg.attention in _SP else [])
+    return [(a, shape[a]) for a in names if shape.get(a, 1) > 1]
+
+
+class _Routes(NamedTuple):
+    probs: torch.Tensor   # (T, n) f32 router probabilities
+    gate: torch.Tensor    # (T, k) f32 gate values
+    idx: torch.Tensor     # (T, k) expert choices
+    pos: torch.Tensor     # (T, k) slots in the global order
+    capacity: int         # slots an expert, over the global tokens
+    local: torch.Tensor   # (T, k) slots among the rank's own choices
+    first: torch.Tensor   # (n,) global count of choice 0 of each expert
+    tokens: int           # global token count
+
+
+def _routes(xt, router, cfg: GPT2Config, rows: int) -> _Routes:
+    """``_moe_route``'s work, with what ``_moe_mlp`` also needs: each
+    choice's slot among the rank's own choices and the global count of
+    choice 0 per expert."""
+    T = xt.shape[0]
+    k, n = cfg.moe_top_k, cfg.moe_experts
+    probs = torch.softmax((xt @ router.to(xt.dtype)).float(), dim=-1)
+    idx = _top_k(probs, k)
+    gate = probs.gather(1, idx)
+    gate = gate / (gate.sum(-1, keepdim=True) + 1e-9)
+    axes = _token_axes(cfg)
+    tokens = T * math.prod(size for _, size in axes)
+    capacity = max(k, int(cfg.moe_capacity_factor * tokens * k / n))
+    # (k, n, rows, S), tokens innermost: a cumsum over the outer dim of
+    # (T, k, n) scans 16 columns of 16,384 rows, 14% of the MoE train step
+    # at B=16, S=1024 on an H100
+    onehot = F.one_hot(idx.T, n).transpose(1, 2).contiguous().view(
+        k, n, rows, T // rows)
+    within = (onehot.cumsum(-1) - 1).view(k, n, T).gather(
+        1, idx.T[:, None])[:, 0]                                # (k, T)
+    tok = idx.T.reshape(k, rows, -1)
+
+    def slots(counts, d, r):
+        """Each choice's slot, given the (n_dp, n_sp, rows, k, n) counts of
+        every chunk (a row's positions on one rank) and this rank's
+        coordinates: chunks run in global token order (row major, then the
+        sp ranks' chunks of the row), choice 0 of every token first."""
+        flat = counts.transpose(1, 2).reshape(-1, k, n)
+        total = flat.sum(0)
+        before = (flat.cumsum(0) - flat).view(
+            counts.shape[0], rows, counts.shape[1], k, n)[d, :, r]
+        off = before + (total.cumsum(0) - total)                # (rows, k, n)
+        return (within + off.permute(1, 0, 2).gather(2, tok).reshape(k, T)
+                ).T, total
+
+    mine = onehot.sum(-1).permute(2, 0, 1)[None, None]   # (1, 1, rows, k, n)
+    local, total = slots(mine, 0, 0)
+    pos, d, r = local, 0, 0
+    if axes:
+        mesh, spread = require_mesh(), dict(axes)
+        every = mine[0]
+        if "sp" in spread:
+            every = _all_gather(every, mesh.get_group("sp"), 0)
+            r = mesh.get_local_rank("sp")
+        every = every[None]
+        if "dp" in spread:
+            every = _all_gather(every, mesh.get_group("dp"), 0)
+            d = mesh.get_local_rank("dp")
+        pos, total = slots(every, d, r)
+    return _Routes(probs, gate, idx, pos, capacity, local, total[0], tokens)
+
+
+def _moe_route(xt, router, cfg: GPT2Config, rows: int = 1):
     """Top-k routing with capacity, as the reference computes it.  xt (T,
     E) -> (probs (T, n) f32, gate (T, k) f32, idx (T, k), pos (T, k),
     capacity): each token's experts in order of probability (ties: lower
@@ -395,22 +482,19 @@ def _moe_route(xt, router, cfg: GPT2Config):
     sum + 1e-9, and each choice's slot in its expert's buffer.  Slots go to
     choice 0 of every token in token order, then choice 1, ...: a choice's
     position counts the earlier tokens with the same expert at that choice
-    and every token's earlier choices of it."""
-    T = xt.shape[0]
-    k, n = cfg.moe_top_k, cfg.moe_experts
-    probs = torch.softmax((xt @ router.to(xt.dtype)).float(), dim=-1)
-    idx = _top_k(probs, k)
-    gate = probs.gather(1, idx)
-    gate = gate / (gate.sum(-1, keepdim=True) + 1e-9)
-    capacity = max(k, int(cfg.moe_capacity_factor * T * k / n))
-    # (k, n, T), tokens innermost: a cumsum over the outer dim of (T, k, n)
-    # scans 16 columns of 16,384 rows, 14% of the MoE train step at B=16,
-    # S=1024 on an H100
-    onehot = F.one_hot(idx.T, n).transpose(1, 2).contiguous()
-    per_choice = onehot.sum(-1)                                 # (k, n)
-    earlier = (per_choice.cumsum(0) - per_choice)[..., None]
-    pos = (onehot.cumsum(-1) - 1 + earlier).gather(1, idx.T[:, None])[:, 0]
-    return probs, gate, idx, pos.T, capacity
+    and every token's earlier choices of it.
+
+    Over ranks (``_token_axes``: dp, and sp under ring or Ulysses) xt is
+    the rank's ``rows`` rows of tokens (each its positions of a row) and
+    the routing is the reference's over the global batch, of T x ranks
+    tokens in the order t = b S + s: the capacity counts every token, and a
+    position counts every earlier token of the global order.  Each rank
+    counts its choices per (row, choice, expert), all-gathers those counts
+    over sp and dp (a few kB, integers) and takes the exclusive prefix of
+    every chunk's counts in global order: under dp a rank's rows follow
+    the earlier ranks' rows, under sp the ranks' chunks of each row
+    interleave row by row.  Without such axes ``rows`` changes nothing."""
+    return _routes(xt, router, cfg, rows)[:5]
 
 
 def _moe_mlp(x, p, cfg: GPT2Config):
@@ -420,47 +504,84 @@ def _moe_mlp(x, p, cfg: GPT2Config):
     choice dropped gets y = 0).  The reference builds (T, k, n, C) one-hot
     dispatch and combine tensors (6.4 GB a layer at B=16, S=1024, 8
     experts); here the same function runs on index maps: each expert's
-    (C, E) buffer gets its tokens' rows copied exactly (empty slots zero),
-    the expert products are batched matmuls over every slot as there, and
+    buffer gets its tokens' rows copied exactly (empty slots zero), the
+    expert products are batched matmuls over every slot as there, and
     each token sums its kept choices' outputs, weighted by the gate value
     rounded to ``x.dtype``.
+
+    Over dp and sp ranks (``_moe_route``) the capacity, the positions and
+    the aux are global, but no token crosses ranks: the expert FFN works
+    row by row, so a rank computes its own kept choices only.  A rank's
+    buffer holds C = min(capacity, T k) slots an expert (T: the rank's
+    tokens), a number it knows without a host sync: its kept choices of an
+    expert come first in its own order, so each takes the slot of its
+    position among the rank's choices (``_Routes.local``), and there are at
+    most T k of them.  At B=16, S=1024 over dp = 2 that is the capacity
+    itself, as on one rank.  The aux's ``frac`` comes from the choice-0
+    counts summed over the ranks (integers, no gradient), its
+    ``importance`` from the rank's probability sums summed with
+    ``c10d.allreduce``, whose backward hands each rank the whole
+    cotangent: each rank gets its own tokens' share of the router
+    gradient, and ``_sum_grads``' sum over dp and sp makes it whole.
 
     Under tp the experts' hidden dim is cut (``wi``'s columns, ``wo``'s
     rows) and the router is whole: x is the same on every tp rank, so
     every rank routes the same tokens to the same slots, the expert
-    products are local and their (n C, E) outputs are summed over tp
-    ("g") before the combine.  Nothing after that sum is partial, so the
-    gate values, the router and the aux need no sum; the (T, E) combined
-    output would be a third of the bytes but would leave the gate values'
-    gradients partial.  The tokens enter the expert products through "f",
-    the router's input does not."""
+    products are local and their outputs are summed over tp ("g") before
+    the combine.  Under ep each rank holds n / ep experts (the leading dim
+    of ``wi``/``wo``); x is the same on every ep rank, which routes as
+    every other, fills and runs its experts' buffers, and all-gathers the
+    (n / ep C, E) outputs over ep (after the tp sum) into the whole (n C,
+    E), whose backward hands each rank its own block of the cotangent
+    (``_GatherWhole``: the loss is the same on every ep rank, so a
+    reduce-scatter would count it ep times).  Nothing after the gather is
+    partial, so the gate values, the router and the aux need no sum; the
+    (T, E) combined output, summed over ep and tp, would be a third of the
+    bytes but would leave the gate values' and the router's gradients
+    partial.  The tokens enter the expert products through "f" over tp and
+    ep (each rank adds the cotangent of its own experts' rows and hidden
+    columns), the router's input does not."""
     B, S, E = x.shape
     T = B * S
     k, n = cfg.moe_top_k, cfg.moe_experts
-    _, tp = _tp_rank_and_size()
+    _, tp = _axis_rank_and_size("tp")
+    ep_rank, ep = _axis_rank_and_size("ep")
     xt = x.reshape(T, E)
-    probs, gate, idx, pos, C = _moe_route(xt, p["router"]["kernel"], cfg)
-    keep = pos < C
-    slot = torch.where(keep, idx * C + pos, n * C)              # (T, k)
+    r = _routes(xt, p["router"]["kernel"], cfg, B)
+    keep = r.pos < r.capacity
+    C = min(r.capacity, T * k)
+    slot = torch.where(keep, r.idx * C + r.local, n * C)       # (T, k)
     # the choice (t * k + j) each slot holds, T * k where it is empty
     owner = torch.full((n * C + 1,), T * k, dtype=slot.dtype,
                        device=x.device)
     owner[slot.reshape(-1)] = torch.arange(T * k, device=x.device)
     owner = owner[:n * C]
-    expert_in = _RowGather.apply(_copy_to_tp(xt, tp), owner // k,
-                                 slot)                          # (nC, E)
-    h = F.gelu(torch.bmm(expert_in.view(n, C, E), p["wi"].to(x.dtype)),
+    m = n // ep                                  # the rank's experts
+    lo = ep_rank * m * C
+    mine = torch.where((slot >= lo) & (slot < lo + m * C), slot - lo, m * C)
+    xe = _copy_to_tp(xt, tp)
+    if ep > 1:
+        xe = c10d.identity(xe, "ep")
+    expert_in = _RowGather.apply(xe, owner[lo:lo + m * C] // k,
+                                 mine)                          # (mC, E)
+    h = F.gelu(torch.bmm(expert_in.view(m, C, E), p["wi"].to(x.dtype)),
                approximate="tanh")
     out = torch.bmm(h, p["wo"].to(x.dtype))
     if tp > 1:
         out = c10d.allreduce(out, "tp")
-    out = out.view(n * C, E)
+    out = out.view(m * C, E)
+    if ep > 1:
+        out = _GatherWhole.apply(out, require_mesh().get_group("ep"), 0)
     picked = _RowGather.apply(out, slot, owner)                 # (T, k, E)
-    weight = (gate * keep).to(x.dtype)
+    weight = (r.gate * keep).to(x.dtype)
     y = (picked.float() * weight.float()[..., None]).sum(1).to(x.dtype)
-    # load-balancing aux (Switch eq. 4): fraction routed x router prob
-    frac = F.one_hot(idx[:, 0], n).float().mean(0)
-    aux = n * (frac * probs.mean(0)).sum()
+    # load-balancing aux (Switch eq. 4): fraction routed x router prob,
+    # both means over the global tokens
+    importance = r.probs.sum(0)
+    for axis, _ in _token_axes(cfg):
+        importance = c10d.allreduce(importance, axis)
+    frac = r.first.float() / r.tokens
+    aux = n * (frac * (importance / r.tokens)).sum()
     return y.reshape(B, S, E), aux
 
 
@@ -569,7 +690,7 @@ def _embed(wte, wpe, tokens, start: int):
     zeros for the others; the sum over tp ("g") has at most a token's and a
     position's row as nonzero terms, so it rounds their sum once: the whole
     lookup bit for bit."""
-    rank, tp = _tp_rank_and_size()
+    rank, tp = _axis_rank_and_size("tp")
     S = tokens.shape[-1]
     if tp == 1:
         return wte[tokens] + wpe[start:start + S][None]
@@ -578,21 +699,22 @@ def _embed(wte, wpe, tokens, start: int):
                           + _rows_in_block(wpe, pos, rank)[None], "tp")
 
 
-class _GatherVocab(torch.autograd.Function):
-    """The tp ranks' blocks of the logits side by side along the
-    vocabulary: a value every rank holds whole, so each rank's block takes
-    its own part of the (whole, same) cotangent, as ``_AllReduce`` hands
-    its input the cotangent whole."""
+class _GatherWhole(torch.autograd.Function):
+    """The ranks' blocks side by side along ``dim`` (the tp ranks' blocks
+    of the logits' vocabulary, the ep ranks' expert outputs): a value every
+    rank holds whole, so each rank's block takes its own part of the
+    (whole, same) cotangent, as ``_AllReduce`` hands its input the
+    cotangent whole."""
 
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.rank, ctx.n = group.rank(), group.size()
-        return _all_gather(x, group, x.dim() - 1)
+    def forward(ctx, x, group, dim):
+        ctx.rank, ctx.n, ctx.dim = group.rank(), group.size(), dim
+        return _all_gather(x, group, dim)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
-        return g.chunk(ctx.n, -1)[ctx.rank], None
+        return g.chunk(ctx.n, ctx.dim)[ctx.rank], None, None
 
 
 def _lm_head(x, wte):
@@ -613,11 +735,12 @@ def forward(params, tokens, cfg: GPT2Config, aux_acc=None,
     of the vocabulary, and the blocks are gathered over tp: every tp rank
     returns the whole vocabulary."""
     x = _trunk(params, tokens, cfg, aux_acc, pp_microbatches)
-    _, tp = _tp_rank_and_size()
+    _, tp = _axis_rank_and_size("tp")
     logits = _lm_head(_copy_to_tp(x, tp),
                       params["wte"]["embedding"].to(cfg.compute_dtype))
     if tp > 1:
-        logits = _GatherVocab.apply(logits, require_mesh().get_group("tp"))
+        logits = _GatherWhole.apply(logits, require_mesh().get_group("tp"),
+                                    logits.dim() - 1)
     return logits
 
 
@@ -703,7 +826,7 @@ def loss_fn(params, batch, cfg: GPT2Config, pp_microbatches: int = 2,
     axes = _loss_axes(params, cfg)
     ranks = math.prod(size for _, size in axes)
     wte = params["wte"]["embedding"].to(cfg.compute_dtype)
-    tp_rank, tp = _tp_rank_and_size()
+    tp_rank, tp = _axis_rank_and_size("tp")
     x = _copy_to_tp(x, tp)
     vocab_lo = tp_rank * wte.shape[0] if tp > 1 else None
     if xent_chunks > 0:
@@ -790,12 +913,15 @@ def _sum_grads(params, cfg: GPT2Config):
     Over tp only the biases of which each rank adds a slice (``c_attn``'s
     and ``c_fc``'s: zero elsewhere, so the sum is exact); every other
     leaf's gradient is already whole and the same bits on every tp rank,
-    the residual stream's cotangent being summed by each "f".  A leaf with
-    no gradient (wpe beyond stage 0) counts as zeros."""
+    the residual stream's cotangent being summed by each "f".  Over ep
+    nothing: a rank's experts' gradients are its own, and every other
+    leaf's is whole on every ep rank, the expert outputs being gathered
+    before the combine.  A leaf with no gradient (wpe beyond stage 0)
+    counts as zeros."""
     sums = [(axis, lambda name, a=axis: a != "pp"
              or not name.startswith("blocks/"))
             for axis, _ in _loss_axes(params, cfg)]
-    if _tp_rank_and_size()[1] > 1:
+    if _axis_rank_and_size("tp")[1] > 1:
         sums.append(("tp", lambda name: name.endswith(_TP_SLICED)))
     if not sums:
         return

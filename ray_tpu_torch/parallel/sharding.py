@@ -19,12 +19,13 @@ data: ``batch_shard`` cuts a rank's rows on the "batch" rule (dp, fsdp),
 ``seq_shard`` its sequence chunk on sp.  ``shard_params`` gives a rank its
 local parameters: a leaf whose spec names ``pp`` (the "stage" dim of
 pipeline-stacked blocks) is narrowed to the rank's layers, a dim on ``tp``
-("heads", "mlp", "vocab") to the rank's block of it, and a leaf replicated
-on every axis comes back whole; ``param_shardings`` gives every leaf's
-spec, and ``gather_params`` the whole leaves back from the ranks' shards
-(what reading a global ``jax.Array`` gives).  Placing parameters on fsdp or
-ep raises ``NotImplementedError``, and so do ``named_sharding`` and
-``constraint``, which nothing of the port needs.
+("heads", "mlp", "vocab") or ``ep`` (the MoE "expert" dim) to the rank's
+block of it, and a leaf replicated on every axis comes back whole;
+``param_shardings`` gives every leaf's spec, and ``gather_params`` the
+whole leaves back from the ranks' shards (what reading a global
+``jax.Array`` gives).  Placing parameters on fsdp raises
+``NotImplementedError``, and so do ``named_sharding`` and ``constraint``,
+which nothing of the port needs.
 """
 
 from __future__ import annotations
@@ -51,8 +52,8 @@ DEFAULT_RULES: Dict[str, Any] = {
     None: None,
 }
 
-_PLACEMENT = ("placing tensors on the fsdp or ep axis is not ported yet "
-              "(ROADMAP.md §A9b: ep, §A9c: fsdp)")
+_PLACEMENT = ("placing tensors on the fsdp axis is not ported yet "
+              "(ROADMAP.md §A9c: fsdp)")
 _NAMED = ("named_sharding and constraint are not ported (ROADMAP.md §A9c: "
           "nothing of the port places a tensor by them yet)")
 
@@ -170,8 +171,8 @@ def infer_param_logical_dims(path: Tuple[str, ...], shape: Tuple[int, ...]):
 def _leaf_specs(params, config: ShardingConfig, mesh: DeviceMesh,
                 path=()):
     """{name: (leaf, spec, path)} over the nested dicts, with the spec of
-    each leaf's inferred logical dims; raises for a spec that names fsdp or
-    ep."""
+    each leaf's inferred logical dims; raises for a spec that names
+    fsdp."""
     if isinstance(params, dict):
         return {k: _leaf_specs(v, config, mesh, path + (k,))
                 for k, v in params.items()}
@@ -179,7 +180,7 @@ def _leaf_specs(params, config: ShardingConfig, mesh: DeviceMesh,
     spec = config.spec(mesh, *dims)
     named = {a for part in spec if part is not None
              for a in (part if isinstance(part, tuple) else (part,))}
-    if named & {"fsdp", "ep"}:
+    if "fsdp" in named:
         raise NotImplementedError(f"{'/'.join(path)}: {_PLACEMENT}")
     return params, spec, path
 
@@ -212,9 +213,11 @@ def shard_params(params, config: ShardingConfig, mesh: DeviceMesh):
     (the "stage" dim of ``blocks``) is narrowed to the rank's n_layer / pp
     consecutive layers, a dim on ``tp`` to the rank's contiguous block of
     it (the rows of wte and wpe, ``c_fc``'s columns, both ``c_proj``'s
-    rows, the MoE ``wi``/``wo`` hidden dim): JAX's device shard at the same
-    mesh coordinates.  One exception, by design: the fused (E, 3E) ``c_attn``
-    kernel, whose columns are [q | k | v], is cut by heads.  tp rank t
+    rows, the MoE ``wi``/``wo`` hidden dim), the MoE ``wi``/``wo`` expert
+    dim on ``ep`` to the rank's n / ep consecutive experts: JAX's device
+    shard at the same mesh coordinates.  One exception, by design: the
+    fused (E, 3E) ``c_attn`` kernel, whose columns are [q | k | v], is cut
+    by heads.  tp rank t
     holds [q_t | k_t | v_t], q_t the columns [t E/tp, (t+1) E/tp) of the q
     block and the same of k and v, so its (E, 3E/tp) leaf splits into its
     heads' q, k and v as the whole leaf does; JAX's shard is 3E/tp
@@ -222,7 +225,7 @@ def shard_params(params, config: ShardingConfig, mesh: DeviceMesh):
     ``param_shardings`` still gives JAX's spec.  Every cut is a copy; a
     leaf replicated on every axis comes back whole, the given tensor.
     Raises ``ValueError`` for a dim that does not divide by its axis (as
-    ``device_put`` does), ``NotImplementedError`` for fsdp and ep."""
+    ``device_put`` does), ``NotImplementedError`` for fsdp."""
     shape = mesh_shape(mesh)
 
     def local(leaf, spec, path):
@@ -242,7 +245,7 @@ def shard_params(params, config: ShardingConfig, mesh: DeviceMesh):
                 c = _divisible(path, leaf, dim, 3 * n)
                 leaf = leaf.unflatten(dim, (3, n, c)).select(
                     dim + 1, r).flatten(dim, dim + 1).clone()
-            elif part == "tp":
+            elif part in ("tp", "ep"):
                 c = _divisible(path, leaf, dim, n)
                 leaf = leaf.narrow(dim, r * c, c).clone()
             else:  # dp and sp name no parameter dim
@@ -253,24 +256,26 @@ def shard_params(params, config: ShardingConfig, mesh: DeviceMesh):
 
 
 def gather_params(local, config: ShardingConfig, mesh: DeviceMesh):
-    """The whole leaves on every rank from each rank's tp shards (of
+    """The whole leaves on every rank from each rank's tp and ep shards (of
     parameters or of their gradients, named as the parameters): every dim
-    ``shard_params`` cut on tp all-gathered over the tp axis, the ``c_attn``
-    kernel put back from head order into [q | k | v].  What reading a
-    global ``jax.Array`` gives, for the port's tests and checks; a stage
-    cut on pp stays the rank's stage.  Every rank calls it together."""
+    ``shard_params`` cut on tp or ep all-gathered over that axis, the
+    ``c_attn`` kernel put back from head order into [q | k | v].  What
+    reading a global ``jax.Array`` gives, for the port's tests and checks;
+    a stage cut on pp stays the rank's stage.  Every rank calls it
+    together."""
     shape = mesh_shape(mesh)
-    if shape.get("tp", 1) == 1:
+    axes = [a for a in ("ep", "tp") if shape.get(a, 1) > 1]
+    if not axes:
         return local
-    group = mesh.get_group("tp")
+    groups = {a: mesh.get_group(a) for a in axes}
 
     def whole(leaf, spec, path):
         for dim, part in enumerate(spec):
-            if part != "tp":
+            if part not in groups:
                 continue
             with torch.no_grad():
-                full = _all_gather(leaf.detach(), group, dim)
-            if _fused_qkv(path):
+                full = _all_gather(leaf.detach(), groups[part], dim)
+            if part == "tp" and _fused_qkv(path):
                 n = shape["tp"]
                 full = full.unflatten(dim, (n, 3, -1)).transpose(
                     dim, dim + 1).flatten(dim, dim + 2)

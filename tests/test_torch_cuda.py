@@ -3,7 +3,9 @@ versions, a GPT-2 train step through them, a small Llama whose
 uncached forward runs the forward kernel, ring attention's steps and a
 two-rank ring (gloo, both ranks on the card) through them, a two-stage
 pipeline of both ranks on the card, a tp rank's heads as strided views of
-its qkv buffer, and a two-rank tensor-parallel GPT-2 forward.
+its qkv buffer, a two-rank tensor-parallel GPT-2 forward, and the MoE over
+two ranks: its experts on ep, and its routing with the global capacity
+under dp.
 
 Marked ``cuda``: every test skips where there is no CUDA device.  On a
 machine with one (no JAX needed, hence ``--noconftest``):
@@ -18,17 +20,19 @@ from dataclasses import replace
 import pytest
 import torch
 
-from chip_smoke import (G_PTOL, G_RTOL, LOGITS_TOL, TRAIN_GRAD_REL_TOL,
-                        TRAIN_LOSS_TOL, bwd_magnitudes, grad_tree,
-                        sp_attention_errors)
+from chip_smoke import (G_PTOL, G_RTOL, LOGITS_TOL, MOE_GRAD_REL_TOL,
+                        MOE_LOSS_TOL, TRAIN_GRAD_REL_TOL, TRAIN_LOSS_TOL,
+                        bwd_magnitudes, global_routes, grad_tree, moe_probe,
+                        pinned_routes, sp_attention_errors)
 from ray_tpu_torch import collective
 from ray_tpu_torch.models import gpt2, llama
 from ray_tpu_torch.ops import flash_attention as fa
 from ray_tpu_torch.parallel import ring_attention as ra
 from ray_tpu_torch.parallel.launch import RankPool
 from ray_tpu_torch.parallel.context import use_mesh
-from ray_tpu_torch.parallel.sharding import (ShardingConfig, gather_params,
-                                             seq_shard, shard_params)
+from ray_tpu_torch.parallel.sharding import (ShardingConfig, batch_shard,
+                                             gather_params, seq_shard,
+                                             shard_params)
 
 pytestmark = pytest.mark.cuda
 
@@ -743,3 +747,96 @@ def test_two_rank_gloo_pipeline_on_one_card(cuda, tmp_path, M):
         torch.testing.assert_close(got[2], w.grad.chunk(2)[r].cpu())
     torch.testing.assert_close(res[0][0][3], x.grad.cpu())
     assert res[1][0][3] is None
+
+
+#: the MoE of 4 experts at TP_TINY's widths, its capacity binding at B=4,
+#: S=128 (chip_smoke.py phase 11 checks GPT-2 124M's 8 experts)
+MOE_EP_TINY = replace(TP_TINY, moe_experts=4, moe_capacity_factor=0.75)
+
+
+def _moe_tokens():
+    return torch.arange(4 * 129, device="cuda").view(4, 129) * 7 % 512
+
+
+def _rank_moe(axes):
+    """A rank's logits (its rows), loss, every gradient (summed as the
+    train step sums them, gathered over ep), the expert choices of the
+    global batch in the forward and in the loss, and the forward's dropped
+    choices per layer summed over dp, on the host, for MOE_EP_TINY on
+    cuda:0."""
+    config = ShardingConfig(**axes)
+    mesh = config.build_mesh()
+    params = gpt2.init_params(torch.Generator(device="cuda").manual_seed(5),
+                              MOE_EP_TINY)
+    local = shard_params(params, config, mesh)
+    for leaf in gpt2.param_leaves(local):
+        leaf.requires_grad_(True)
+    batch = batch_shard(_moe_tokens(), mesh)
+    with use_mesh(mesh):
+        with torch.no_grad(), moe_probe() as rec:
+            logits = gpt2.forward(local, batch[:, :-1], MOE_EP_TINY)
+        dropped = torch.stack(rec["dropped"])
+        if "dp" in axes:
+            dropped = collective.c10d.allreduce(dropped, "dp")
+        with moe_probe() as loss_rec:
+            loss = gpt2.loss_fn(gpt2._cast_weights(
+                local, MOE_EP_TINY.compute_dtype), {"tokens": batch},
+                MOE_EP_TINY)
+        # the forward's choices, then the loss's (of the cast weights)
+        routes = global_routes(mesh, torch.stack(rec["idx"] + loss_rec[
+            "idx"]), batch.shape[0])
+        between = (collective.c10d.allgather(routes, "ep", tiled=False)
+                   != routes).any().item() if "ep" in axes else False
+        loss.backward()
+        gpt2._sum_grads(local, MOE_EP_TINY)
+        grads = gather_params(grad_tree(local), config, mesh)
+    return (logits.cpu(), loss.item(), [g.cpu() for g in
+                                        gpt2.param_leaves(grads)],
+            routes.cpu(), dropped.tolist(), between)
+
+
+def _moe_reference(routes):
+    """The single-rank MoE on the card with ``routes`` (the forward's,
+    then the loss's) replayed: logits, loss, every gradient and the
+    forward's dropped choices per layer."""
+    params = gpt2.init_params(torch.Generator(device="cuda").manual_seed(5),
+                              MOE_EP_TINY)
+    for leaf in gpt2.param_leaves(params):
+        leaf.requires_grad_(True)
+    tokens = _moe_tokens()
+    with pinned_routes([r.cuda() for r in routes]), moe_probe() as rec:
+        with torch.no_grad():
+            logits = gpt2.forward(params, tokens[:, :-1], MOE_EP_TINY)
+        loss = gpt2.loss_fn(gpt2._cast_weights(params,
+                                               MOE_EP_TINY.compute_dtype),
+                            {"tokens": tokens}, MOE_EP_TINY)
+        loss.backward()
+    return (logits.cpu(), loss.item(),
+            [t.grad.cpu() for t in gpt2.param_leaves(params)],
+            torch.stack(rec["dropped"][:MOE_EP_TINY.n_layer]).tolist())
+
+
+@pytest.mark.parametrize("axes", [{"ep": 2}, {"dp": 2}], ids=["ep2", "dp2"])
+def test_two_rank_moe_on_one_card(cuda, tmp_path, axes):
+    """The MoE at ep = 2 (two experts a rank) and at dp = 2 (two rows a
+    rank, routed with the capacity of the global batch) on two ranks of
+    cuda:0 (gloo), against the single-rank kernels with the ranks' expert
+    choices replayed, with chip_smoke.py phase 11's gates: the logits (each
+    rank's rows), the loss and every gradient (gathered over ep); no choice
+    differs between the ep ranks; the choices dropped in each layer, summed
+    over the ranks, equal the single-rank run's."""
+    with RankPool(2, f"file://{tmp_path}/rendezvous", backend="gloo",
+                  device="cuda:0", timeout_s=120.0) as pool:
+        res = pool.run(_rank_moe, axes)
+    logits, loss, grads, dropped = _moe_reference(list(res[0][3]))
+    assert sum(dropped) > 0
+    for r, (got, got_loss, got_grads, routes, got_dropped, between) in \
+            enumerate(res):
+        rows = logits.chunk(2)[r] if "dp" in axes else logits
+        assert not between and torch.equal(routes, res[0][3])
+        assert got.shape == rows.shape
+        assert (got - rows).abs().max().item() <= LOGITS_TOL
+        assert got_dropped == dropped
+        assert abs(got_loss - loss) <= MOE_LOSS_TOL
+        for g, ref in zip(got_grads, grads):
+            assert ((g - ref).norm() / ref.norm()).item() <= MOE_GRAD_REL_TOL

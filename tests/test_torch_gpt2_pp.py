@@ -336,22 +336,26 @@ def test_pipelined_moe_matches_jax_pipeline(pool):
     _check(results, want, axes, M, "f32")
 
 
-def _rank_raises(case):
-    """The exception a case raises on a 2-rank mesh: (type name, message)."""
-    import torch.distributed as dist
+#: the mesh of each case of ``_rank_raises``
+RAISE_AXES = {"moe_pp_dp": {"pp": 2, "dp": 2}, "pp_ring": {"pp": 2},
+              "pp_ulysses": {"pp": 2}, "fsdp": {"fsdp": 2},
+              "tp_heads": {"tp": 2}, "tp_whole": {"tp": 2},
+              "ep_experts": {"ep": 2}, "ep_whole": {"ep": 2},
+              "batch_vs_M": {"pp": 2}, "layers_vs_pp": {"pp": 2},
+              "whole_stack": {"pp": 2}}
 
-    n = dist.get_world_size()
+
+def _rank_raises(case):
+    """The exception a case raises on its mesh: (type name, message)."""
     tokens = torch.zeros((4, 9), dtype=torch.long)
     cfg = replace(tg.GPT2_TINY, n_layer=4)
-    axes = {"moe_dp": {"dp": n}, "pp_ring": {"pp": n},
-            "pp_ulysses": {"pp": n}, "fsdp": {"fsdp": n},
-            "tp_heads": {"tp": n}, "tp_whole": {"tp": n},
-            "batch_vs_M": {"pp": n}, "layers_vs_pp": {"pp": n},
-            "whole_stack": {"pp": n}}[case]
+    axes = RAISE_AXES[case]
     config = ShardingConfig(**axes)
     mesh = config.build_mesh(device_type="cpu")
-    if case == "moe_dp":
+    if case in ("moe_pp_dp", "ep_whole"):
         cfg = replace(cfg, moe_experts=4)
+    if case == "ep_experts":
+        cfg = replace(cfg, moe_experts=3)
     if case == "pp_ring":
         cfg = replace(cfg, attention="ring")
     if case == "pp_ulysses":
@@ -364,7 +368,8 @@ def _rank_raises(case):
     try:
         if "pp" in axes:
             params = tg.to_pipeline_params(params, cfg)
-        if case not in ("whole_stack", "tp_whole"):
+        if case not in ("whole_stack", "tp_whole", "ep_experts",
+                        "ep_whole"):
             params = shard_params(params, config, mesh)
         with use_mesh(mesh):
             tg.loss_fn(params, {"tokens": tokens}, cfg,
@@ -374,12 +379,15 @@ def _rank_raises(case):
     return None
 
 
-RAISES = {"moe_dp": ("NotImplementedError", "A10"),
+RAISES = {"moe_pp_dp": ("NotImplementedError", "A10b"),
           "pp_ring": ("NotImplementedError", "A11: pp composed with sp"),
           "pp_ulysses": ("NotImplementedError", "A11: pp composed with sp"),
-          "fsdp": ("NotImplementedError", "ROADMAP"),
+          "fsdp": ("NotImplementedError", "A9c"),
           "tp_heads": ("ValueError", "n_head 1 does not divide by the tp"),
           "tp_whole": ("ValueError", "shard_params"),
+          "ep_experts": ("ValueError",
+                         "moe_experts 3 does not divide by the ep axis"),
+          "ep_whole": ("ValueError", "shard_params"),
           "batch_vs_M": ("ValueError", "num_microbatches 3"),
           "layers_vs_pp": ("ValueError", "do not divide by the pp axis"),
           "whole_stack": ("ValueError", "shard_params")}
@@ -388,7 +396,8 @@ RAISES = {"moe_dp": ("NotImplementedError", "A10"),
 @pytest.mark.parametrize("case", list(RAISES))
 def test_what_is_not_ported_raises(pool, case):
     kind, match = RAISES[case]
-    for got in pool(2).run(_rank_raises, case):
+    n = int(np.prod(list(RAISE_AXES[case].values())))
+    for got in pool(n).run(_rank_raises, case):
         assert got is not None and got[0] == kind and match in got[1], got
 
 

@@ -256,16 +256,16 @@ def test_loss_grads_and_adamw_steps_match_jax(pool, attention, n, cfg_name,
                                    atol=PARAM_ATOL[dtype], err_msg=name)
 
 
-def test_moe_under_sp_raises():
-    tokens = torch.zeros((1, 4), dtype=torch.long)
-    for attention in ("ring", "ulysses"):
-        cfg = replace(tg.GPT2_TINY, attention=attention, moe_experts=4)
-        with pytest.raises(NotImplementedError, match="MoE"):
-            tg.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
-        params = tg.init_params(torch.Generator().manual_seed(0),
-                                tg.GPT2_TINY, "cpu")
-        with pytest.raises(NotImplementedError, match="MoE"):
-            tg.forward(params, tokens, cfg)
+@pytest.mark.parametrize("attention", ["ring", "ulysses"])
+def test_moe_under_sp_matches_jax(pool, attention):
+    """The MoE (4 experts, 4 heads, 4 layers) at sp = 2: each rank routes
+    its chunk of every sequence with the capacity, slot positions and aux
+    of the global batch; logits, loss, every gradient and 3 AdamW steps
+    against JAX's model on an sp mesh, f32, with choices dropped at
+    capacity on both ranks (tests/test_torch_gpt2_ep.py's ``_run_moe``)."""
+    from test_torch_gpt2_ep import _run_moe
+
+    _run_moe(pool, {"sp": 2}, attention)
 
 
 def test_sp_attention_needs_a_bound_mesh():

@@ -24,9 +24,11 @@ from test_torch_gpt2_pp import pool  # noqa: F401 - the ranks' fixture
 
 
 def _run(pool, axes, dtype, attention="dense", M=2, chunks=0,
-         jax_axes=None, **cfg):
-    """The port on ``axes`` against JAX's model on ``jax_axes`` (the axes
-    without tp by default: JAX's function is the unsharded model's)."""
+         jax_axes=None, rank_fn=_rank_train, **cfg):
+    """The port on ``axes`` (each rank running ``rank_fn``, ``_rank_train``
+    or one that returns what it does) against JAX's model on ``jax_axes``
+    (the axes without tp and ep by default: JAX's function is the
+    unsharded model's)."""
     import jax
 
     from ray_tpu.models import gpt2 as jg
@@ -34,11 +36,11 @@ def _run(pool, axes, dtype, attention="dense", M=2, chunks=0,
     jc, tc = _cfgs(dtype, attention, n_head=4, **cfg)
     params = jg.init_params(jax.random.PRNGKey(0), jc)
     if jax_axes is None:
-        jax_axes = {a: n for a, n in axes.items() if a != "tp"}
+        jax_axes = {a: n for a, n in axes.items() if a not in ("tp", "ep")}
     pipelined = "pp" in jax_axes and cfg.get("moe_experts", 0) > 0
     want = _jax_train(params, jc, M, chunks, jax_axes, pipelined)
     n = int(np.prod(list(axes.values())))
-    results = pool(n).run(_rank_train, tc, _np_tree(params), _tokens(), axes,
+    results = pool(n).run(rank_fn, tc, _np_tree(params), _tokens(), axes,
                           M, chunks, STEPS)
     _check(results, want, axes, M, dtype, adam=True)
     return params, jc, results

@@ -285,11 +285,10 @@ def test_infer_param_logical_dims_matches_jax(moe):
     assert n > 30
 
 
-@pytest.mark.parametrize("axes,moe", [({"fsdp": 2}, 0), ({"ep": 2}, 4)],
-                         ids=["fsdp", "ep"])
+@pytest.mark.parametrize("axes,moe", [({"fsdp": 2}, 0)], ids=["fsdp"])
 def test_placement_is_not_ported_yet(pool, axes, moe):
-    """Placing GPT-2's leaves on fsdp or ep (the MoE experts) raises on
-    every rank, pointing at ROADMAP; so do named_sharding and constraint."""
+    """Placing GPT-2's leaves on fsdp raises on every rank, pointing at
+    ROADMAP; so do named_sharding and constraint."""
     import jax
 
     from ray_tpu.models import gpt2 as jg
@@ -353,15 +352,14 @@ def test_pipeline_placement_matches_jax(pool, axes, moe):
         assert specs == want_specs
 
 
-@pytest.mark.parametrize("axes", [{"tp": 2}, {"tp": 4}, {"pp": 2, "tp": 2}])
-@pytest.mark.parametrize("moe", [0, 4])
-def test_tp_placement_matches_jax(pool, axes, moe):
-    """``shard_params`` on tp (with pp: of ``to_pipeline_params``'s tree)
-    for GPT2_TINY with 4 layers, dense and MoE: ``param_shardings`` against
-    JAX's specs, every local leaf but the fused ``c_attn`` kernel against
-    the shard JAX puts on the device at the same mesh coordinates, that
-    kernel against the rank's head group's q, k and v columns, and every
-    leaf after ``gather_params`` against the whole leaf."""
+def _placement_matches_jax(pool, axes, moe):
+    """``shard_params`` (with pp: of ``to_pipeline_params``'s tree) for
+    GPT2_TINY with 4 layers: ``param_shardings`` against JAX's specs, every
+    local leaf but the fused ``c_attn`` kernel under tp against the shard
+    JAX puts on the device at the same mesh coordinates, that kernel
+    against the rank's head group's q, k and v columns, and every leaf
+    after ``gather_params`` against the whole leaf (under pp: the rank's
+    stage of it).  Returns the count of ``c_attn`` kernels cut by heads."""
     import jax
 
     from ray_tpu.models import gpt2 as jg
@@ -395,7 +393,7 @@ def test_tp_placement_matches_jax(pool, axes, moe):
             full = np.asarray(leaf)
             shard = [x.data for x in leaf.addressable_shards
                      if x.device == dev][0]
-            if name.endswith("c_attn/kernel"):
+            if name.endswith("c_attn/kernel") and "tp" in axes:
                 if "pp" in axes:
                     c = full.shape[0] // axes["pp"]
                     full = full[where["pp"] * c:(where["pp"] + 1) * c]
@@ -420,14 +418,35 @@ def test_tp_placement_matches_jax(pool, axes, moe):
                                         (where["pp"] + 1) * c]
             np.testing.assert_array_equal(back[name].numpy(), full,
                                           err_msg=name)
-    assert cut > 0
+    return cut
+
+
+@pytest.mark.parametrize("axes", [{"tp": 2}, {"tp": 4}, {"pp": 2, "tp": 2}])
+@pytest.mark.parametrize("moe", [0, 4])
+def test_tp_placement_matches_jax(pool, axes, moe):
+    """``shard_params`` on tp, dense and MoE, against JAX's shards and
+    specs (``_placement_matches_jax``); the fused ``c_attn`` kernel cut by
+    heads."""
+    assert _placement_matches_jax(pool, axes, moe) > 0
+
+
+@pytest.mark.parametrize("axes", [{"ep": 2}, {"ep": 4}, {"ep": 2, "tp": 2},
+                                  {"pp": 2, "ep": 2}])
+@pytest.mark.parametrize("moe", [0, 4])
+def test_ep_placement_matches_jax(pool, axes, moe):
+    """``shard_params`` on ep (the MoE ``wi``/``wo`` expert dim: the rank's
+    n / ep consecutive experts; nothing of the dense model), alone, with tp
+    and with pp, against JAX's shards and specs (``_placement_matches_jax``);
+    ``gather_params`` gives the whole experts back."""
+    _placement_matches_jax(pool, axes, moe)
 
 
 TP_DIVIDES = {"wte rows": ({"tp": 4}, {"wte": {"embedding": (10, 8)}}),
               "c_fc columns": ({"tp": 4},
                                {"mlp": {"c_fc": {"kernel": (8, 10)}}}),
               "stacked layers": ({"pp": 2, "tp": 2}, {"blocks": {
-                  "attn": {"c_attn": {"kernel": (3, 8, 24)}}}})}
+                  "attn": {"c_attn": {"kernel": (3, 8, 24)}}}}),
+              "experts on ep": ({"ep": 4}, {"moe": {"wi": (6, 8, 32)}})}
 
 
 @pytest.mark.parametrize("case", list(TP_DIVIDES))
