@@ -160,7 +160,22 @@ Phases; any failure exits non-zero:
    2 and pp = 2 x ep = 2 (M = 4), and at B=8 for dp = 2 x ep = 2 (four
    such ranks at B=16 do not fit on the card), printed and held as phase
    10's.  Phases 2 and 2b also run a dp = 2 rank's shape (B=8, H=12,
-   S=1024, bshd).  Each phase's seconds are printed after it.
+   S=1024, bshd);
+12. fsdp — every leaf's "embed" dim cut over ranks that share the card
+   (``RankPool`` on cuda:0, one gloo group), gathered whole for its use
+   and its cotangent reduce-scattered: at fsdp = 2 (B=4, S=1024) GPT-2
+   124M's logits (each rank's rows) against the single-rank kernels' with
+   phase 3's gate, its loss and every leaf's gradient (gathered over fsdp)
+   with phase 4's tolerances, and the MoE's logits, dropped choices per
+   layer (summed over the ranks; must equal the single-rank run's) and
+   routes as phase 11 holds them; then AdamW steps at B=16, S=1024 (a
+   warm-up, then the timed steps): GPT-2 XL with remat at fsdp = 2 (lr
+   1e-4, 3 steps; each rank's peak must stay below phase 7's single-rank
+   peak, and its MFU is printed), 124M and the MoE at fsdp = 2, and 124M at
+   dp = 2 x fsdp = 2, fsdp = 2 x tp = 2 and pp = 2 x fsdp = 2 (M = 4), 5
+   steps each, printed and held as phase 10's.  Phases 2 and 2b also run an
+   XL fsdp = 2 rank's shape (B=8, H=25, S=1024, bshd).  Each phase's
+   seconds are printed after it.
 
 The last two lines are a JSON object of per-kernel numbers and the
 result line ``{"ok": true, "device": {...}}``.  ``--profile`` adds
@@ -441,9 +456,12 @@ TP_SP_SHAPES = {(16, 6, 512, 64): "tp x sp ring chunk (tp=2, sp=2)"}
 #: phase 11's new kernel shape (bshd): a dp = 2 rank's 8 rows of 12 heads
 #: (MoE dp = 2 and dp = 2 x ep = 2)
 EP_SHAPES = {(8, 12, 1024, 64): "dp rank (dp=2, B=8)"}
+#: phase 12's new kernel shape (bshd): a GPT-2 XL fsdp = 2 rank's 8 rows
+#: of 25 heads
+FSDP_SHAPES = {(8, 25, 1024, 64): "xl fsdp rank (fsdp=2, B=8)"}
 SP_LABELS |= set(TP_SP_SHAPES.values())
-#: ms per step and peak GB of the single-rank train steps (phases 4, 6),
-#: printed beside phases 9's and 10's
+#: ms per step and peak GB of the single-rank train steps (phases 4, 6 and
+#: 7's dense head), by model, printed beside phases 9-12's
 SINGLE_RANK_STEPS = {}
 
 
@@ -621,7 +639,7 @@ def phase_kernels(seed):
               if shape[0] not in (1, 4)]  # B = 4 is in the grid above
     cases += [shape + ("bshd",) for shape in TP_SHAPES]
     cases += [shape + ("bhsd",) for shape in TP_SP_SHAPES]
-    cases += [shape + ("bshd",) for shape in EP_SHAPES]
+    cases += [shape + ("bshd",) for shape in {**EP_SHAPES, **FSDP_SHAPES}]
     served = None
     worst = 0.0
     for B, H, S, D, layout in cases:
@@ -686,8 +704,8 @@ def phase_kernels(seed):
                      LLAMA_SHAPE: "llama", **SP_SHAPES,
                      **TP_SP_SHAPES}.get((B, H, S, D))
             if layout == "bshd":
-                label = {**PP_SHAPES, **TP_SHAPES, **EP_SHAPES}.get(
-                    (B, H, S, D), label)
+                label = {**PP_SHAPES, **TP_SHAPES, **EP_SHAPES,
+                         **FSDP_SHAPES}.get((B, H, S, D), label)
             if label:
                 print(f"[kernel] {label} shape, causal={int(causal)}: "
                       f"kernel_ms={ms:.4f} library_ms={lib_ms:.4f} "
@@ -742,7 +760,7 @@ def phase_bwd_kernels(seed):
     cases += [(shape, ("bshd",)) for shape in PP_SHAPES]
     cases += [(shape, ("bshd",)) for shape in TP_SHAPES]
     cases += [(shape, ("bhsd",)) for shape in TP_SP_SHAPES]
-    cases += [(shape, ("bshd",)) for shape in EP_SHAPES]
+    cases += [(shape, ("bshd",)) for shape in {**EP_SHAPES, **FSDP_SHAPES}]
     worst = {"dq": 0.0, "dkv": 0.0}
     rec = {}
     for (B, H, S, D), layouts in cases:
@@ -819,8 +837,8 @@ def phase_bwd_kernels(seed):
                          **SP_SHAPES, **TP_SP_SHAPES,
                          **PP_SHAPES}.get((B, H, S, D))
                 if layout == "bshd":
-                    label = {**TP_SHAPES, **EP_SHAPES}.get((B, H, S, D),
-                                                           label)
+                    label = {**TP_SHAPES, **EP_SHAPES, **FSDP_SHAPES}.get(
+                        (B, H, S, D), label)
                 if label in SP_LABELS or (label and layout == "bshd"
                                           and causal):
                     if label == "training":
@@ -1533,6 +1551,8 @@ def phase_xl(seed, profile):
                  "and each backward kernel once per layer")
         if peak_gb >= total_gb:
             fail("XL peak memory is not below the card's")
+        if not chunks:
+            SINGLE_RANK_STEPS["xl"] = (ms, peak_gb)
         launches = {k: launches.get(k, 0) + n for k, n in run.items()}
         if profile:
             print_profile(lambda: step(params, {"tokens": tokens}), 30,
@@ -2360,8 +2380,8 @@ def tp_check_moe(pool, seed):
 
 
 def mesh_digests(config, mesh, local):
-    """sha256 digests of the rank's leaves cut on tp or ep, of its stacked
-    blocks' whole leaves and of every other whole leaf."""
+    """sha256 digests of the rank's leaves cut on fsdp, tp or ep, of its
+    stacked blocks' whole leaves and of every other whole leaf."""
     digests = {k: hashlib.sha256() for k in ("cut", "blocks", "rest")}
 
     def walk(tree, spec, name):
@@ -2369,7 +2389,7 @@ def mesh_digests(config, mesh, local):
             for k in sorted(tree):
                 walk(tree[k], spec[k], f"{name}/{k}" if name else k)
             return
-        kind = ("cut" if "tp" in spec or "ep" in spec else "blocks"
+        kind = ("cut" if {"fsdp", "tp", "ep"} & set(spec) else "blocks"
                 if name.startswith("blocks/") else "rest")
         digests[kind].update(tree.detach().float().contiguous().cpu().numpy())
 
@@ -2381,35 +2401,47 @@ def transport_counts():
     return (dict(collective.SENT_BYTES),) + hop_counts()
 
 
-def mesh_want(axes, M, L):
-    """Launches of each kernel a step summed over the ranks: each tp, ep
-    and dp replica runs the model's layers once (a causal ring over sp:
-    n(n+1)/2 chunk steps a layer), under pp in M microbatches with each
-    stage recomputed in the backward."""
-    reps = axes.get("tp", 1) * axes.get("ep", 1) * axes.get("dp", 1)
+def mesh_want(axes, M, L, remat=False):
+    """Launches of each kernel a step summed over the ranks: each tp, ep,
+    dp and fsdp replica runs the model's layers once (a causal ring over
+    sp: n(n+1)/2 chunk steps a layer), under pp in M microbatches with each
+    stage recomputed in the backward, under remat each layer's forward
+    twice."""
+    reps = math.prod(axes.get(a, 1) for a in ("tp", "ep", "dp", "fsdp"))
     n = axes.get("sp", 1)
     per = reps * L * n * (n + 1) // 2
     if "pp" in axes:
-        return {"flash_fwd": 2 * per * M, "flash_bwd_dq": per * M,
-                "flash_bwd_dkv": per * M}
-    return dict.fromkeys(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"), per)
+        per *= M
+    return {"flash_fwd": (2 if remat or "pp" in axes else 1) * per,
+            "flash_bwd_dq": per, "flash_bwd_dkv": per}
 
 
-def mesh_train_rank(seed, axes, M, moe, steps, batch_shape):
-    """A warm-up and ``steps`` timed AdamW steps of GPT-2 124M (or its MoE)
-    at ``batch_shape`` (B, S) over a mesh of ``axes``: losses, ms per step
-    (CUDA events), the transport's share of it and its bytes by kind, peak
-    memory, launches, hops and digests of the parameters after them."""
+#: the models of the timed runs over ranks: (config, AdamW's lr, the
+#: runs' tag, the phase of the single-rank step); XL trains with remat and
+#: phase 7's lr
+MESH_MODELS = {"gpt2": (gpt2.GPT2_SMALL, 3e-4, "", 4),
+               "moe": (replace(gpt2.GPT2_SMALL, moe_experts=8), 3e-4, "MoE ",
+                       6),
+               "xl": (replace(gpt2.GPT2_XL, remat=True), 1e-4, "XL remat ",
+                      7)}
+
+
+def mesh_train_rank(seed, axes, M, model, steps, batch_shape):
+    """A warm-up and ``steps`` timed AdamW steps of ``model`` (a key of
+    MESH_MODELS) at ``batch_shape`` (B, S) over a mesh of ``axes``: losses,
+    ms per step (CUDA events), the transport's share of it and its bytes by
+    kind, peak memory, launches, hops and digests of the parameters after
+    them."""
     set_precision()
-    cfg = replace(gpt2.GPT2_SMALL, moe_experts=8 if moe else 0,
-                  attention="ring" if "sp" in axes else "flash")
+    cfg, lr, _, _ = MESH_MODELS[model]
+    cfg = replace(cfg, attention="ring" if "sp" in axes else "flash")
     config, mesh, params, local, tokens = tp_setup(cfg, seed, batch_shape,
                                                    axes)
     del params
     batch = batch_shard(tokens, mesh)
     if "sp" in axes:
         batch = seq_shard(batch, mesh, overlap=1)
-    step = gpt2.make_train_step(cfg, adamw(local), M)
+    step = gpt2.make_train_step(cfg, adamw(local, lr), M)
     gc.collect()
     torch.cuda.empty_cache()
     with use_mesh(mesh):
@@ -2443,27 +2475,33 @@ def mesh_train_rank(seed, axes, M, moe, steps, batch_shape):
             "where": {a: mesh.get_local_rank(a) for a in axes}}
 
 
-def mesh_train(pool, seed, axes, M=1, moe=False, phase="tp",
+def mesh_train(pool, seed, axes, M=1, model="gpt2", phase="tp",
                batch_shape=TP_TRAIN_BATCH, steps=TP_STEPS):
-    """Phases 10's and 11's training in one layout; returns the launches
-    of the timed steps summed over the ranks."""
-    res = pool.run(mesh_train_rank, seed, axes, M, moe, steps, batch_shape)
+    """Phases 10's to 12's training in one layout; returns the launches of
+    the timed steps summed over the ranks."""
+    res = pool.run(mesh_train_rank, seed, axes, M, model, steps, batch_shape)
     r0 = res[0]
-    (B, S), L = batch_shape, gpt2.GPT2_SMALL.n_layer
-    tag = ("MoE " if moe else "") + " x ".join(
+    cfg, _, tag, single_phase = MESH_MODELS[model]
+    (B, S), L = batch_shape, cfg.n_layer
+    tag += " x ".join(
         f"{a}={n}" for a, n in axes.items()) + (" ring" if "sp" in axes
                                                 else "") \
         + (f" M={M}" if "pp" in axes else "")
     launches = {k: sum(r["launches"][k] for r in res)
                 for k in r0["launches"]}
-    want = {k: v * steps for k, v in mesh_want(axes, M, L).items()}
-    single_ms, single_gb = SINGLE_RANK_STEPS["moe" if moe else "gpt2"]
+    want = {k: v * steps for k, v in mesh_want(axes, M, L,
+                                                cfg.remat).items()}
+    single_ms, single_gb = SINGLE_RANK_STEPS[model]
+    tok_s = B * S / (r0["ms"] / 1e3)
+    flops = gpt2.count_flops_per_token(cfg, S)
+    mfu = (f", MFU {tok_s * flops / PEAK_BF16_FLOPS:.4f}" if model == "xl"
+           else "")
     print(f"[{phase}] train {tag} B={B} S={S}: losses "
           f"{' '.join(f'{x:.4f}' for x in r0['losses'])} (warm-up "
           f"{r0['warm_s']:.2f} s); rank 0 {r0['ms']:.3f} ms per step (CUDA "
-          f"events over {steps} steps), {B * S / (r0['ms'] / 1e3):.1f} "
-          f"tokens/s over the ranks (single-rank step at B=16, phase "
-          f"{6 if moe else 4}: {single_ms:.3f} ms, peak {single_gb:.2f} GB); "
+          f"events over {steps} steps), {tok_s:.1f} tokens/s over the "
+          f"ranks{mfu} (single-rank step at B=16, phase {single_phase}: "
+          f"{single_ms:.3f} ms, peak {single_gb:.2f} GB); "
           f"{len(res)} ranks share one card over gloo: these times measure "
           f"correctness and the kernels' work at the ranks' shapes, not "
           f"the speed of {phase}; card {card_line()}", flush=True)
@@ -2491,14 +2529,15 @@ def mesh_train(pool, seed, axes, M=1, moe=False, phase="tp",
                 r["digests"][kind])
         return all(len(d) == 1 for d in groups.values())
 
-    cut_equal = equal(0, lambda w: (w.get("pp"), w.get("tp"), w.get("ep")))
+    cut_equal = equal(0, lambda w: (w.get("pp"), w.get("fsdp"), w.get("tp"),
+                                    w.get("ep")))
     blocks_equal = equal(1, lambda w: w.get("pp"))
     rest_equal = equal(2, lambda w: None)
     print(f"[{phase}] train {tag}: launches over the ranks in {steps} steps "
-          f"{launches} (want {want}); leaves cut on tp or ep equal bit for "
-          f"bit across the replicas that hold them: {cut_equal}; replicated "
-          f"leaves equal bit for bit on every rank (stacked blocks: on "
-          f"every rank of a stage): {rest_equal and blocks_equal}",
+          f"{launches} (want {want}); leaves cut on fsdp, tp or ep equal bit "
+          f"for bit across the replicas that hold them: {cut_equal}; "
+          f"replicated leaves equal bit for bit on every rank (stacked "
+          f"blocks: on every rank of a stage): {rest_equal and blocks_equal}",
           flush=True)
     losses = r0["losses"]
     if any(r["losses"] != losses for r in res):
@@ -2509,6 +2548,10 @@ def mesh_train(pool, seed, axes, M=1, moe=False, phase="tp",
         fail(f"{tag}: launches {launches}, want {want}")
     if not (cut_equal and blocks_equal and rest_equal):
         fail(f"{tag}: the ranks' parameters differ")
+    peak = max(r["peak_gb"] for r in res)
+    if model == "xl" and single_gb and peak >= single_gb:
+        fail(f"{tag}: peak {peak:.2f} GB a rank is not below the single-rank "
+             f"step's {single_gb:.2f} GB")
     return launches
 
 
@@ -2535,7 +2578,7 @@ def phase_tp(seed):
                 tp_check_moe(pool, seed)
                 launches["tp2"] = mesh_train(pool, seed, {"tp": 2})
                 launches["moe_tp2"] = mesh_train(pool, seed, {"tp": 2},
-                                                 moe=True)
+                                                 model="moe")
             else:
                 launches["dp2_tp2"] = mesh_train(pool, seed,
                                                  {"dp": 2, "tp": 2})
@@ -2567,13 +2610,15 @@ def global_routes(mesh, mine, rows):
     """The (L, T, k) expert choices of the global batch in its token order
     (t = b S + s) from each rank's (L, T_rank, k) choices of its ``rows``
     rows and positions: gathered over sp (the chunks of each row side by
-    side) and dp (the ranks' rows one after another)."""
+    side), then fsdp and dp (the ranks' rows one after another, dp
+    major)."""
     L, _, k = mine.shape
     every = mine.view(L, rows, -1, k)
     if mesh_axis_size(mesh, "sp") > 1:
         every = c10d.allgather(every, "sp", axis=2)
-    if mesh_axis_size(mesh, "dp") > 1:
-        every = c10d.allgather(every, "dp", axis=1)
+    for axis in ("fsdp", "dp"):
+        if mesh_axis_size(mesh, axis) > 1:
+            every = c10d.allgather(every, axis, axis=1)
     return every.reshape(L, -1, k)
 
 
@@ -2660,7 +2705,7 @@ def ep_check_rank(seed, axes, grads):
     return out
 
 
-def ep_check(pool, seed, axes, grads=False):
+def ep_check(pool, seed, axes, grads=False, phase="ep"):
     """Phase 11's check of one layout (``ep_check_rank``), printed and
     held: logits with phase 3's gate, dropped choices equal to the
     single-rank run's, no route parting between the ranks that hold the
@@ -2670,22 +2715,24 @@ def ep_check(pool, seed, axes, grads=False):
     B, S = EP_CHECK_BATCH
     tag = " x ".join(f"{a}={n}" for a, n in axes.items()) + (
         " ring" if "sp" in axes else "")
+    rows = B // axes.get("dp", 1) // axes.get("fsdp", 1)
     err = max(r["logits_err"] for r in res)
     between = max(r["between"] for r in res)
     r0 = res[0]
-    print(f"[ep] MoE (8 experts) {tag} B={B} S={S}: logits {r0['shape']} a "
-          f"rank vs the single-rank kernels' on the same global batch: max "
-          f"abs err {err:.4e} over the ranks (tol {LOGITS_TOL}); routed "
-          f"otherwise by the single-rank model {r0['parted']:.6f}"
+    print(f"[{phase}] MoE (8 experts) {tag} B={B} S={S}: logits "
+          f"{r0['shape']} a rank vs the single-rank kernels' on the same "
+          f"global batch: max abs err {err:.4e} over the ranks (tol "
+          f"{LOGITS_TOL}); routed otherwise by the single-rank model "
+          f"{r0['parted']:.6f}"
           + (" (replayed: the reference takes the ranks' choices)"
              if r0["parted"] else " (no replay)")
           + f"; share of token-choices that differ between the ranks holding "
           f"the same tokens {between:.6f} (must be 0)", flush=True)
-    print(f"[ep] MoE {tag}: choices dropped at capacity per layer, summed "
-          f"over the ranks: {r0['dropped']}; single-rank run on the same "
-          f"global batch: {r0['ref_dropped']} (must be equal; a capacity "
+    print(f"[{phase}] MoE {tag}: choices dropped at capacity per layer, "
+          f"summed over the ranks: {r0['dropped']}; single-rank run on the "
+          f"same global batch: {r0['ref_dropped']} (must be equal; a capacity "
           f"over each rank's own tokens would drop others)", flush=True)
-    if any(r["shape"][:2] != (B // axes.get("dp", 1), S // axes.get("sp", 1))
+    if any(r["shape"][:2] != (rows, S // axes.get("sp", 1))
            or not r["finite"] for r in res) or err > LOGITS_TOL:
         fail(f"MoE logits at {tag} malformed or apart")
     if between:
@@ -2700,7 +2747,7 @@ def ep_check(pool, seed, axes, grads=False):
     d = abs(ref["loss"] - ref["ref_loss"])
     worst = max(ref["rel"], key=ref["rel"].get)
     same = len({r["grad_digest"] for r in res}) == 1
-    print(f"[ep] MoE {tag} B={B} S={S}: the loss's token-choices routed "
+    print(f"[{phase}] MoE {tag} B={B} S={S}: the loss's token-choices routed "
           f"otherwise by the single-rank model {ref['loss_parted']:.6f}"
           + (" (replayed)" if ref["loss_parted"] else " (no replay)")
           + f"; loss {ref['loss']:.6f} vs the "
@@ -2747,7 +2794,7 @@ def phase_ep(seed):
                                   ("moe_dp2", {"dp": 2}),
                                   ("moe_sp2_ring", {"sp": 2})):
                     launches[key] = mesh_train(
-                        pool, seed, axes, moe=True, phase="ep",
+                        pool, seed, axes, model="moe", phase="ep",
                         batch_shape=EP_TRAIN_BATCH, steps=EP_STEPS)
             else:
                 ep_check(pool, seed, {"ep": 2, "tp": 2}, grads=True)
@@ -2759,8 +2806,110 @@ def phase_ep(seed):
                         ("moe_pp2_ep2_m4", {"pp": 2, "ep": 2}, 4,
                          EP_TRAIN_BATCH)):
                     launches[key] = mesh_train(
-                        pool, seed, axes, M, moe=True, phase="ep",
+                        pool, seed, axes, M, model="moe", phase="ep",
                         batch_shape=shape, steps=EP_STEPS)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 12: fsdp (alone and with dp, tp, pp; GPT-2 XL at fsdp = 2)
+# ---------------------------------------------------------------------------
+
+#: (B, S) of phase 12's checks and of its training
+FSDP_CHECK_BATCH = (4, 1024)
+FSDP_TRAIN_BATCH = (16, 1024)
+#: timed train steps of phase 12's 124M and MoE runs, and of XL's (phase 7
+#: takes 3 on one rank)
+FSDP_STEPS = 5
+FSDP_XL_STEPS = 3
+
+
+def fsdp_check_rank(seed):
+    """GPT-2 124M at FSDP_CHECK_BATCH over fsdp = 2 against the single-rank
+    kernels on the same rank: the rank's rows of logits, the loss and every
+    leaf's gradient (gathered over fsdp)."""
+    set_precision()
+    cfg = gpt2.GPT2_SMALL
+    config, mesh, params, local, tokens = tp_setup(cfg, seed,
+                                                   FSDP_CHECK_BATCH,
+                                                   {"fsdp": 2})
+    names = [n for n, _ in gpt2.named_leaves(params)]
+    batch = batch_shard(tokens, mesh)
+    with torch.no_grad():
+        ref = batch_shard(gpt2.forward(params, tokens[:, :-1], cfg), mesh)
+        with use_mesh(mesh):
+            logits = gpt2.forward(local, batch[:, :-1], cfg)
+    out = {"shape": tuple(logits.shape),
+           "finite": bool(torch.isfinite(logits).all()),
+           "logits_err": (logits - ref).abs().max().item(),
+           "bitwise": torch.equal(logits, ref)}
+    del logits, ref
+    ref_loss, ref_grads = loss_and_grads(params, {"tokens": tokens}, cfg)
+    with use_mesh(mesh):
+        loss = gpt2.loss_fn(gpt2._cast_weights(local, cfg.compute_dtype),
+                            {"tokens": batch}, cfg)
+        loss.backward()
+        gpt2._sum_grads(local, cfg)
+        rel = tp_rel(config, mesh, local, names, ref_grads)
+    out.update(loss=loss.item(), ref_loss=ref_loss, rel=rel)
+    return out
+
+
+def fsdp_check_gpt2(pool, seed):
+    res = pool.run(fsdp_check_rank, seed)
+    B, S = FSDP_CHECK_BATCH
+    shape = (B // 2, S, gpt2.GPT2_SMALL.vocab_size)
+    err = max(r["logits_err"] for r in res)
+    print(f"[fsdp] GPT2_SMALL fsdp=2 B={B} S={S}: each rank's logits "
+          f"{res[0]['shape']} (its rows; every leaf's embed dim gathered "
+          f"over fsdp for its use) vs the single-rank kernels': max abs err "
+          f"{err:.4e} (tol {LOGITS_TOL}); equal bit for bit on every rank: "
+          f"{all(r['bitwise'] for r in res)}", flush=True)
+    if any(r["shape"] != shape or not r["finite"] for r in res) \
+            or err > LOGITS_TOL:
+        fail("GPT-2 logits at fsdp=2 malformed or apart")
+    pp_hold_grads(res, f"GPT2_SMALL fsdp=2 B={B} S={S}",
+                  "single-rank kernels", "fsdp",
+                  "gathered over fsdp: the cut leaves' reduce-scattered "
+                  "blocks, the others summed over fsdp as the step sums them")
+
+
+def phase_fsdp(seed):
+    """fsdp: GPT-2 124M's logits, loss and gradients and the MoE's routes
+    and drops at fsdp = 2 against the single-rank model, then training: GPT-2
+    XL with remat, 124M and the MoE at fsdp = 2, and 124M at dp = 2 x fsdp =
+    2, fsdp = 2 x tp = 2 and pp = 2 x fsdp = 2 (M = 4), over ranks that
+    share the card (one gloo group).  Returns the launches of the training
+    runs, by layout."""
+    free_memory("fsdp")
+    launches = {}
+    for n in (2, 4):
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp, RankPool(
+                n, f"file://{tmp}/rendezvous", backend="gloo",
+                device="cuda:0", timeout_s=600.0) as pool:
+            print(f"[fsdp] {n} ranks on cuda:0 up in "
+                  f"{time.perf_counter() - t0:.2f} s; one gloo group: each "
+                  "leaf's all-gather over fsdp (bf16 in training) and its "
+                  "cotangent's reduce-scatter are CUDA tensors passed to "
+                  "gloo", flush=True)
+            if n == 2:
+                fsdp_check_gpt2(pool, seed)
+                ep_check(pool, seed, {"fsdp": 2}, phase="fsdp")
+                for key, model, steps in (("xl_fsdp2", "xl", FSDP_XL_STEPS),
+                                          ("fsdp2", "gpt2", FSDP_STEPS),
+                                          ("moe_fsdp2", "moe", FSDP_STEPS)):
+                    launches[key] = mesh_train(
+                        pool, seed, {"fsdp": 2}, model=model, phase="fsdp",
+                        batch_shape=FSDP_TRAIN_BATCH, steps=steps)
+            else:
+                for key, axes, M in (
+                        ("dp2_fsdp2", {"dp": 2, "fsdp": 2}, 1),
+                        ("fsdp2_tp2", {"fsdp": 2, "tp": 2}, 1),
+                        ("pp2_fsdp2_m4", {"fsdp": 2, "pp": 2}, 4)):
+                    launches[key] = mesh_train(
+                        pool, seed, axes, M, phase="fsdp",
+                        batch_shape=FSDP_TRAIN_BATCH, steps=FSDP_STEPS)
     return launches
 
 
@@ -2798,12 +2947,13 @@ def main():
     pp_runs = run("9 pp", phase_pp, args.seed)
     tp_runs = run("10 tp", phase_tp, args.seed)
     ep_runs = run("11 ep", phase_ep, args.seed)
+    fsdp_runs = run("12 fsdp", phase_fsdp, args.seed)
     print(f"[time] phases: {seconds}; all {sum(seconds.values()):.1f} s",
           flush=True)
     print(card_line())
     src = "ray_tpu/ops/flash_attention.py"
     trained = {"train": train, "moe_train": moe_train, "xl_train": xl_train,
-               **sp_runs, **pp_runs, **tp_runs, **ep_runs}
+               **sp_runs, **pp_runs, **tp_runs, **ep_runs, **fsdp_runs}
     paths = {
         "flash_fwd": {"serve": serve_launches, "llama": llama_launches,
                       "moe_serve": moe_serve},

@@ -35,7 +35,20 @@ rows' lookup summed over tp, and the lm head
 gives each rank its block of the vocabulary: ``forward`` gathers the
 logits, ``loss_fn`` takes a vocabulary-parallel cross-entropy (max, sum
 of exponentials and target logit over tp) that never gathers them.  The
-flash kernels then run n_head / tp heads.  Pipeline parallelism on
+flash kernels then run n_head / tp heads.  Under fsdp (the JAX model's
+"embed" rule for the parameters, "batch" on (dp, fsdp) for the rows) each
+rank holds its ``shard_params`` block of every leaf's "embed" dim and its
+rows of the batch; each leaf is gathered whole over fsdp for its use
+(``_whole_on_fsdp``, ``c10d.allgather``, whose backward is the
+reduce-scatter of the cotangent): a block's leaves inside the block, so
+that under remat the gather runs again in the recompute and a layer's
+whole weights exist only while it runs (ZeRO-3's memory; without remat
+autograd keeps every gathered weight for the backward), wte and wpe once a
+step (the embedding and the tied head then sum their cotangents before
+wte's one reduce-scatter), a pipeline stage's stacked leaves once a step
+before the schedule (the stage sums their cotangents over the
+microbatches first).  In training the gathers move the bf16 weights that
+``_cast_weights`` made.  Pipeline parallelism on
 ``pp``: ``to_pipeline_params`` stacks the blocks
 into ``blocks`` with a leading layer dim, ``shard_params`` gives each rank
 its stage's layers, and ``_trunk`` runs them through
@@ -66,8 +79,8 @@ block (``torch.utils.checkpoint``), so the backward recomputes it.
 Gradients of attention go through the flash backward kernels on the card.
 
 Not ported yet, raising ``NotImplementedError`` (ROADMAP.md): the MoE FFN
-under pipeline and data parallelism together (§A10b), pipeline stages with
-ring or Ulysses attention (§A11), and a mesh with fsdp over 1 (§A9c).
+under pipeline parallelism with data parallelism or fsdp (§A10b), and
+pipeline stages with ring or Ulysses attention (§A11).
 """
 
 from __future__ import annotations
@@ -88,6 +101,7 @@ from ray_tpu_torch.parallel.mesh import mesh_axis_size, mesh_shape
 from ray_tpu_torch.parallel.pipeline import (pipeline_apply,
                                              stack_layer_params)
 from ray_tpu_torch.parallel.ring_attention import ring_attention_sharded
+from ray_tpu_torch.parallel.sharding import fsdp_dim
 
 
 @dataclass(frozen=True)
@@ -149,10 +163,14 @@ def _check_mesh(params, cfg: GPT2Config):
     parameters that are not the rank's shard of it."""
     mesh = get_mesh()
     shape = mesh_shape(mesh) if mesh is not None else {}
-    if shape.get("fsdp", 1) > 1:
-        raise NotImplementedError(
-            "a mesh with fsdp over 1 is not ported yet (ROADMAP.md §A9c: "
-            "fsdp)")
+    fsdp = shape.get("fsdp", 1)
+    blocks = params["blocks"] if "blocks" in params else params["h_0"]
+    rows = blocks["attn"]["c_attn"]["kernel"].shape[-2]
+    if fsdp > 1 and rows * fsdp != cfg.n_embd:
+        raise ValueError(
+            f"c_attn's kernel holds {rows} rows: n_embd {cfg.n_embd} over "
+            f"fsdp {fsdp} needs n_embd / fsdp each (shard_params gives a "
+            f"rank its shard)")
     tp = shape.get("tp", 1)
     if cfg.n_head % tp:
         raise ValueError(
@@ -168,22 +186,22 @@ def _check_mesh(params, cfg: GPT2Config):
         if n % ep:
             raise ValueError(
                 f"moe_experts {n} does not divide by the ep axis size {ep}")
-        wi = (params["blocks"]["moe"]["wi"][0] if "blocks" in params
-              else params["h_0"]["moe"]["wi"])
-        if wi.shape[0] * ep != n:
+        held = blocks["moe"]["wi"].shape[-3]  # (stage layers,) n, E, 4E
+        if held * ep != n:
             raise ValueError(
-                f"wi holds {wi.shape[0]} experts: moe_experts {n} over ep "
+                f"wi holds {held} experts: moe_experts {n} over ep "
                 f"{ep} needs moe_experts / ep each (shard_params gives a "
                 f"rank its shard)")
-    if n > 0 and "blocks" in params and shape.get("dp", 1) > 1:
+    if n > 0 and "blocks" in params and max(shape.get("dp", 1), fsdp) > 1:
         # the reference's microbatch m is the global rows [m B/M, (m+1) B/M),
-        # routed with one capacity over every dp rank's share of them; the
-        # port's microbatch m on dp rank d is a block of d's own rows
-        # (batch_shard), which routes other tokens together
+        # routed with one capacity over every dp and fsdp rank's share of
+        # them; the port's microbatch m on such a rank is a block of its own
+        # rows (batch_shard), which routes other tokens together
         raise NotImplementedError(
-            "the MoE FFN under pipeline and data parallelism together is not "
-            "ported yet (ROADMAP.md §A10b: the reference's microbatches are "
-            "blocks of the global rows, the port's blocks of a dp rank's)")
+            "the MoE FFN under pipeline parallelism with data parallelism or "
+            "fsdp is not ported yet (ROADMAP.md §A10b: the reference's "
+            "microbatches are blocks of the global rows, the port's blocks "
+            "of a dp or fsdp rank's)")
     if "blocks" in params and cfg.attention in _SP:
         raise NotImplementedError(
             "pipeline stages with ring or Ulysses attention are not ported "
@@ -192,14 +210,14 @@ def _check_mesh(params, cfg: GPT2Config):
 
 def _loss_axes(params, cfg: GPT2Config) -> List[Tuple[str, int]]:
     """[(axis, size)] of the bound mesh's axes whose ranks hold other terms
-    of the loss: dp (other rows), sp under ring/Ulysses attention (other
-    positions) and pp for pipeline-stacked ``blocks`` (other rows, or a
-    share of the replicated head).  Sizes of 1 are left out."""
+    of the loss: dp and fsdp (other rows), sp under ring/Ulysses attention
+    (other positions) and pp for pipeline-stacked ``blocks`` (other rows, or
+    a share of the replicated head).  Sizes of 1 are left out."""
     mesh = get_mesh()
     if mesh is None:
         return []
     shape = mesh_shape(mesh)
-    names = ["dp"] + (["pp"] if "blocks" in params else []) + (
+    names = ["dp", "fsdp"] + (["pp"] if "blocks" in params else []) + (
         ["sp"] if cfg.attention in _SP else [])
     return [(a, shape[a]) for a in names if shape.get(a, 1) > 1]
 
@@ -302,6 +320,25 @@ def _with_mesh(mesh, fn):
     return run
 
 
+def _whole_on_fsdp(tree, path=()):
+    """A parameter (sub)tree at ``path`` with each leaf that ``shard_params``
+    cut on fsdp (``fsdp_dim``) all-gathered whole over the bound mesh's
+    fsdp axis (``c10d.allgather``), the others as they are.  The gather's
+    backward is the reduce-scatter of the whole leaf's cotangent: each rank
+    keeps its block of the sum over fsdp, the gradient of its shard summed
+    over the fsdp ranks' rows.  Without fsdp the tree itself."""
+    if _axis_rank_and_size("fsdp")[1] == 1:
+        return tree
+
+    def whole(node, at):
+        if isinstance(node, dict):
+            return {k: whole(v, at + (k,)) for k, v in node.items()}
+        dim = fsdp_dim(at, tuple(node.shape))
+        return node if dim is None else c10d.allgather(node, "fsdp", dim)
+
+    return whole(tree, path)
+
+
 def _copy_to_tp(x, tp: int):
     """Megatron's "f": x for work cut over tp, its gradient summed there."""
     return c10d.identity(x, "tp") if tp > 1 else x
@@ -400,14 +437,14 @@ def _top_k(probs, k):
 
 def _token_axes(cfg: GPT2Config) -> List[Tuple[str, int]]:
     """[(axis, size)] of the bound mesh's axes over which the global
-    batch's tokens are spread: dp (rows, ``batch_shard``) and, under ring
-    or Ulysses attention, sp (positions, ``seq_shard``).  Sizes of 1 are
-    left out."""
+    batch's tokens are spread: dp and fsdp (rows, ``batch_shard``) and,
+    under ring or Ulysses attention, sp (positions, ``seq_shard``).  Sizes
+    of 1 are left out."""
     mesh = get_mesh()
     if mesh is None:
         return []
     shape = mesh_shape(mesh)
-    names = ["dp"] + (["sp"] if cfg.attention in _SP else [])
+    names = ["dp", "fsdp"] + (["sp"] if cfg.attention in _SP else [])
     return [(a, shape[a]) for a in names if shape.get(a, 1) > 1]
 
 
@@ -445,10 +482,11 @@ def _routes(xt, router, cfg: GPT2Config, rows: int) -> _Routes:
     tok = idx.T.reshape(k, rows, -1)
 
     def slots(counts, d, r):
-        """Each choice's slot, given the (n_dp, n_sp, rows, k, n) counts of
-        every chunk (a row's positions on one rank) and this rank's
-        coordinates: chunks run in global token order (row major, then the
-        sp ranks' chunks of the row), choice 0 of every token first."""
+        """Each choice's slot, given the (row blocks, n_sp, rows, k, n)
+        counts of every chunk (a row's positions on one rank) and this
+        rank's block d and sp rank r: chunks run in global token order (the
+        blocks, row major, then the sp ranks' chunks of the row), choice 0
+        of every token first."""
         flat = counts.transpose(1, 2).reshape(-1, k, n)
         total = flat.sum(0)
         before = (flat.cumsum(0) - flat).view(
@@ -459,7 +497,7 @@ def _routes(xt, router, cfg: GPT2Config, rows: int) -> _Routes:
 
     mine = onehot.sum(-1).permute(2, 0, 1)[None, None]   # (1, 1, rows, k, n)
     local, total = slots(mine, 0, 0)
-    pos, d, r = local, 0, 0
+    pos, r = local, 0
     if axes:
         mesh, spread = require_mesh(), dict(axes)
         every = mine[0]
@@ -467,9 +505,12 @@ def _routes(xt, router, cfg: GPT2Config, rows: int) -> _Routes:
             every = _all_gather(every, mesh.get_group("sp"), 0)
             r = mesh.get_local_rank("sp")
         every = every[None]
-        if "dp" in spread:
-            every = _all_gather(every, mesh.get_group("dp"), 0)
-            d = mesh.get_local_rank("dp")
+        # the rows' blocks in batch_shard's order: block d n_fsdp + f
+        for axis in ("fsdp", "dp"):
+            if axis in spread:
+                every = _all_gather(every, mesh.get_group(axis), 0)
+        d = (_axis_rank_and_size("dp")[0] * spread.get("fsdp", 1)
+             + _axis_rank_and_size("fsdp")[0])
         pos, total = slots(every, d, r)
     return _Routes(probs, gate, idx, pos, capacity, local, total[0], tokens)
 
@@ -484,16 +525,17 @@ def _moe_route(xt, router, cfg: GPT2Config, rows: int = 1):
     position counts the earlier tokens with the same expert at that choice
     and every token's earlier choices of it.
 
-    Over ranks (``_token_axes``: dp, and sp under ring or Ulysses) xt is
-    the rank's ``rows`` rows of tokens (each its positions of a row) and
-    the routing is the reference's over the global batch, of T x ranks
-    tokens in the order t = b S + s: the capacity counts every token, and a
-    position counts every earlier token of the global order.  Each rank
-    counts its choices per (row, choice, expert), all-gathers those counts
-    over sp and dp (a few kB, integers) and takes the exclusive prefix of
-    every chunk's counts in global order: under dp a rank's rows follow
-    the earlier ranks' rows, under sp the ranks' chunks of each row
-    interleave row by row.  Without such axes ``rows`` changes nothing."""
+    Over ranks (``_token_axes``: dp and fsdp, and sp under ring or
+    Ulysses) xt is the rank's ``rows`` rows of tokens (each its positions
+    of a row) and the routing is the reference's over the global batch, of
+    T x ranks tokens in the order t = b S + s: the capacity counts every
+    token, and a position counts every earlier token of the global order.
+    Each rank counts its choices per (row, choice, expert), all-gathers
+    those counts over sp, fsdp and dp (a few kB, integers) and takes the
+    exclusive prefix of every chunk's counts in global order: under dp and
+    fsdp a rank's rows follow the earlier ranks' rows (``batch_shard``'s
+    blocks, dp major), under sp the ranks' chunks of each row interleave
+    row by row.  Without such axes ``rows`` changes nothing."""
     return _routes(xt, router, cfg, rows)[:5]
 
 
@@ -509,8 +551,8 @@ def _moe_mlp(x, p, cfg: GPT2Config):
     each token sums its kept choices' outputs, weighted by the gate value
     rounded to ``x.dtype``.
 
-    Over dp and sp ranks (``_moe_route``) the capacity, the positions and
-    the aux are global, but no token crosses ranks: the expert FFN works
+    Over dp, fsdp and sp ranks (``_moe_route``) the capacity, the positions
+    and the aux are global, but no token crosses ranks: the expert FFN works
     row by row, so a rank computes its own kept choices only.  A rank's
     buffer holds C = min(capacity, T k) slots an expert (T: the rank's
     tokens), a number it knows without a host sync: its kept choices of an
@@ -522,7 +564,7 @@ def _moe_mlp(x, p, cfg: GPT2Config):
     ``importance`` from the rank's probability sums summed with
     ``c10d.allreduce``, whose backward hands each rank the whole
     cotangent: each rank gets its own tokens' share of the router
-    gradient, and ``_sum_grads``' sum over dp and sp makes it whole.
+    gradient, and ``_sum_grads``' sum over dp, fsdp and sp makes it whole.
 
     Under tp the experts' hidden dim is cut (``wi``'s columns, ``wo``'s
     rows) and the router is whole: x is the same on every tp rank, so
@@ -601,6 +643,14 @@ def _block_with_aux(x, p, cfg: GPT2Config):
     return x, (acc[0] if acc else torch.zeros((), device=x.device))
 
 
+def _layer(x, p, cfg: GPT2Config):
+    """``_block_with_aux`` on the layer's parameters gathered whole over
+    fsdp: under ``checkpoint`` the gather runs again in the recompute, so
+    the layer's whole weights are not kept between its forward and its
+    backward."""
+    return _block_with_aux(x, _whole_on_fsdp(p), cfg)
+
+
 def to_pipeline_params(params, cfg: GPT2Config):
     """Stack the per-layer blocks into one leading-layer-dim tree,
     ``blocks`` (the "stage" axis ``shard_params`` places on pp); the other
@@ -631,9 +681,9 @@ def _trunk(params, tokens, cfg: GPT2Config, aux_acc=None,
     layer's mean over microbatches) goes to ``aux_acc``.  The result is the
     rank's rows when the microbatches divide by the stages, else every
     row.  Under tp the embedding tables are the rank's blocks of their
-    rows (``_embed``)."""
-    _check_ported(cfg)
-    _check_mesh(params, cfg)
+    rows (``_embed``); under fsdp they are whole (``_whole_tables``) and
+    each block's leaves are gathered for its use: a layer's inside the
+    layer (``_layer``), a stage's stacked ones before the schedule."""
     S = tokens.shape[1]
     rank, n = _sp_rank_and_size(cfg)
     if S * n > cfg.block_size:
@@ -654,24 +704,36 @@ def _trunk(params, tokens, cfg: GPT2Config, aux_acc=None,
                 f"(shard_params gives a rank its stage)")
         block = _with_mesh(mesh, _block_with_aux)
         x, pp_aux = pipeline_apply(lambda p, h: block(h, p, cfg),
-                                   params["blocks"], x, mesh,
-                                   pp_microbatches)
+                                   _whole_on_fsdp(params["blocks"],
+                                                  ("blocks",)),
+                                   x, mesh, pp_microbatches)
         if aux_acc is not None and cfg.moe_experts > 0:
             aux_acc.append(pp_aux / cfg.n_layer)
     else:
-        block = _with_mesh(mesh, _block_with_aux)
+        layer = _with_mesh(mesh, _layer)
         for i in range(cfg.n_layer):
             if cfg.remat:
                 # the blocks draw no random numbers: no RNG state to restore
-                x, aux = checkpoint(block, x, params[f"h_{i}"], cfg,
+                x, aux = checkpoint(layer, x, params[f"h_{i}"], cfg,
                                     use_reentrant=False,
                                     preserve_rng_state=False)
-                if aux_acc is not None and cfg.moe_experts > 0:
-                    aux_acc.append(aux)
             else:
-                x = _block(x, params[f"h_{i}"], cfg, aux_acc)
+                x, aux = layer(x, params[f"h_{i}"], cfg)
+            if aux_acc is not None and cfg.moe_experts > 0:
+                aux_acc.append(aux)
     x = _layer_norm(x.float(), params["ln_f"])
     return x.to(cfg.compute_dtype)
+
+
+def _whole_tables(params, cfg: GPT2Config):
+    """Check the mesh and the parameters (``_check_mesh``), then gather wte
+    and wpe whole over fsdp, once a step: wte's two uses, the embedding and
+    the tied head, then sum their cotangents before its one
+    reduce-scatter."""
+    _check_ported(cfg)
+    _check_mesh(params, cfg)
+    return {**params, **{k: _whole_on_fsdp(params[k], (k,))
+                         for k in ("wte", "wpe")}}
 
 
 def _rows_in_block(table, idx, rank):
@@ -733,7 +795,8 @@ def forward(params, tokens, cfg: GPT2Config, aux_acc=None,
     ``blocks``: the rank's rows, or every row when ``pp_microbatches`` does
     not divide by the pp axis).  Under tp each rank's head gives its block
     of the vocabulary, and the blocks are gathered over tp: every tp rank
-    returns the whole vocabulary."""
+    returns the whole vocabulary.  Under fsdp: the rank's rows."""
+    params = _whole_tables(params, cfg)
     x = _trunk(params, tokens, cfg, aux_acc, pp_microbatches)
     _, tp = _axis_rank_and_size("tp")
     logits = _lm_head(_copy_to_tp(x, tp),
@@ -802,22 +865,24 @@ def loss_fn(params, batch, cfg: GPT2Config, pp_microbatches: int = 2,
     ``xent_chunks > 0`` takes ``_chunked_xent``, which never holds the
     (B, S, V) logits.
 
-    Over ranks (``_loss_axes``: dp, sp, pp) the batch is the rank's part
-    (``batch_shard`` on dp, ``seq_shard(tokens, mesh, overlap=1)`` on sp)
-    and the loss is the global mean on every rank: each rank's share, its
-    sum over the rows it holds divided by its token count times the ranks
-    of those axes, all-reduced over each of them.  The gradient a rank
-    gets is that of its share.  A pipeline whose microbatches do not
-    divide by the stages gives every stage all rows, and each stage's
-    share is then 1/pp of their sum (``pipeline_apply`` sums the stages'
-    cotangents back onto the last stage's output).  The MoE aux is the same
-    global value on every rank and is added once, after the all-reduce.
+    Over ranks (``_loss_axes``: dp, fsdp, sp, pp) the batch is the rank's
+    part (``batch_shard`` on dp and fsdp, ``seq_shard(tokens, mesh,
+    overlap=1)`` on sp) and the loss is the global mean on every rank: each
+    rank's share, its sum over the rows it holds divided by its token count
+    times the ranks of those axes, all-reduced over each of them.  The
+    gradient a rank gets is that of its share.  A pipeline whose
+    microbatches do not divide by the stages gives every stage all rows,
+    and each stage's share is then 1/pp of their sum (``pipeline_apply``
+    sums the stages' cotangents back onto the last stage's output).  The
+    MoE aux is the same global value on every rank and is added once,
+    after the all-reduce.
     Under tp the loss is a vocabulary-parallel cross-entropy
     (``_xent_terms``), the same on every tp rank; tp holds no other terms
     of it."""
     tokens = batch["tokens"]
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
     aux_acc: list = []
+    params = _whole_tables(params, cfg)
     x = _trunk(params, inputs, cfg, aux_acc, pp_microbatches)
     B, S, E = x.shape
     if B != targets.shape[0]:  # the rank's rows of the pipeline's output
@@ -907,9 +972,13 @@ _TP_SLICED = ("attn/c_attn/bias", "mlp/c_fc/bias")
 def _sum_grads(params, cfg: GPT2Config):
     """Each leaf's gradient summed over the loss's axes (``_loss_axes``),
     one all-reduce of the flattened gradients per axis: every leaf over dp
-    and sp; over pp the leaves outside ``blocks`` (wte and wpe take their
-    embedding terms from stage 0, wte and ln_f their head terms from each
-    stage's rows), not the stacked blocks, whose layers differ by stage.
+    and sp; over fsdp only the leaves fsdp does not cut (biases, LN scales:
+    ``fsdp_dim``), a cut leaf's gradient being the reduce-scatter of its
+    gather's cotangent, already summed over fsdp and the rank's block (an
+    all-reduce would add the other ranks' blocks into it); over pp the
+    leaves outside ``blocks`` (wte and wpe take their embedding terms from
+    stage 0, wte and ln_f their head terms from each stage's rows), not the
+    stacked blocks, whose layers differ by stage.
     Over tp only the biases of which each rank adds a slice (``c_attn``'s
     and ``c_fc``'s: zero elsewhere, so the sum is exact); every other
     leaf's gradient is already whole and the same bits on every tp rank,
@@ -918,18 +987,26 @@ def _sum_grads(params, cfg: GPT2Config):
     leaf's is whole on every ep rank, the expert outputs being gathered
     before the combine.  A leaf with no gradient (wpe beyond stage 0)
     counts as zeros."""
-    sums = [(axis, lambda name, a=axis: a != "pp"
-             or not name.startswith("blocks/"))
-            for axis, _ in _loss_axes(params, cfg)]
+    axes = [axis for axis, _ in _loss_axes(params, cfg)]
     if _axis_rank_and_size("tp")[1] > 1:
-        sums.append(("tp", lambda name: name.endswith(_TP_SLICED)))
-    if not sums:
+        axes.append("tp")
+    if not axes:
         return
+
+    def takes(axis, name, leaf):
+        if axis == "pp":
+            return not name.startswith("blocks/")
+        if axis == "fsdp":
+            return fsdp_dim(tuple(name.split("/")), tuple(leaf.shape)) is None
+        if axis == "tp":
+            return name.endswith(_TP_SLICED)
+        return True
+
     named = named_leaves(params)
     for t in (t for _, t in named if t.grad is None):
         t.grad = torch.zeros_like(t)
-    for axis, takes in sums:
-        grads = [t.grad for name, t in named if takes(name)]
+    for axis in axes:
+        grads = [t.grad for name, t in named if takes(axis, name, t)]
         with torch.no_grad():
             flat = c10d.allreduce(torch.cat([g.reshape(-1) for g in grads]),
                                   axis)

@@ -1,6 +1,5 @@
 """ShardingConfig: declarative parallelism strategy → per-dimension mesh
-axes — counterpart of ``ray_tpu/parallel/sharding.py``, the part that
-sequence parallelism needs.
+axes — counterpart of ``ray_tpu/parallel/sharding.py``.
 
 Logical dims used by the bundled models (ray_tpu_torch/models/*):
   "batch"   → (dp, fsdp)     activations' leading dim
@@ -19,13 +18,13 @@ data: ``batch_shard`` cuts a rank's rows on the "batch" rule (dp, fsdp),
 ``seq_shard`` its sequence chunk on sp.  ``shard_params`` gives a rank its
 local parameters: a leaf whose spec names ``pp`` (the "stage" dim of
 pipeline-stacked blocks) is narrowed to the rank's layers, a dim on ``tp``
-("heads", "mlp", "vocab") or ``ep`` (the MoE "expert" dim) to the rank's
-block of it, and a leaf replicated on every axis comes back whole;
-``param_shardings`` gives every leaf's spec, and ``gather_params`` the
-whole leaves back from the ranks' shards (what reading a global
-``jax.Array`` gives).  Placing parameters on fsdp raises
-``NotImplementedError``, and so do ``named_sharding`` and ``constraint``,
-which nothing of the port needs.
+("heads", "mlp", "vocab"), ``ep`` (the MoE "expert" dim) or ``fsdp`` (the
+"embed" dim, ``fsdp_dim``) to the rank's block of it, and a leaf
+replicated on every axis comes back whole; ``param_shardings`` gives every
+leaf's spec, and ``gather_params`` the whole leaves back from the ranks'
+shards (what reading a global ``jax.Array`` gives).  ``named_sharding``
+and ``constraint`` raise ``NotImplementedError``: nothing of the port
+needs them.
 """
 
 from __future__ import annotations
@@ -52,10 +51,8 @@ DEFAULT_RULES: Dict[str, Any] = {
     None: None,
 }
 
-_PLACEMENT = ("placing tensors on the fsdp axis is not ported yet "
-              "(ROADMAP.md §A9c: fsdp)")
 _NAMED = ("named_sharding and constraint are not ported (ROADMAP.md §A9c: "
-          "nothing of the port places a tensor by them yet)")
+          "nothing of the port places a tensor by them)")
 
 
 @dataclass
@@ -168,21 +165,25 @@ def infer_param_logical_dims(path: Tuple[str, ...], shape: Tuple[int, ...]):
     return tuple([None] * nd)
 
 
+def fsdp_dim(path: Tuple[str, ...], shape: Tuple[int, ...]):
+    """The dim of a parameter that the "embed" rule places on fsdp (its
+    inferred "embed" dim: wte's and wpe's columns, the rows of ``c_attn``,
+    ``c_fc`` and the router, the columns of both ``c_proj``, the MoE
+    ``wi``'s and ``wo``'s embed dims), or None for a leaf fsdp does not
+    cut (biases, LN scales)."""
+    dims = infer_param_logical_dims(path, shape)
+    return dims.index("embed") if "embed" in dims else None
+
+
 def _leaf_specs(params, config: ShardingConfig, mesh: DeviceMesh,
                 path=()):
     """{name: (leaf, spec, path)} over the nested dicts, with the spec of
-    each leaf's inferred logical dims; raises for a spec that names
-    fsdp."""
+    each leaf's inferred logical dims."""
     if isinstance(params, dict):
         return {k: _leaf_specs(v, config, mesh, path + (k,))
                 for k, v in params.items()}
     dims = infer_param_logical_dims(path, tuple(params.shape))
-    spec = config.spec(mesh, *dims)
-    named = {a for part in spec if part is not None
-             for a in (part if isinstance(part, tuple) else (part,))}
-    if "fsdp" in named:
-        raise NotImplementedError(f"{'/'.join(path)}: {_PLACEMENT}")
-    return params, spec, path
+    return params, config.spec(mesh, *dims), path
 
 
 def _map_specs(fn, tree):
@@ -214,18 +215,19 @@ def shard_params(params, config: ShardingConfig, mesh: DeviceMesh):
     consecutive layers, a dim on ``tp`` to the rank's contiguous block of
     it (the rows of wte and wpe, ``c_fc``'s columns, both ``c_proj``'s
     rows, the MoE ``wi``/``wo`` hidden dim), the MoE ``wi``/``wo`` expert
-    dim on ``ep`` to the rank's n / ep consecutive experts: JAX's device
-    shard at the same mesh coordinates.  One exception, by design: the
-    fused (E, 3E) ``c_attn`` kernel, whose columns are [q | k | v], is cut
-    by heads.  tp rank t
-    holds [q_t | k_t | v_t], q_t the columns [t E/tp, (t+1) E/tp) of the q
-    block and the same of k and v, so its (E, 3E/tp) leaf splits into its
-    heads' q, k and v as the whole leaf does; JAX's shard is 3E/tp
-    contiguous columns instead (at tp = 2 all of q and half of k), and
-    ``param_shardings`` still gives JAX's spec.  Every cut is a copy; a
-    leaf replicated on every axis comes back whole, the given tensor.
-    Raises ``ValueError`` for a dim that does not divide by its axis (as
-    ``device_put`` does), ``NotImplementedError`` for fsdp."""
+    dim on ``ep`` to the rank's n / ep consecutive experts, the "embed" dim
+    on ``fsdp`` (``fsdp_dim``) to the rank's contiguous block of it: JAX's
+    device shard at the same mesh coordinates.  One exception, by design:
+    the fused (E, 3E) ``c_attn`` kernel, whose columns are [q | k | v], is
+    cut by heads on tp (its rows on fsdp are a contiguous block, as every
+    fsdp cut).  tp rank t holds [q_t | k_t | v_t], q_t the columns
+    [t E/tp, (t+1) E/tp) of the q block and the same of k and v, so its
+    (E, 3E/tp) leaf splits into its heads' q, k and v as the whole leaf
+    does; JAX's shard is 3E/tp contiguous columns instead (at tp = 2 all of
+    q and half of k), and ``param_shardings`` still gives JAX's spec.
+    Every cut is a copy; a leaf replicated on every axis comes back whole,
+    the given tensor.  Raises ``ValueError`` for a dim that does not divide
+    by its axis (as ``device_put`` does)."""
     shape = mesh_shape(mesh)
 
     def local(leaf, spec, path):
@@ -245,29 +247,27 @@ def shard_params(params, config: ShardingConfig, mesh: DeviceMesh):
                 c = _divisible(path, leaf, dim, 3 * n)
                 leaf = leaf.unflatten(dim, (3, n, c)).select(
                     dim + 1, r).flatten(dim, dim + 1).clone()
-            elif part in ("tp", "ep"):
+            else:
                 c = _divisible(path, leaf, dim, n)
                 leaf = leaf.narrow(dim, r * c, c).clone()
-            else:  # dp and sp name no parameter dim
-                raise NotImplementedError(_PLACEMENT)
         return leaf
 
     return _map_specs(local, _leaf_specs(params, config, mesh))
 
 
 def gather_params(local, config: ShardingConfig, mesh: DeviceMesh):
-    """The whole leaves on every rank from each rank's tp and ep shards (of
-    parameters or of their gradients, named as the parameters): every dim
-    ``shard_params`` cut on tp or ep all-gathered over that axis, the
-    ``c_attn`` kernel put back from head order into [q | k | v].  What
-    reading a global ``jax.Array`` gives, for the port's tests and checks;
-    a stage cut on pp stays the rank's stage.  Every rank calls it
-    together."""
+    """The whole leaves on every rank from each rank's fsdp, ep and tp
+    shards (of parameters or of their gradients, named as the parameters):
+    every dim ``shard_params`` cut on an axis other than pp all-gathered
+    over that axis, the ``c_attn`` kernel put back from head order into
+    [q | k | v].  What reading a global ``jax.Array`` gives, for the port's
+    tests and checks; a stage cut on pp stays the rank's stage.  Every
+    rank calls it together."""
     shape = mesh_shape(mesh)
-    axes = [a for a in ("ep", "tp") if shape.get(a, 1) > 1]
-    if not axes:
+    groups = {a: mesh.get_group(a) for a, n in shape.items()
+              if a != "pp" and n > 1}
+    if not groups:
         return local
-    groups = {a: mesh.get_group(a) for a in axes}
 
     def whole(leaf, spec, path):
         for dim, part in enumerate(spec):

@@ -5,7 +5,8 @@ two-rank ring (gloo, both ranks on the card) through them, a two-stage
 pipeline of both ranks on the card, a tp rank's heads as strided views of
 its qkv buffer, a two-rank tensor-parallel GPT-2 forward, and the MoE over
 two ranks: its experts on ep, and its routing with the global capacity
-under dp.
+under dp; GPT-2 XL's attention shape on an fsdp = 2 rank and a two-rank
+fsdp train step.
 
 Marked ``cuda``: every test skips where there is no CUDA device.  On a
 machine with one (no JAX needed, hence ``--noconftest``):
@@ -535,13 +536,10 @@ def test_two_rank_gloo_ring_on_one_card(cuda, tmp_path, causal):
     assert max(vs_plain + vs_kernel) <= 1, (vs_plain, vs_kernel)
 
 
-@pytest.mark.parametrize("B", [4, 2])
-def test_pp_microbatch_shapes_match_plain(cuda, B):
-    """The pipeline's microbatch shapes on GPT-2 124M (bshd, H = 12,
-    S = 1024, D = 64, causal): o and lse against the plain forward, dq, dk,
-    dv against the plain backward on the same (o, lse, do), with
-    chip_smoke.py's per-element bounds."""
-    H, S, D = 12, 1024, 64
+def _bshd_causal_matches_plain(cuda, B, H, S=1024, D=64):
+    """o and lse against the plain forward, dq, dk, dv against the plain
+    backward on the same (o, lse, do), with chip_smoke.py's per-element
+    bounds, at (B, S, H, D) bshd causal."""
     res, do = _bwd_case(cuda, (B, S, H, D), True, "bshd")
     q, k, v, o, lse = res
     qh, kh, vh, oh, doh = (t.transpose(1, 2) for t in (q, k, v, o, do))
@@ -558,6 +556,20 @@ def test_pp_microbatch_shapes_match_plain(cuda, B):
         bound = G_RTOL * r.float().abs() + G_PTOL[name] * m
         assert ((g.transpose(1, 2).float() - r.float()).abs()
                 <= bound).all(), name
+
+
+@pytest.mark.parametrize("B", [4, 2])
+def test_pp_microbatch_shapes_match_plain(cuda, B):
+    """The pipeline's microbatch shapes on GPT-2 124M (bshd, H = 12,
+    S = 1024, D = 64, causal) against the plain forward and backward."""
+    _bshd_causal_matches_plain(cuda, B, 12)
+
+
+def test_xl_fsdp_rank_shape_matches_plain(cuda):
+    """A GPT-2 XL fsdp = 2 rank's shape at B = 16 (its 8 rows of 25 heads,
+    S = 1024, D = 64, bshd causal) against the plain forward and
+    backward."""
+    _bshd_causal_matches_plain(cuda, 8, 25)
 
 
 @pytest.mark.parametrize("B", [2, 1])
@@ -840,3 +852,76 @@ def test_two_rank_moe_on_one_card(cuda, tmp_path, axes):
         assert abs(got_loss - loss) <= MOE_LOSS_TOL
         for g, ref in zip(got_grads, grads):
             assert ((g - ref).norm() / ref.norm()).item() <= MOE_GRAD_REL_TOL
+
+
+FSDP_TINY = replace(TP_TINY, remat=True)
+#: AdamW's lr in the fsdp step test: one step moves an element by at most
+#: about lr (1 + weight decay) on either side, so the two sides' parameters
+#: after it part by at most 2 lr wherever their gradients' signs part
+FSDP_LR = 1e-3
+
+
+def _fsdp_tokens():
+    return torch.arange(4 * 101, device="cuda").view(4, 101) * 5 % 512
+
+
+def _fsdp_step(params, batch, mesh=None):
+    """The loss (chunked head) and every leaf's gradient of FSDP_TINY, then
+    one AdamW step (``make_train_step``) on the same batch."""
+    loss = gpt2.loss_fn(gpt2._cast_weights(params, FSDP_TINY.compute_dtype),
+                        batch, FSDP_TINY, xent_chunks=2)
+    loss.backward()
+    gpt2._sum_grads(params, FSDP_TINY)
+    grads = grad_tree(params)
+    for leaf in gpt2.param_leaves(params):
+        leaf.grad = None
+    opt = torch.optim.AdamW(gpt2.param_leaves(params), lr=FSDP_LR)
+    gpt2.make_train_step(FSDP_TINY, opt, xent_chunks=2)(params, batch)
+    return loss.item(), grads
+
+
+def _rank_fsdp_step():
+    """An fsdp rank's loss, gradients and parameters after one step, each
+    leaf put back whole by ``gather_params``, on the host."""
+    import torch.distributed as dist
+
+    config = ShardingConfig(fsdp=dist.get_world_size())
+    mesh = config.build_mesh()
+    params = gpt2.init_params(torch.Generator(device="cuda").manual_seed(3),
+                              FSDP_TINY)
+    local = shard_params(params, config, mesh)
+    for leaf in gpt2.param_leaves(local):
+        leaf.requires_grad_(True)
+    batch = {"tokens": batch_shard(_fsdp_tokens(), mesh)}
+    with use_mesh(mesh):
+        loss, grads = _fsdp_step(local, batch)
+        whole = [gather_params(t, config, mesh) for t in (grads, local)]
+    return loss, [[t.detach().cpu() for t in gpt2.param_leaves(w)]
+                  for w in whole]
+
+
+def test_two_rank_fsdp_step_on_one_card(cuda, tmp_path):
+    """fsdp = 2 with remat and the chunked head on two ranks of cuda:0
+    (gloo), each rank its rows and its block of every leaf's embed dim:
+    the gathers run again in the recomputed blocks on autograd's device
+    thread, which must find the mesh.  The loss and every gradient
+    (gathered) against one rank's on the whole batch with chip_smoke.py
+    phase 4's tolerances, and the parameters after one AdamW step within
+    2 lr of one rank's step."""
+    with RankPool(2, f"file://{tmp_path}/rendezvous", backend="gloo",
+                  device="cuda:0", timeout_s=120.0) as pool:
+        res = pool.run(_rank_fsdp_step)
+    params = gpt2.init_params(torch.Generator(device="cuda").manual_seed(3),
+                              FSDP_TINY)
+    for leaf in gpt2.param_leaves(params):
+        leaf.requires_grad_(True)
+    loss, grads = _fsdp_step(params, {"tokens": _fsdp_tokens()})
+    ref_grads = [g.cpu() for g in gpt2.param_leaves(grads)]
+    ref_params = [t.detach().cpu() for t in gpt2.param_leaves(params)]
+    for got_loss, (got_grads, got_params) in res:
+        assert abs(got_loss - loss) <= TRAIN_LOSS_TOL
+        for g, r in zip(got_grads, ref_grads):
+            assert ((g - r).norm() / r.norm()).item() <= TRAIN_GRAD_REL_TOL
+        for p, r in zip(got_params, ref_params):
+            assert (p - r).abs().max().item() <= 2 * FSDP_LR
+    assert all(torch.equal(a, b) for a, b in zip(res[0][1][1], res[1][1][1]))

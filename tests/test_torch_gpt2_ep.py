@@ -170,7 +170,7 @@ def _run_moe(pool, axes, attention="dense", M=2):
                                rank_fn=_rank_train_routes, **MOE)
     assert all(r["dropped"] > 0 for r in results), [
         r["dropped"] for r in results]
-    if "dp" in axes or "sp" in axes:  # tokens spread over ranks
+    if {"dp", "fsdp", "sp"} & set(axes):  # tokens spread over ranks
         assert any(r["per_rank"] > 0 for r in results)
     return params, jc, results
 
@@ -297,17 +297,13 @@ def _jax_positions(x, router, jc, monkeypatch):
 ROUTE_MESHES = [{"dp": 2}, {"sp": 2}, {"dp": 2, "sp": 2}]
 
 
-@pytest.mark.parametrize("case", ["tied_columns", "all_tied"])
-@pytest.mark.parametrize("axes", ROUTE_MESHES,
-                         ids=["-".join(f"{k}{v}" for k, v in a.items())
-                              for a in ROUTE_MESHES])
-def test_moe_route_positions_are_jax_global_ones(pool, axes, case,
-                                                 monkeypatch):
+def _route_positions_match_jax(pool, axes, case, monkeypatch):
     """``_moe_route`` on each rank's rows and positions (x of (4, 16, 64),
     capacity factor ``CF``, ties forced: experts 0 and 3 tie for every token,
     or all four do) against JAX's global choices, positions and keeps,
-    exactly; the same routing on a rank alone (a capacity over its own
-    tokens) gives other positions and keeps."""
+    exactly (a rank's rows are its block of the (dp, fsdp) blocks, dp
+    major, its positions its sp chunk); the same routing on a rank alone (a
+    capacity over its own tokens) gives other positions and keeps."""
     from ray_tpu.models import gpt2 as jg
 
     x = np.random.default_rng(3).standard_normal((4, 16, 64)).astype(
@@ -327,10 +323,11 @@ def test_moe_route_positions_are_jax_global_ones(pool, axes, case,
     assert (~keep).any() and keep.any()
     grid = lambda a: a.reshape(4, 16, -1)  # noqa: E731
     n = int(np.prod(list(axes.values())))
+    n_fsdp = axes.get("fsdp", 1)
     differs = []
     for r in pool(n).run(_rank_route, axes, x, router, tc):
-        rows = np.arange(4).reshape(axes.get("dp", 1), -1)[
-            r["where"].get("dp", 0)]
+        block = r["where"].get("dp", 0) * n_fsdp + r["where"].get("fsdp", 0)
+        rows = np.arange(4).reshape(axes.get("dp", 1) * n_fsdp, -1)[block]
         c = 16 // axes.get("sp", 1)
         cols = slice(r["where"].get("sp", 0) * c,
                      (r["where"].get("sp", 0) + 1) * c)
@@ -344,6 +341,16 @@ def test_moe_route_positions_are_jax_global_ones(pool, axes, case,
         differs.append(((alone_pos != mine_pos).any(),
                         (alone_keep != mine_keep).any()))
     assert any(p for p, _ in differs) and any(k for _, k in differs)
+
+
+@pytest.mark.parametrize("case", ["tied_columns", "all_tied"])
+@pytest.mark.parametrize("axes", ROUTE_MESHES,
+                         ids=["-".join(f"{k}{v}" for k, v in a.items())
+                              for a in ROUTE_MESHES])
+def test_moe_route_positions_are_jax_global_ones(pool, axes, case,
+                                                 monkeypatch):
+    """``_route_positions_match_jax`` at dp = 2, sp = 2 and dp x sp."""
+    _route_positions_match_jax(pool, axes, case, monkeypatch)
 
 
 AUX_MESHES = [{"dp": 2}, {"ep": 2}, {"dp": 2, "ep": 2}]

@@ -216,9 +216,11 @@ def _rank_train(tc, np_params, tokens, axes, M, xent_chunks, steps):
 # ---------------------------------------------------------------------------
 
 def _rank_rows(where, axes, M, n_rows):
-    """The global rows a rank's logits hold."""
-    rows = np.arange(n_rows).reshape(axes.get("dp", 1), -1)[
-        where.get("dp", 0)]
+    """The global rows a rank's logits hold: its block of the "batch" rule's
+    (dp, fsdp) blocks, dp major, and under pp its stage's part of them."""
+    n_fsdp = axes.get("fsdp", 1)
+    block = where.get("dp", 0) * n_fsdp + where.get("fsdp", 0)
+    rows = np.arange(n_rows).reshape(axes.get("dp", 1) * n_fsdp, -1)[block]
     n_pp = axes.get("pp", 1)
     if n_pp > 1 and M % n_pp == 0:
         rows = rows.reshape(n_pp, -1)[where["pp"]]
@@ -337,8 +339,9 @@ def test_pipelined_moe_matches_jax_pipeline(pool):
 
 
 #: the mesh of each case of ``_rank_raises``
-RAISE_AXES = {"moe_pp_dp": {"pp": 2, "dp": 2}, "pp_ring": {"pp": 2},
-              "pp_ulysses": {"pp": 2}, "fsdp": {"fsdp": 2},
+RAISE_AXES = {"moe_pp_dp": {"pp": 2, "dp": 2},
+              "moe_pp_fsdp": {"pp": 2, "fsdp": 2}, "pp_ring": {"pp": 2},
+              "pp_ulysses": {"pp": 2}, "fsdp_whole": {"fsdp": 2},
               "tp_heads": {"tp": 2}, "tp_whole": {"tp": 2},
               "ep_experts": {"ep": 2}, "ep_whole": {"ep": 2},
               "batch_vs_M": {"pp": 2}, "layers_vs_pp": {"pp": 2},
@@ -352,7 +355,7 @@ def _rank_raises(case):
     axes = RAISE_AXES[case]
     config = ShardingConfig(**axes)
     mesh = config.build_mesh(device_type="cpu")
-    if case in ("moe_pp_dp", "ep_whole"):
+    if case in ("moe_pp_dp", "moe_pp_fsdp", "ep_whole"):
         cfg = replace(cfg, moe_experts=4)
     if case == "ep_experts":
         cfg = replace(cfg, moe_experts=3)
@@ -368,8 +371,8 @@ def _rank_raises(case):
     try:
         if "pp" in axes:
             params = tg.to_pipeline_params(params, cfg)
-        if case not in ("whole_stack", "tp_whole", "ep_experts",
-                        "ep_whole"):
+        if case not in ("whole_stack", "tp_whole", "fsdp_whole",
+                        "ep_experts", "ep_whole"):
             params = shard_params(params, config, mesh)
         with use_mesh(mesh):
             tg.loss_fn(params, {"tokens": tokens}, cfg,
@@ -380,9 +383,10 @@ def _rank_raises(case):
 
 
 RAISES = {"moe_pp_dp": ("NotImplementedError", "A10b"),
+          "moe_pp_fsdp": ("NotImplementedError", "A10b"),
           "pp_ring": ("NotImplementedError", "A11: pp composed with sp"),
           "pp_ulysses": ("NotImplementedError", "A11: pp composed with sp"),
-          "fsdp": ("NotImplementedError", "A9c"),
+          "fsdp_whole": ("ValueError", "shard_params"),
           "tp_heads": ("ValueError", "n_head 1 does not divide by the tp"),
           "tp_whole": ("ValueError", "shard_params"),
           "ep_experts": ("ValueError",

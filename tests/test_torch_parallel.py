@@ -285,21 +285,10 @@ def test_infer_param_logical_dims_matches_jax(moe):
     assert n > 30
 
 
-@pytest.mark.parametrize("axes,moe", [({"fsdp": 2}, 0)], ids=["fsdp"])
-def test_placement_is_not_ported_yet(pool, axes, moe):
-    """Placing GPT-2's leaves on fsdp raises on every rank, pointing at
-    ROADMAP; so do named_sharding and constraint."""
-    import jax
-
-    from ray_tpu.models import gpt2 as jg
-
-    cfg = jg.GPT2Config(**{**jg.GPT2_TINY.__dict__, "moe_experts": moe})
-    params = jax.tree.map(np.asarray, jg.init_params(
-        jax.random.PRNGKey(0), cfg))
-    for got in pool(2).run(_rank_placement, axes, params):
-        assert got[:2] == ("raised", "NotImplementedError"), got
-        assert "ROADMAP" in got[2], got
-    config = ShardingConfig(**axes)
+def test_named_sharding_and_constraint_are_not_ported():
+    """named_sharding and constraint raise, pointing at ROADMAP: nothing of
+    the port places a tensor by them."""
+    config = ShardingConfig(fsdp=2)
     for call in (lambda: config.named_sharding(None, "embed"),
                  lambda: config.constraint(None, None, "embed")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -357,7 +346,8 @@ def _placement_matches_jax(pool, axes, moe):
     GPT2_TINY with 4 layers: ``param_shardings`` against JAX's specs, every
     local leaf but the fused ``c_attn`` kernel under tp against the shard
     JAX puts on the device at the same mesh coordinates, that kernel
-    against the rank's head group's q, k and v columns, and every leaf
+    against the rank's head group's q, k and v columns (under fsdp, of
+    the rank's block of its rows), and every leaf
     after ``gather_params`` against the whole leaf (under pp: the rank's
     stage of it).  Returns the count of ``c_attn`` kernels cut by heads."""
     import jax
@@ -404,6 +394,10 @@ def _placement_matches_jax(pool, axes, moe):
                 heads = np.concatenate(
                     [full[..., j * E + t * e:j * E + (t + 1) * e]
                      for j in range(3)], -1)
+                if "fsdp" in axes:
+                    c = heads.shape[-2] // axes["fsdp"]
+                    heads = heads[..., where["fsdp"] * c:
+                                  (where["fsdp"] + 1) * c, :]
                 np.testing.assert_array_equal(got[name].numpy(), heads,
                                               err_msg=name)
                 assert got[name].shape == np.asarray(shard).shape
@@ -441,12 +435,32 @@ def test_ep_placement_matches_jax(pool, axes, moe):
     _placement_matches_jax(pool, axes, moe)
 
 
+@pytest.mark.parametrize("axes", [{"fsdp": 2}, {"fsdp": 2, "tp": 4},
+                                  {"pp": 2, "fsdp": 2}, {"fsdp": 2, "ep": 2}])
+@pytest.mark.parametrize("moe", [0, 4])
+def test_fsdp_placement_matches_jax(pool, axes, moe):
+    """``shard_params`` on fsdp (every leaf's "embed" dim: the rank's
+    contiguous block of it; biases and LN scales whole), alone, with tp
+    (the mesh of JAX's ``test_shard_params_places_leaves``), pp and ep,
+    dense and MoE, against JAX's shards and specs
+    (``_placement_matches_jax``); ``gather_params`` gives the whole leaves
+    back."""
+    cut = _placement_matches_jax(pool, axes, moe)
+    assert (cut > 0) == ("tp" in axes)
+
+
 TP_DIVIDES = {"wte rows": ({"tp": 4}, {"wte": {"embedding": (10, 8)}}),
               "c_fc columns": ({"tp": 4},
                                {"mlp": {"c_fc": {"kernel": (8, 10)}}}),
               "stacked layers": ({"pp": 2, "tp": 2}, {"blocks": {
                   "attn": {"c_attn": {"kernel": (3, 8, 24)}}}}),
-              "experts on ep": ({"ep": 4}, {"moe": {"wi": (6, 8, 32)}})}
+              "experts on ep": ({"ep": 4}, {"moe": {"wi": (6, 8, 32)}}),
+              "wte columns on fsdp": ({"fsdp": 4},
+                                      {"wte": {"embedding": (8, 10)}}),
+              "c_attn rows on fsdp": ({"fsdp": 2, "tp": 2}, {"attn": {
+                  "c_attn": {"kernel": (7, 24)}}}),
+              "expert embed on fsdp": ({"fsdp": 4},
+                                       {"moe": {"wo": (2, 8, 6)}})}
 
 
 @pytest.mark.parametrize("case", list(TP_DIVIDES))
