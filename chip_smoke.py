@@ -174,8 +174,27 @@ Phases; any failure exits non-zero:
    peak, and its MFU is printed), 124M and the MoE at fsdp = 2, and 124M at
    dp = 2 x fsdp = 2, fsdp = 2 x tp = 2 and pp = 2 x fsdp = 2 (M = 4), 5
    steps each, printed and held as phase 10's.  Phases 2 and 2b also run an
-   XL fsdp = 2 rank's shape (B=8, H=25, S=1024, bshd).  Each phase's
-   seconds are printed after it.
+   XL fsdp = 2 rank's shape (B=8, H=25, S=1024, bshd);
+13. moe pp — the MoE (8 experts, 12 layers) under pipeline parallelism with
+   dp and with fsdp over four ranks that share the card (``RankPool`` on
+   cuda:0, one gloo group), each rank its block of every global
+   microbatch's rows as the reference groups them: at pp = 2 x dp = 2 and
+   pp = 2 x fsdp = 2 (B=8, S=1024, M = 4) each rank's logits against the
+   single-rank kernels run on each global microbatch alone with phase 3's
+   gate, the choices dropped in each (microbatch, layer) summed over the
+   ranks (must equal that run's) and the ranks' routes (that run replays
+   them where they part); then AdamW steps at B=16, S=1024, M = 4 (a
+   warm-up, then 5 timed) in both layouts, printed and held as phase 10's,
+   with the schedule's bubble fraction.
+
+The timed runs of phases 8-12 on four ranks train ``FOUR_RANK_DEPTH``
+(4) layers of GPT-2 124M's widths (or its MoE's): ring sp = 4, pp = 4 and
+dp x pp, dp x tp, tp x sp and pp x tp, dp x ep, ep x tp and pp x ep, dp x
+fsdp, fsdp x tp and pp x fsdp; their batches, sequences, widths and timed
+steps are as written above, and every check keeps its depth.  Phases 8-13
+share one pool of 2 ranks and one of 4 (``CardPool``), started once
+("8-13 ranks up"); each rank releases its cached device memory after
+every task.  Each phase's seconds are printed after it.
 
 The last two lines are a JSON object of per-kernel numbers and the
 result line ``{"ok": true, "device": {...}}``.  ``--profile`` adds
@@ -1577,6 +1596,56 @@ def phase_xl(seed, profile):
 # phase 8: sequence parallelism
 # ---------------------------------------------------------------------------
 
+#: n_layer of phases 8-12's timed runs on four ranks (the two-rank runs,
+#: the checks and phase 13 keep GPT-2 124M's 12): the script's phases took
+#: 664-667 s of its 1200 s limit on an H100 80GB HBM3 (700.00 W) with
+#: every run at 12; width, batch, sequence and the 5 timed steps stay
+FOUR_RANK_DEPTH = 4
+
+
+def rank_depth(n_ranks):
+    """n_layer of a timed run over ``n_ranks`` ranks in phases 8-12."""
+    return gpt2.GPT2_SMALL.n_layer if n_ranks < 4 else FOUR_RANK_DEPTH
+
+
+def _then_free(fn, args):
+    """A rank's task, then its cached device memory released: the idle
+    pool's ranks must not hold the card's memory while the other pool's
+    run."""
+    try:
+        return fn(*args)
+    finally:
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+class CardPool(RankPool):
+    """A ``RankPool`` of ranks on cuda:0 in one gloo group (NCCL refuses
+    two ranks on one card) whose every task releases its cached device
+    memory after it (``_then_free``).  Phases 8-13 share one pool of 2
+    ranks and one of 4: a pool takes ~8 s to come up."""
+
+    def __init__(self, n, rendezvous):
+        super().__init__(n, f"file://{rendezvous}", backend="gloo",
+                         device="cuda:0", timeout_s=600.0)
+
+    def run(self, fn, *args, timeout_s=None):
+        return super().run(_then_free, fn, args, timeout_s=timeout_s)
+
+
+def start_pools(tmp):
+    """Phases 8-13's pools, {2: CardPool, 4: CardPool}, rendezvous in
+    ``tmp``."""
+    pools = {}
+    for n in (2, 4):
+        t0 = time.perf_counter()
+        pools[n] = CardPool(n, f"{tmp}/rendezvous{n}")
+        print(f"[ranks] {n} ranks on cuda:0 up in "
+              f"{time.perf_counter() - t0:.2f} s; one gloo group; the pool "
+              f"serves phases 8-13", flush=True)
+    return pools
+
+
 #: ranks of phase 8's process groups, all on cuda:0
 SP_WORLDS = (2, 4)
 #: timed train steps a configuration of phase 8 takes after its warm-up
@@ -1806,14 +1875,15 @@ def params_digest(params) -> str:
     return h.hexdigest()
 
 
-def sp_train_rank(seed, variant, steps):
-    """A warm-up and ``steps`` timed AdamW steps of GPT-2 124M at
-    SP_TRAIN_BATCH over the ranks (each its (B, S/n + 1) chunk of one batch):
-    losses, ms per step (CUDA events), the transport's share of it, peak
-    memory, launches, hops and a digest of the parameters after them."""
+def sp_train_rank(seed, variant, steps, n_layer):
+    """A warm-up and ``steps`` timed AdamW steps of GPT-2 124M's widths at
+    ``n_layer`` layers at SP_TRAIN_BATCH over the ranks (each its (B, S/n +
+    1) chunk of one batch): losses, ms per step (CUDA events), the
+    transport's share of it, peak memory, launches, hops and a digest of
+    the parameters after them."""
     set_precision()
     mesh = sp_mesh()
-    cfg = replace(gpt2.GPT2_SMALL, attention=variant)
+    cfg = replace(gpt2.GPT2_SMALL, attention=variant, n_layer=n_layer)
     params, tokens = train_setup(cfg, seed, *SP_TRAIN_BATCH)
     batch = {"tokens": seq_shard(tokens, mesh, overlap=1)}
     step = gpt2.make_train_step(cfg, adamw(params))
@@ -1845,13 +1915,14 @@ def sp_train_rank(seed, variant, steps):
 def sp_train(pool, n, seed, variant):
     """Phase 8's training in one configuration; returns the launches of
     the timed steps summed over the ranks."""
-    res = pool.run(sp_train_rank, seed, variant, SP_STEPS)
+    L = rank_depth(n)
+    res = pool.run(sp_train_rank, seed, variant, SP_STEPS, L)
     r0 = res[0]
-    (B, S), L = SP_TRAIN_BATCH, gpt2.GPT2_SMALL.n_layer
+    B, S = SP_TRAIN_BATCH
     launches = {k: sum(r["launches"][k] for r in res)
                 for k in r0["launches"]}
     want = (n * (n + 1) // 2 if variant == "ring" else n) * L * SP_STEPS
-    print(f"[sp] train {variant} sp={n} B={B} S={S}: losses "
+    print(f"[sp] train {variant} sp={n} B={B} S={S} n_layer={L}: losses "
           f"{' '.join(f'{x:.4f}' for x in r0['losses'])} (warm-up "
           f"{r0['warm_s']:.2f} s); rank 0 {r0['ms']:.3f} ms per step (CUDA "
           f"events over {SP_STEPS} steps), {B * S / (r0['ms'] / 1e3):.1f} "
@@ -1888,36 +1959,30 @@ def sp_train(pool, n, seed, variant):
     return launches
 
 
-def phase_sp(seed):
+def phase_sp(seed, pools):
     """Sequence parallelism: ring and Ulysses attention, GPT-2 124M's
     logits and gradients and its training over 2 and 4 ranks that share
-    the card (one gloo group; each rank a spawned process on cuda:0).
-    Returns the launches of the training runs, by configuration."""
+    the card (``pools``: one gloo group each; each rank a spawned process
+    on cuda:0).  Returns the launches of the training runs, by
+    configuration."""
     free_memory("sp")
     sp_chunk_checks(seed)
     launches = {}
     for n in SP_WORLDS:
-        t0 = time.perf_counter()
-        with tempfile.TemporaryDirectory() as tmp, RankPool(
-                n, f"file://{tmp}/rendezvous", backend="gloo",
-                device="cuda:0", timeout_s=600.0) as pool:
-            print(f"[sp] {n} ranks on cuda:0 up in "
-                  f"{time.perf_counter() - t0:.2f} s; transport: one gloo "
-                  "group (NCCL refuses two ranks on one card); all-reduce "
-                  "and all-to-all pass CUDA tensors to gloo, which stages "
-                  "them through host memory itself; the ring's hops "
-                  "(send/recv, which gloo cannot take from the card) are "
-                  "staged through pinned host buffers by "
-                  "ray_tpu_torch.collective._host_staged_buffers", flush=True)
+        pool = pools[n]
+        print(f"[sp] {n} ranks: all-reduce and all-to-all pass CUDA tensors "
+              "to gloo, which stages them through host memory itself; the "
+              "ring's hops (send/recv, which gloo cannot take from the card) "
+              "are staged through pinned host buffers by "
+              "ray_tpu_torch.collective._host_staged_buffers", flush=True)
+        for variant in ("ring", "ulysses"):
+            for causal in (True, False):
+                sp_check_attention(pool, n, seed, variant, causal)
+        if n == 2:
             for variant in ("ring", "ulysses"):
-                for causal in (True, False):
-                    sp_check_attention(pool, n, seed, variant, causal)
-            if n == 2:
-                for variant in ("ring", "ulysses"):
-                    sp_check_gpt2(pool, n, seed, variant)
-            for variant in ("ring", "ulysses") if n == 2 else ("ring",):
-                launches[f"sp_{variant}{n}"] = sp_train(pool, n, seed,
-                                                        variant)
+                sp_check_gpt2(pool, n, seed, variant)
+        for variant in ("ring", "ulysses") if n == 2 else ("ring",):
+            launches[f"sp_{variant}{n}"] = sp_train(pool, n, seed, variant)
     return launches
 
 
@@ -2111,13 +2176,15 @@ def pp_digests(stage):
     return out
 
 
-def pp_train_rank(seed, dp, M, moe, steps):
-    """A warm-up and ``steps`` timed AdamW steps of GPT-2 124M (or its MoE)
-    at PP_TRAIN_BATCH over a (dp, pp) mesh of the ranks: losses, ms per
-    step (CUDA events), the transport's share of it, peak memory,
-    launches, hops and digests of the parameters after them."""
+def pp_train_rank(seed, dp, M, moe, steps, n_layer):
+    """A warm-up and ``steps`` timed AdamW steps of GPT-2 124M's widths (or
+    its MoE's) at ``n_layer`` layers at PP_TRAIN_BATCH over a (dp, pp) mesh
+    of the ranks: losses, ms per step (CUDA events), the transport's share
+    of it, peak memory, launches, hops and digests of the parameters after
+    them."""
     set_precision()
-    cfg = replace(gpt2.GPT2_SMALL, moe_experts=8 if moe else 0)
+    cfg = replace(gpt2.GPT2_SMALL, moe_experts=8 if moe else 0,
+                  n_layer=n_layer)
     mesh, params, stage, tokens = pp_setup(cfg, seed, PP_TRAIN_BATCH, dp)
     del params
     batch = {"tokens": batch_shard(tokens, mesh)}
@@ -2152,12 +2219,15 @@ def pp_train_rank(seed, dp, M, moe, steps):
 def pp_train(pool, seed, dp, M, moe=False):
     """Phase 9's training in one layout; returns the launches of the timed
     steps summed over the ranks."""
-    res = pool.run(pp_train_rank, seed, dp, M, moe, PP_STEPS)
-    n, r0 = pool.world_size, res[0]
+    n = pool.world_size
+    L = rank_depth(n)
+    res = pool.run(pp_train_rank, seed, dp, M, moe, PP_STEPS, L)
+    r0 = res[0]
     pp = n // dp
-    (B, S), L = PP_TRAIN_BATCH, gpt2.GPT2_SMALL.n_layer
+    B, S = PP_TRAIN_BATCH
     tag = ("MoE " if moe else "") + (f"dp={dp} x " if dp > 1 else "") \
-        + f"pp={pp} M={M}"
+        + f"pp={pp} M={M}" + (f" n_layer={L}" if L != gpt2.GPT2_SMALL.n_layer
+                              else "")
     launches = {k: sum(r["launches"][k] for r in res)
                 for k in r0["launches"]}
     want = {"flash_fwd": 2 * L * M * dp * PP_STEPS,
@@ -2213,32 +2283,24 @@ def pp_train(pool, seed, dp, M, moe=False):
     return launches
 
 
-def phase_pp(seed):
+def phase_pp(seed, pools):
     """Pipeline parallelism (with data parallelism): GPT-2 124M's and its
     MoE's logits, loss and gradients and their training over 2 and 4
-    ranks that share the card (one gloo group).  Returns the launches of
-    the training runs, by layout."""
+    ranks that share the card (``pools``).  Returns the launches of the
+    training runs, by layout."""
     free_memory("pp")
-    launches = {}
-    for n in (2, 4):
-        t0 = time.perf_counter()
-        with tempfile.TemporaryDirectory() as tmp, RankPool(
-                n, f"file://{tmp}/rendezvous", backend="gloo",
-                device="cuda:0", timeout_s=600.0) as pool:
-            print(f"[pp] {n} ranks on cuda:0 up in "
-                  f"{time.perf_counter() - t0:.2f} s; one gloo group: the "
-                  "stage hops staged through pinned host buffers, the "
-                  "reduce-scatter, all-gather and all-reduces passed to "
-                  "gloo", flush=True)
-            if n == 2:
-                pp_check_gpt2(pool, 2, seed, 4)
-                pp_check_moe(pool, 2, seed, 4)
-                launches["pp2_m4"] = pp_train(pool, seed, 1, 4)
-                launches["moe_pp2_m4"] = pp_train(pool, seed, 1, 4, True)
-            else:
-                pp_check_gpt2(pool, 4, seed, 2)
-                launches["pp4_m8"] = pp_train(pool, seed, 1, 8)
-                launches["dp2_pp2_m4"] = pp_train(pool, seed, 2, 4)
+    print("[pp] the stage hops staged through pinned host buffers, the "
+          "reduce-scatter, all-gather and all-reduces passed to gloo",
+          flush=True)
+    pool = pools[2]
+    pp_check_gpt2(pool, 2, seed, 4)
+    pp_check_moe(pool, 2, seed, 4)
+    launches = {"pp2_m4": pp_train(pool, seed, 1, 4),
+                "moe_pp2_m4": pp_train(pool, seed, 1, 4, True)}
+    pool = pools[4]
+    pp_check_gpt2(pool, 4, seed, 2)
+    launches["pp4_m8"] = pp_train(pool, seed, 1, 8)
+    launches["dp2_pp2_m4"] = pp_train(pool, seed, 2, 4)
     return launches
 
 
@@ -2426,15 +2488,16 @@ MESH_MODELS = {"gpt2": (gpt2.GPT2_SMALL, 3e-4, "", 4),
                       7)}
 
 
-def mesh_train_rank(seed, axes, M, model, steps, batch_shape):
+def mesh_train_rank(seed, axes, M, model, steps, batch_shape, n_layer):
     """A warm-up and ``steps`` timed AdamW steps of ``model`` (a key of
-    MESH_MODELS) at ``batch_shape`` (B, S) over a mesh of ``axes``: losses,
-    ms per step (CUDA events), the transport's share of it and its bytes by
-    kind, peak memory, launches, hops and digests of the parameters after
-    them."""
+    MESH_MODELS) at ``n_layer`` layers and ``batch_shape`` (B, S) over a
+    mesh of ``axes``: losses, ms per step (CUDA events), the transport's
+    share of it and its bytes by kind, peak memory, launches, hops and
+    digests of the parameters after them."""
     set_precision()
     cfg, lr, _, _ = MESH_MODELS[model]
-    cfg = replace(cfg, attention="ring" if "sp" in axes else "flash")
+    cfg = replace(cfg, attention="ring" if "sp" in axes else "flash",
+                  n_layer=n_layer)
     config, mesh, params, local, tokens = tp_setup(cfg, seed, batch_shape,
                                                    axes)
     del params
@@ -2476,17 +2539,23 @@ def mesh_train_rank(seed, axes, M, model, steps, batch_shape):
 
 
 def mesh_train(pool, seed, axes, M=1, model="gpt2", phase="tp",
-               batch_shape=TP_TRAIN_BATCH, steps=TP_STEPS):
-    """Phases 10's to 12's training in one layout; returns the launches of
-    the timed steps summed over the ranks."""
-    res = pool.run(mesh_train_rank, seed, axes, M, model, steps, batch_shape)
-    r0 = res[0]
+               batch_shape=TP_TRAIN_BATCH, steps=TP_STEPS, depth=None):
+    """Phases 10's to 13's training in one layout, at ``depth`` layers (the
+    model's own by default); returns the launches of the timed steps summed
+    over the ranks."""
     cfg, _, tag, single_phase = MESH_MODELS[model]
-    (B, S), L = batch_shape, cfg.n_layer
+    (B, S), L = batch_shape, depth or cfg.n_layer
+    res = pool.run(mesh_train_rank, seed, axes, M, model, steps, batch_shape,
+                   L)
+    r0 = res[0]
     tag += " x ".join(
         f"{a}={n}" for a, n in axes.items()) + (" ring" if "sp" in axes
                                                 else "") \
-        + (f" M={M}" if "pp" in axes else "")
+        + (f" M={M}" if "pp" in axes else "") \
+        + (f" n_layer={L}" if L != cfg.n_layer else "")
+    bubble = (f"; the schedule's bubble fraction "
+              f"{schedule_info(M, axes['pp'])['bubble_fraction']:.4f} "
+              f"(schedule_info({M}, {axes['pp']}))" if "pp" in axes else "")
     launches = {k: sum(r["launches"][k] for r in res)
                 for k in r0["launches"]}
     want = {k: v * steps for k, v in mesh_want(axes, M, L,
@@ -2501,7 +2570,7 @@ def mesh_train(pool, seed, axes, M=1, model="gpt2", phase="tp",
           f"{r0['warm_s']:.2f} s); rank 0 {r0['ms']:.3f} ms per step (CUDA "
           f"events over {steps} steps), {tok_s:.1f} tokens/s over the "
           f"ranks{mfu} (single-rank step at B=16, phase {single_phase}: "
-          f"{single_ms:.3f} ms, peak {single_gb:.2f} GB); "
+          f"{single_ms:.3f} ms, peak {single_gb:.2f} GB){bubble}; "
           f"{len(res)} ranks share one card over gloo: these times measure "
           f"correctness and the kernels' work at the ranks' shapes, not "
           f"the speed of {phase}; card {card_line()}", flush=True)
@@ -2555,37 +2624,26 @@ def mesh_train(pool, seed, axes, M=1, model="gpt2", phase="tp",
     return launches
 
 
-def phase_tp(seed):
+def phase_tp(seed, pools):
     """Tensor parallelism: GPT-2 124M's and its MoE's logits, loss and
     gradients at tp = 2 and their training at tp = 2, MoE tp = 2, dp = 2 x
     tp = 2, tp = 2 x sp = 2 (ring) and pp = 2 x tp = 2 (M = 4), over ranks
-    that share the card (one gloo group).  Returns the launches of the
-    training runs, by layout."""
+    that share the card (``pools``).  Returns the launches of the training
+    runs, by layout."""
     free_memory("tp")
-    launches = {}
-    for n in (2, 4):
-        t0 = time.perf_counter()
-        with tempfile.TemporaryDirectory() as tmp, RankPool(
-                n, f"file://{tmp}/rendezvous", backend="gloo",
-                device="cuda:0", timeout_s=600.0) as pool:
-            print(f"[tp] {n} ranks on cuda:0 up in "
-                  f"{time.perf_counter() - t0:.2f} s; one gloo group: the "
-                  "row-parallel sums, the embedding's sum and the "
-                  "column-parallel inputs' gradient sums are all-reduces of "
-                  "CUDA tensors passed to gloo", flush=True)
-            if n == 2:
-                tp_check_gpt2(pool, seed)
-                tp_check_moe(pool, seed)
-                launches["tp2"] = mesh_train(pool, seed, {"tp": 2})
-                launches["moe_tp2"] = mesh_train(pool, seed, {"tp": 2},
-                                                 model="moe")
-            else:
-                launches["dp2_tp2"] = mesh_train(pool, seed,
-                                                 {"dp": 2, "tp": 2})
-                launches["tp2_sp2_ring"] = mesh_train(pool, seed,
-                                                      {"sp": 2, "tp": 2})
-                launches["pp2_tp2_m4"] = mesh_train(pool, seed,
-                                                    {"pp": 2, "tp": 2}, M=4)
+    print("[tp] the row-parallel sums, the embedding's sum and the "
+          "column-parallel inputs' gradient sums are all-reduces of CUDA "
+          "tensors passed to gloo", flush=True)
+    pool = pools[2]
+    tp_check_gpt2(pool, seed)
+    tp_check_moe(pool, seed)
+    launches = {"tp2": mesh_train(pool, seed, {"tp": 2}),
+                "moe_tp2": mesh_train(pool, seed, {"tp": 2}, model="moe")}
+    for key, axes, M in (("dp2_tp2", {"dp": 2, "tp": 2}, 1),
+                         ("tp2_sp2_ring", {"sp": 2, "tp": 2}, 1),
+                         ("pp2_tp2_m4", {"pp": 2, "tp": 2}, 4)):
+        launches[key] = mesh_train(pools[4], seed, axes, M,
+                                   depth=FOUR_RANK_DEPTH)
     return launches
 
 
@@ -2767,47 +2825,36 @@ def ep_check(pool, seed, axes, grads=False, phase="ep"):
         fail(f"MoE {tag}: the ranks' gathered gradients differ")
 
 
-def phase_ep(seed):
-    """The MoE across ranks that share the card (one gloo group): its
+def phase_ep(seed, pools):
+    """The MoE across ranks: its
     logits, dropped choices, loss and gradients at ep = 2, dp = 2, ring
     sp = 2 and ep = 2 x tp = 2 against the single-rank model, then its
     training at ep = 2, dp = 2, ring sp = 2, dp = 2 x ep = 2 (at B = 8),
-    ep = 2 x tp = 2 and pp = 2 x ep = 2 (M = 4).  Returns the launches of
-    the training runs, by layout."""
+    ep = 2 x tp = 2 and pp = 2 x ep = 2 (M = 4), over ranks that share
+    the card (``pools``).  Returns the launches of the training runs, by
+    layout."""
     free_memory("ep")
+    print("[ep] the expert outputs' all-gather over ep, the tokens' gradient "
+          "sums over ep, and the routing counts' all-gathers and the aux's "
+          "all-reduce over dp and sp", flush=True)
     launches = {}
-    for n in (2, 4):
-        t0 = time.perf_counter()
-        with tempfile.TemporaryDirectory() as tmp, RankPool(
-                n, f"file://{tmp}/rendezvous", backend="gloo",
-                device="cuda:0", timeout_s=300.0) as pool:
-            print(f"[ep] {n} ranks on cuda:0 up in "
-                  f"{time.perf_counter() - t0:.2f} s; one gloo group: the "
-                  "expert outputs' all-gather over ep, the tokens' gradient "
-                  "sums over ep, and the routing counts' all-gathers and "
-                  "the aux's all-reduce over dp and sp", flush=True)
-            if n == 2:
-                ep_check(pool, seed, {"ep": 2}, grads=True)
-                ep_check(pool, seed, {"dp": 2})
-                ep_check(pool, seed, {"sp": 2})
-                for key, axes in (("moe_ep2", {"ep": 2}),
-                                  ("moe_dp2", {"dp": 2}),
-                                  ("moe_sp2_ring", {"sp": 2})):
-                    launches[key] = mesh_train(
-                        pool, seed, axes, model="moe", phase="ep",
-                        batch_shape=EP_TRAIN_BATCH, steps=EP_STEPS)
-            else:
-                ep_check(pool, seed, {"ep": 2, "tp": 2}, grads=True)
-                for key, axes, M, shape in (
-                        ("moe_dp2_ep2", {"dp": 2, "ep": 2}, 1,
-                         EP_DP_TRAIN_BATCH),
-                        ("moe_ep2_tp2", {"ep": 2, "tp": 2}, 1,
-                         EP_TRAIN_BATCH),
-                        ("moe_pp2_ep2_m4", {"pp": 2, "ep": 2}, 4,
-                         EP_TRAIN_BATCH)):
-                    launches[key] = mesh_train(
-                        pool, seed, axes, M, model="moe", phase="ep",
-                        batch_shape=shape, steps=EP_STEPS)
+    pool = pools[2]
+    ep_check(pool, seed, {"ep": 2}, grads=True)
+    ep_check(pool, seed, {"dp": 2})
+    ep_check(pool, seed, {"sp": 2})
+    for key, axes in (("moe_ep2", {"ep": 2}), ("moe_dp2", {"dp": 2}),
+                      ("moe_sp2_ring", {"sp": 2})):
+        launches[key] = mesh_train(pool, seed, axes, model="moe", phase="ep",
+                                   batch_shape=EP_TRAIN_BATCH, steps=EP_STEPS)
+    pool = pools[4]
+    ep_check(pool, seed, {"ep": 2, "tp": 2}, grads=True)
+    for key, axes, M, shape in (
+            ("moe_dp2_ep2", {"dp": 2, "ep": 2}, 1, EP_DP_TRAIN_BATCH),
+            ("moe_ep2_tp2", {"ep": 2, "tp": 2}, 1, EP_TRAIN_BATCH),
+            ("moe_pp2_ep2_m4", {"pp": 2, "ep": 2}, 4, EP_TRAIN_BATCH)):
+        launches[key] = mesh_train(pool, seed, axes, M, model="moe",
+                                   phase="ep", batch_shape=shape,
+                                   steps=EP_STEPS, depth=FOUR_RANK_DEPTH)
     return launches
 
 
@@ -2874,7 +2921,7 @@ def fsdp_check_gpt2(pool, seed):
                   "blocks, the others summed over fsdp as the step sums them")
 
 
-def phase_fsdp(seed):
+def phase_fsdp(seed, pools):
     """fsdp: GPT-2 124M's logits, loss and gradients and the MoE's routes
     and drops at fsdp = 2 against the single-rank model, then training: GPT-2
     XL with remat, 124M and the MoE at fsdp = 2, and 124M at dp = 2 x fsdp =
@@ -2882,35 +2929,148 @@ def phase_fsdp(seed):
     share the card (one gloo group).  Returns the launches of the training
     runs, by layout."""
     free_memory("fsdp")
+    print("[fsdp] each leaf's all-gather over fsdp (bf16 in training) and "
+          "its cotangent's reduce-scatter are CUDA tensors passed to gloo",
+          flush=True)
     launches = {}
-    for n in (2, 4):
-        t0 = time.perf_counter()
-        with tempfile.TemporaryDirectory() as tmp, RankPool(
-                n, f"file://{tmp}/rendezvous", backend="gloo",
-                device="cuda:0", timeout_s=600.0) as pool:
-            print(f"[fsdp] {n} ranks on cuda:0 up in "
-                  f"{time.perf_counter() - t0:.2f} s; one gloo group: each "
-                  "leaf's all-gather over fsdp (bf16 in training) and its "
-                  "cotangent's reduce-scatter are CUDA tensors passed to "
-                  "gloo", flush=True)
-            if n == 2:
-                fsdp_check_gpt2(pool, seed)
-                ep_check(pool, seed, {"fsdp": 2}, phase="fsdp")
-                for key, model, steps in (("xl_fsdp2", "xl", FSDP_XL_STEPS),
-                                          ("fsdp2", "gpt2", FSDP_STEPS),
-                                          ("moe_fsdp2", "moe", FSDP_STEPS)):
-                    launches[key] = mesh_train(
-                        pool, seed, {"fsdp": 2}, model=model, phase="fsdp",
-                        batch_shape=FSDP_TRAIN_BATCH, steps=steps)
-            else:
-                for key, axes, M in (
-                        ("dp2_fsdp2", {"dp": 2, "fsdp": 2}, 1),
-                        ("fsdp2_tp2", {"fsdp": 2, "tp": 2}, 1),
-                        ("pp2_fsdp2_m4", {"fsdp": 2, "pp": 2}, 4)):
-                    launches[key] = mesh_train(
-                        pool, seed, axes, M, phase="fsdp",
-                        batch_shape=FSDP_TRAIN_BATCH, steps=FSDP_STEPS)
+    pool = pools[2]
+    fsdp_check_gpt2(pool, seed)
+    ep_check(pool, seed, {"fsdp": 2}, phase="fsdp")
+    for key, model, steps in (("xl_fsdp2", "xl", FSDP_XL_STEPS),
+                              ("fsdp2", "gpt2", FSDP_STEPS),
+                              ("moe_fsdp2", "moe", FSDP_STEPS)):
+        launches[key] = mesh_train(pool, seed, {"fsdp": 2}, model=model,
+                                   phase="fsdp", batch_shape=FSDP_TRAIN_BATCH,
+                                   steps=steps)
+    for key, axes, M in (("dp2_fsdp2", {"dp": 2, "fsdp": 2}, 1),
+                         ("fsdp2_tp2", {"fsdp": 2, "tp": 2}, 1),
+                         ("pp2_fsdp2_m4", {"fsdp": 2, "pp": 2}, 4)):
+        launches[key] = mesh_train(pools[4], seed, axes, M, phase="fsdp",
+                                   batch_shape=FSDP_TRAIN_BATCH,
+                                   steps=FSDP_STEPS, depth=FOUR_RANK_DEPTH)
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the MoE under pipeline parallelism with dp and fsdp
+# ---------------------------------------------------------------------------
+
+#: (B, S) of phase 13's checks and of its training, and its microbatches
+MOE_PP_CHECK_BATCH = (8, 1024)
+MOE_PP_TRAIN_BATCH = (16, 1024)
+MOE_PP_M = 4
+#: timed train steps a layout of phase 13 takes after its warm-up
+MOE_PP_STEPS = 5
+#: phase 13's layouts, four ranks each
+MOE_PP_LAYOUTS = {"moe_pp2_dp2_m4": {"dp": 2, "pp": 2},
+                  "moe_pp2_fsdp2_m4": {"fsdp": 2, "pp": 2}}
+
+
+def moe_pp_check_rank(seed, axes):
+    """The MoE (8 experts, 12 layers) at MOE_PP_CHECK_BATCH through the
+    pipeline over ``axes`` (pp with dp or fsdp, MOE_PP_M microbatches)
+    against the single-rank model run on each global microbatch alone (the
+    reference's function: each microbatch routed with its own capacity),
+    with the ranks' choices replayed there if any part: the rank's logits
+    (its rows, its stage's part) and the choices dropped in each
+    (microbatch, layer) summed over the ranks.  No two ranks route the same
+    tokens of a layer in these layouts (no ep, no tp): the ranks' routes
+    are held against that run's, whose share parted is printed."""
+    set_precision()
+    cfg = replace(gpt2.GPT2_SMALL, moe_experts=8)
+    M, L, k = MOE_PP_M, cfg.n_layer, cfg.moe_top_k
+    config, mesh, params, local, tokens = tp_setup(
+        cfg, seed, MOE_PP_CHECK_BATCH, axes)
+    batch = batch_shard(tokens, mesh)
+    pp = mesh_axis_size(mesh, "pp")
+    with use_mesh(mesh):
+        with torch.no_grad(), moe_probe() as rec:
+            logits = gpt2.forward(local, batch[:, :-1], cfg, None, M)
+        # the rank's choices of its block of each global microbatch, (M,
+        # stage layers, tokens, k): gathered into each microbatch's token
+        # order over fsdp and dp (block d n_fsdp + f), then over the stages
+        mine = torch.stack(rec["idx"]).view(M, L // pp, -1, k)
+        dropped = torch.stack(rec["dropped"]).view(M, L // pp)
+        for axis, _ in gpt2._token_axes(cfg):
+            dropped = c10d.allreduce(dropped, axis)
+        every = mine
+        for axis in ("fsdp", "dp"):
+            if axis in axes:
+                every = c10d.allgather(every, axis, axis=2)
+        every = c10d.allgather(every, "pp", axis=1)
+        dropped = c10d.allgather(dropped, "pp", axis=1)
+    chunks = tokens[:, :-1].chunk(M)
+    with torch.no_grad(), moe_probe() as ref_rec:
+        ref = torch.cat([gpt2.forward(params, t, cfg) for t in chunks])
+    parted = (torch.stack(ref_rec["idx"]).view_as(every) != every
+              ).float().mean().item()
+    if parted:
+        with torch.no_grad(), pinned_routes(list(every.flatten(0, 1))), \
+                moe_probe() as ref_rec:
+            ref = torch.cat([gpt2.forward(params, t, cfg) for t in chunks])
+    ref_dropped = torch.stack(ref_rec["dropped"]).view(M, L)
+    ref = batch_shard(ref, mesh)
+    ref = ref.view(pp, -1, *ref.shape[1:])[mesh.get_local_rank("pp")]
+    out = {"shape": tuple(logits.shape),
+           "finite": bool(torch.isfinite(logits).all()),
+           "logits_err": (logits - ref).abs().max().item(),
+           "bitwise": torch.equal(logits, ref), "parted": parted,
+           "dropped": dropped.tolist(),
+           "ref_dropped": ref_dropped.tolist()}
+    del logits, ref
+    return out
+
+
+def moe_pp_check(pool, seed, axes):
+    """Phase 13's check of one layout (``moe_pp_check_rank``), printed and
+    held: logits with phase 3's gate, the dropped choices of each
+    (microbatch, layer) equal to the single-rank run's."""
+    res = pool.run(moe_pp_check_rank, seed, axes)
+    (B, S), M = MOE_PP_CHECK_BATCH, MOE_PP_M
+    tag = " x ".join(f"{a}={n}" for a, n in axes.items()) + f" M={M}"
+    rows = B // math.prod(axes.values())
+    err = max(r["logits_err"] for r in res)
+    r0 = res[0]
+    print(f"[moe pp] MoE (8 experts) {tag} B={B} S={S}: each rank's logits "
+          f"{r0['shape']} (its rows, its stage's part) vs the single-rank "
+          f"kernels' on each global microbatch alone: max abs err "
+          f"{err:.4e} over the ranks (tol {LOGITS_TOL}); equal bit for bit on "
+          f"every rank: {all(r['bitwise'] for r in res)}; routed otherwise by "
+          f"the single-rank model {r0['parted']:.6f}"
+          + (" (replayed: the reference takes the ranks' choices)"
+             if r0["parted"] else " (no replay)")
+          + "; each token's layer is routed on one rank only", flush=True)
+    print(f"[moe pp] MoE {tag}: choices dropped at capacity per (microbatch, "
+          f"layer), summed over the ranks: {r0['dropped']}; single-rank run "
+          f"by microbatch: {r0['ref_dropped']} (must be equal: each global "
+          f"microbatch routed with the capacity of its own B/M S tokens)",
+          flush=True)
+    if any(r["shape"] != (rows, S, gpt2.GPT2_SMALL.vocab_size)
+           or not r["finite"] for r in res) or err > LOGITS_TOL:
+        fail(f"MoE logits at {tag} malformed or apart")
+    if any(r["dropped"] != r["ref_dropped"] for r in res):
+        fail(f"MoE {tag}: the dropped choices differ from the single-rank "
+             f"run's")
+
+
+def phase_moe_pp(seed, pools):
+    """The MoE under pipeline parallelism with dp and with fsdp over four
+    ranks that share the card (``pools``): its logits and dropped
+    choices at pp = 2 x dp = 2 and pp = 2 x fsdp = 2 against the
+    single-rank model by microbatch, then its training in both layouts.
+    Returns the launches of the training runs, by layout."""
+    free_memory("moe pp")
+    print("[moe pp] each rank's tokens all-gathered over dp or fsdp into its "
+          "block of every global microbatch, the routing counts' all-gathers "
+          "and the aux's all-reduce inside the pipeline's ticks, the stage "
+          "hops staged through pinned host buffers", flush=True)
+    pool = pools[4]
+    for axes in MOE_PP_LAYOUTS.values():
+        moe_pp_check(pool, seed, axes)
+    return {key: mesh_train(pool, seed, axes, MOE_PP_M, model="moe",
+                            phase="moe pp", batch_shape=MOE_PP_TRAIN_BATCH,
+                            steps=MOE_PP_STEPS)
+            for key, axes in MOE_PP_LAYOUTS.items()}
 
 
 def main():
@@ -2943,17 +3103,25 @@ def main():
     llama_launches = run("5 llama", phase_llama, args.seed, args.profile)
     moe_serve, moe_train = run("6 moe", phase_moe, args.seed, args.profile)
     xl_train = run("7 xl", phase_xl, args.seed, args.profile)
-    sp_runs = run("8 sp", phase_sp, args.seed)
-    pp_runs = run("9 pp", phase_pp, args.seed)
-    tp_runs = run("10 tp", phase_tp, args.seed)
-    ep_runs = run("11 ep", phase_ep, args.seed)
-    fsdp_runs = run("12 fsdp", phase_fsdp, args.seed)
+    with tempfile.TemporaryDirectory() as tmp:
+        pools = run("8-13 ranks up", start_pools, tmp)
+        try:
+            sp_runs = run("8 sp", phase_sp, args.seed, pools)
+            pp_runs = run("9 pp", phase_pp, args.seed, pools)
+            tp_runs = run("10 tp", phase_tp, args.seed, pools)
+            ep_runs = run("11 ep", phase_ep, args.seed, pools)
+            fsdp_runs = run("12 fsdp", phase_fsdp, args.seed, pools)
+            moe_pp_runs = run("13 moe pp", phase_moe_pp, args.seed, pools)
+        finally:
+            for pool in pools.values():
+                pool.close()
     print(f"[time] phases: {seconds}; all {sum(seconds.values()):.1f} s",
           flush=True)
     print(card_line())
     src = "ray_tpu/ops/flash_attention.py"
     trained = {"train": train, "moe_train": moe_train, "xl_train": xl_train,
-               **sp_runs, **pp_runs, **tp_runs, **ep_runs, **fsdp_runs}
+               **sp_runs, **pp_runs, **tp_runs, **ep_runs, **fsdp_runs,
+               **moe_pp_runs}
     paths = {
         "flash_fwd": {"serve": serve_launches, "llama": llama_launches,
                       "moe_serve": moe_serve},

@@ -78,9 +78,15 @@ such as AdamW over ``param_leaves``).  ``remat=True`` checkpoints each
 block (``torch.utils.checkpoint``), so the backward recomputes it.
 Gradients of attention go through the flash backward kernels on the card.
 
-Not ported yet, raising ``NotImplementedError`` (ROADMAP.md): the MoE FFN
-under pipeline parallelism with data parallelism or fsdp (§A10b), and
-pipeline stages with ring or Ulysses attention (§A11).
+Under pipeline parallelism with dp or fsdp the MoE routes each microbatch
+as the reference does: its microbatch m is the global rows [m B/M, (m+1)
+B/M), routed with one capacity over that microbatch's tokens, so each rank
+first takes its block of every global microbatch's rows
+(``_to_microbatch_blocks``: the tokens all-gathered over dp and fsdp, a
+local select), and ``forward`` puts the trunk's rows back
+(``_from_microbatch_blocks``).  Pipeline stages with ring or Ulysses
+attention raise ``NotImplementedError``: the reference's pipelined GPT-2
+raises for pp with sp too (ROADMAP.md §A11).
 """
 
 from __future__ import annotations
@@ -192,20 +198,14 @@ def _check_mesh(params, cfg: GPT2Config):
                 f"wi holds {held} experts: moe_experts {n} over ep "
                 f"{ep} needs moe_experts / ep each (shard_params gives a "
                 f"rank its shard)")
-    if n > 0 and "blocks" in params and max(shape.get("dp", 1), fsdp) > 1:
-        # the reference's microbatch m is the global rows [m B/M, (m+1) B/M),
-        # routed with one capacity over every dp and fsdp rank's share of
-        # them; the port's microbatch m on such a rank is a block of its own
-        # rows (batch_shard), which routes other tokens together
-        raise NotImplementedError(
-            "the MoE FFN under pipeline parallelism with data parallelism or "
-            "fsdp is not ported yet (ROADMAP.md §A10b: the reference's "
-            "microbatches are blocks of the global rows, the port's blocks "
-            "of a dp or fsdp rank's)")
     if "blocks" in params and cfg.attention in _SP:
+        # jax 0.9: "The context mesh AbstractMesh(...) should match the mesh
+        # passed to shard_map": the ring's shard_map nested in the
+        # pipeline's is refused
         raise NotImplementedError(
-            "pipeline stages with ring or Ulysses attention are not ported "
-            "yet (ROADMAP.md §A11: pp composed with sp)")
+            "pipeline stages with ring or Ulysses attention: the reference's "
+            "pipelined GPT-2 raises for pp composed with sp too (ROADMAP.md "
+            "§A11)")
 
 
 def _loss_axes(params, cfg: GPT2Config) -> List[Tuple[str, int]]:
@@ -448,6 +448,77 @@ def _token_axes(cfg: GPT2Config) -> List[Tuple[str, int]]:
     return [(a, shape[a]) for a in names if shape.get(a, 1) > 1]
 
 
+def _batch_block() -> int:
+    """The rank's block of the "batch" rule's (dp, fsdp) blocks, dp major:
+    ``batch_shard``'s d n_fsdp + f."""
+    d, _ = _axis_rank_and_size("dp")
+    f, n_fsdp = _axis_rank_and_size("fsdp")
+    return d * n_fsdp + f
+
+
+def _regroups(params, cfg: GPT2Config) -> bool:
+    """Whether a pipelined MoE's rows must be regrouped over the ranks: the
+    reference's microbatches are blocks of the global rows, routed over
+    every dp and fsdp rank's share of them."""
+    return (cfg.moe_experts > 0 and "blocks" in params
+            and any(a in ("dp", "fsdp") for a, _ in _token_axes(cfg)))
+
+
+def _gather_rows(x):
+    """x's leading blocks on every (dp, fsdp) rank, concatenated in
+    ``batch_shard``'s block order: gathered over fsdp, then dp
+    (``c10d.allgather``: its backward is the reduce-scatter)."""
+    for axis in ("fsdp", "dp"):
+        if _axis_rank_and_size(axis)[1] > 1:
+            x = c10d.allgather(x, axis, 0)
+    return x
+
+
+def _to_microbatch_blocks(tokens, M: int):
+    """The rank's ``batch_shard`` rows (Bl of B = n Bl over the n (dp,
+    fsdp) ranks) -> its block b of each of the M global microbatches: rows
+    [m B/M + b Bl/M, m B/M + (b+1) Bl/M) for every m, in order.  The
+    reference's pipeline cuts the global batch into microbatches of
+    contiguous rows and routes each over every rank's share of it; after
+    this, the rank's microbatch m is its block of global microbatch m, and
+    ``_routes`` orders the blocks as the reference orders those rows.  The
+    tokens (integers, a few hundred kB) cross the ranks, not
+    activations."""
+    rows = tokens.shape[0]
+    if rows % M:
+        raise ValueError(f"batch {rows} not divisible by num_microbatches "
+                         f"{M}")
+    every = _gather_rows(tokens)
+    n = every.shape[0] // rows
+    return every.view(M, n, rows // M, *tokens.shape[1:])[
+        :, _batch_block()].reshape(tokens.shape)
+
+
+def _from_microbatch_blocks(x, M: int):
+    """The trunk's output rows of ``_to_microbatch_blocks``' grouping (the
+    rank's stage part of them when the pipeline cut its output over pp) ->
+    the rows a dense model's trunk gives the rank: its ``batch_shard``
+    rows, and their stage part.  The rows are all-gathered over pp and
+    (dp, fsdp) (``c10d.allgather``, whose backward is the reduce-scatter:
+    each row's cotangent goes back to the rank that computed it) and the
+    rank's selected."""
+    mesh = require_mesh()
+    pp = mesh_axis_size(mesh, "pp")
+    cut = pp > 1 and M % pp == 0
+    if cut:
+        x = c10d.allgather(x, "pp", 0)
+    rows = x.shape[0]                          # the rank's regrouped rows
+    every = _gather_rows(x)
+    n = every.shape[0] // rows
+    tail = x.shape[1:]
+    whole = every.view(n, M, rows // M, *tail).transpose(0, 1).reshape(
+        -1, *tail)                             # the global rows, in order
+    mine = whole.view(n, rows, *tail)[_batch_block()]
+    if cut:
+        mine = mine.view(pp, -1, *tail)[mesh.get_local_rank("pp")]
+    return mine
+
+
 class _Routes(NamedTuple):
     probs: torch.Tensor   # (T, n) f32 router probabilities
     gate: torch.Tensor    # (T, k) f32 gate values
@@ -504,14 +575,8 @@ def _routes(xt, router, cfg: GPT2Config, rows: int) -> _Routes:
         if "sp" in spread:
             every = _all_gather(every, mesh.get_group("sp"), 0)
             r = mesh.get_local_rank("sp")
-        every = every[None]
         # the rows' blocks in batch_shard's order: block d n_fsdp + f
-        for axis in ("fsdp", "dp"):
-            if axis in spread:
-                every = _all_gather(every, mesh.get_group(axis), 0)
-        d = (_axis_rank_and_size("dp")[0] * spread.get("fsdp", 1)
-             + _axis_rank_and_size("fsdp")[0])
-        pos, total = slots(every, d, r)
+        pos, total = slots(_gather_rows(every[None]), _batch_block(), r)
     return _Routes(probs, gate, idx, pos, capacity, local, total[0], tokens)
 
 
@@ -795,9 +860,16 @@ def forward(params, tokens, cfg: GPT2Config, aux_acc=None,
     ``blocks``: the rank's rows, or every row when ``pp_microbatches`` does
     not divide by the pp axis).  Under tp each rank's head gives its block
     of the vocabulary, and the blocks are gathered over tp: every tp rank
-    returns the whole vocabulary.  Under fsdp: the rank's rows."""
+    returns the whole vocabulary.  Under fsdp: the rank's rows.  A pipelined
+    MoE over dp or fsdp runs the rank's block of each global microbatch
+    (``_to_microbatch_blocks``) and returns its own rows all the same."""
     params = _whole_tables(params, cfg)
+    regroup = _regroups(params, cfg)
+    if regroup:
+        tokens = _to_microbatch_blocks(tokens, pp_microbatches)
     x = _trunk(params, tokens, cfg, aux_acc, pp_microbatches)
+    if regroup:
+        x = _from_microbatch_blocks(x, pp_microbatches)
     _, tp = _axis_rank_and_size("tp")
     logits = _lm_head(_copy_to_tp(x, tp),
                       params["wte"]["embedding"].to(cfg.compute_dtype))
@@ -875,14 +947,19 @@ def loss_fn(params, batch, cfg: GPT2Config, pp_microbatches: int = 2,
     and each stage's share is then 1/pp of their sum (``pipeline_apply``
     sums the stages' cotangents back onto the last stage's output).  The
     MoE aux is the same global value on every rank and is added once,
-    after the all-reduce.
+    after the all-reduce.  A pipelined MoE over dp or fsdp takes the
+    rank's block of each global microbatch first (``_to_microbatch_blocks``;
+    the targets follow their inputs' rows).
     Under tp the loss is a vocabulary-parallel cross-entropy
     (``_xent_terms``), the same on every tp rank; tp holds no other terms
     of it."""
     tokens = batch["tokens"]
+    params = _whole_tables(params, cfg)
+    if _regroups(params, cfg):
+        # the loss is a sum over rows: the targets follow the inputs' rows
+        tokens = _to_microbatch_blocks(tokens, pp_microbatches)
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
     aux_acc: list = []
-    params = _whole_tables(params, cfg)
     x = _trunk(params, inputs, cfg, aux_acc, pp_microbatches)
     B, S, E = x.shape
     if B != targets.shape[0]:  # the rank's rows of the pipeline's output

@@ -6,7 +6,8 @@ pipeline of both ranks on the card, a tp rank's heads as strided views of
 its qkv buffer, a two-rank tensor-parallel GPT-2 forward, and the MoE over
 two ranks: its experts on ep, and its routing with the global capacity
 under dp; GPT-2 XL's attention shape on an fsdp = 2 rank and a two-rank
-fsdp train step.
+fsdp train step; the MoE at pp = 2 x dp = 2 on four ranks, each routing its
+block of every global microbatch.
 
 Marked ``cuda``: every test skips where there is no CUDA device.  On a
 machine with one (no JAX needed, hence ``--noconftest``):
@@ -925,3 +926,105 @@ def test_two_rank_fsdp_step_on_one_card(cuda, tmp_path):
         for p, r in zip(got_params, ref_params):
             assert (p - r).abs().max().item() <= 2 * FSDP_LR
     assert all(torch.equal(a, b) for a, b in zip(res[0][1][1], res[1][1][1]))
+
+
+#: the MoE of MOE_EP_TINY at 4 layers, two a stage at pp = 2
+MOE_PP_TINY = replace(MOE_EP_TINY, n_layer=4)
+MOE_PP_M = 2
+#: AdamW's lr in the pipelined MoE step test (as FSDP_LR)
+MOE_PP_LR = 1e-3
+
+
+def _moe_pp_tokens():
+    return torch.arange(8 * 129, device="cuda").view(8, 129) * 7 % 512
+
+
+def _rank_moe_pp_step():
+    """A pp = 2 x dp = 2 rank's loss, the expert choices of each global
+    microbatch and its dropped choices (the loss's forward, gathered over
+    dp and pp), its stage's gradients (summed as the train step sums
+    them) and its stage's leaves after one AdamW step, on the host, for
+    MOE_PP_TINY on cuda:0."""
+    import torch.distributed as dist
+
+    cfg, M = MOE_PP_TINY, MOE_PP_M
+    config = ShardingConfig(dp=2, pp=2)
+    mesh = config.build_mesh()
+    params = gpt2.init_params(torch.Generator(device="cuda").manual_seed(5),
+                              cfg)
+    local = shard_params(gpt2.to_pipeline_params(params, cfg), config, mesh)
+    for leaf in gpt2.param_leaves(local):
+        leaf.requires_grad_(True)
+    batch = {"tokens": batch_shard(_moe_pp_tokens(), mesh)}
+    c = cfg.n_layer // 2
+    with use_mesh(mesh):
+        with moe_probe() as rec:
+            loss = gpt2.loss_fn(gpt2._cast_weights(local, cfg.compute_dtype),
+                                batch, cfg, M)
+        mine = torch.stack(rec["idx"]).view(M, c, -1, cfg.moe_top_k)
+        dropped = collective.c10d.allreduce(
+            torch.stack(rec["dropped"]).view(M, c), "dp")
+        routes = collective.c10d.allgather(
+            collective.c10d.allgather(mine, "dp", axis=2), "pp", axis=1)
+        dropped = collective.c10d.allgather(dropped, "pp", axis=1)
+        loss.backward()
+        gpt2._sum_grads(local, cfg)
+        grads = [t.grad.cpu() for t in gpt2.param_leaves(local)]
+        for leaf in gpt2.param_leaves(local):
+            leaf.grad = None
+        opt = torch.optim.AdamW(gpt2.param_leaves(local), lr=MOE_PP_LR)
+        gpt2.make_train_step(cfg, opt, M)(local, batch)
+    return (loss.item(), routes.cpu(), dropped.tolist(), grads,
+            [t.detach().cpu() for t in gpt2.param_leaves(local)],
+            mesh.get_local_rank("pp"), dist.get_rank())
+
+
+def test_four_rank_moe_pp_dp_step_on_one_card(cuda, tmp_path):
+    """The MoE at pp = 2 x dp = 2 (M = 2) on four ranks of cuda:0 (gloo),
+    each rank its block of every global microbatch, against the
+    single-rank kernels run on each global microbatch alone with the
+    ranks' choices replayed (the reference's pipelined function), with
+    chip_smoke.py phase 6's gates: the loss and every gradient (each
+    stage's layers against theirs), the choices dropped in each
+    (microbatch, layer) summed over the ranks, and the stage's leaves
+    after one AdamW step within 2 lr of the single-rank step's."""
+    cfg, M = MOE_PP_TINY, MOE_PP_M
+    with RankPool(4, f"file://{tmp_path}/rendezvous", backend="gloo",
+                  device="cuda:0", timeout_s=120.0) as pool:
+        res = pool.run(_rank_moe_pp_step)
+    routes = res[0][1]
+    params = gpt2.init_params(torch.Generator(device="cuda").manual_seed(5),
+                              cfg)
+    leaves = gpt2.param_leaves(params)
+    for leaf in leaves:
+        leaf.requires_grad_(True)
+    chunks = _moe_pp_tokens().chunk(M)
+    with pinned_routes([r.cuda() for r in routes.flatten(0, 1)]), \
+            moe_probe() as rec:
+        cast = gpt2._cast_weights(params, cfg.compute_dtype)
+        loss = sum(gpt2.loss_fn(cast, {"tokens": t}, cfg)
+                   for t in chunks) / M
+    loss.backward()
+    dropped = torch.stack(rec["dropped"]).view(M, cfg.n_layer).tolist()
+    assert sum(map(sum, dropped)) > 0
+    opt = torch.optim.AdamW(leaves, lr=MOE_PP_LR)
+    with torch.no_grad():
+        grads = gpt2.to_pipeline_params(grad_tree(params), cfg)
+        opt.step()
+    stacked = gpt2.to_pipeline_params(params, cfg)
+    c = cfg.n_layer // 2
+    for got_loss, got_routes, got_dropped, got_grads, got_params, stage, _ \
+            in res:
+        assert torch.equal(got_routes, routes)
+        assert got_dropped == dropped
+        assert abs(got_loss - loss.item()) <= MOE_LOSS_TOL
+        for (name, ref), (_, p), g, q in zip(
+                gpt2.named_leaves(grads), gpt2.named_leaves(stacked),
+                got_grads, got_params):
+            if name.startswith("blocks/"):
+                ref, p = (t[stage * c:(stage + 1) * c] for t in (ref, p))
+            ref = ref.cpu()
+            assert ((g - ref).norm() / ref.norm()).item() <= \
+                MOE_GRAD_REL_TOL, name
+            assert (q - p.detach().cpu()).abs().max().item() <= \
+                2 * MOE_PP_LR, name

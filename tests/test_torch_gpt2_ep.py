@@ -74,7 +74,8 @@ STEP_LOSS_REL_BF16 = 5e-3
 
 def _rank_train_routes(tc, np_params, tokens, axes, M, chunks, steps):
     """``_rank_train``, with every MoE call's routing recorded: the first
-    forward's expert choices (a (T, k) array a layer), the choices dropped
+    forward's expert choices (a (T, k) array a layer; under pp one a
+    microbatch and stage layer, microbatch major), the choices dropped
     at the global capacity over the whole run, and the choices whose keep
     a capacity over the rank's own tokens would have decided otherwise."""
     rec = {"idx": [], "dropped": 0, "per_rank": 0}
@@ -95,7 +96,8 @@ def _rank_train_routes(tc, np_params, tokens, axes, M, chunks, steps):
         out = _rank_train(tc, np_params, tokens, axes, M, chunks, steps)
     finally:
         tg._routes = routes
-    out.update(idx=rec["idx"][:tc.n_layer], dropped=rec["dropped"],
+    first = tc.n_layer * M // axes["pp"] if "pp" in axes else tc.n_layer
+    out.update(idx=rec["idx"][:first], dropped=rec["dropped"],
                per_rank=rec["per_rank"])
     return out
 

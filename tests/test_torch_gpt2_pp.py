@@ -106,11 +106,13 @@ def _recording_adamw():
         lambda p: (adamw.init(p), jax.tree.map(jnp.zeros_like, p)), update)
 
 
-def _jax_train(params, jc, M, xent_chunks, axes, pipelined=True):
+def _jax_train(params, jc, M, xent_chunks, axes, pipelined=True,
+               tokens=None):
     """JAX's first loss and gradients, the losses of STEPS steps and the
     parameters after them, and its logits: pipelined on a (dp, pp) mesh
     when ``axes`` has pp and ``pipelined``, else one program over the whole
-    batch (its gradients and parameters then stacked as the pipeline's)."""
+    batch (its gradients and parameters then stacked as the pipeline's).
+    ``tokens``: the (B, S+1) batch, ``_tokens()`` by default."""
     import jax
     import jax.numpy as jnp
 
@@ -119,7 +121,7 @@ def _jax_train(params, jc, M, xent_chunks, axes, pipelined=True):
     from ray_tpu.parallel.sharding import ShardingConfig as JConfig
     from ray_tpu.parallel.sharding import shard_params as jshard
 
-    tokens = _tokens()
+    tokens = _tokens() if tokens is None else tokens
     batch = {"tokens": jnp.asarray(tokens, jnp.int32)}
     opt = _recording_adamw()
     n = int(np.prod(list(axes.values())))
@@ -339,9 +341,8 @@ def test_pipelined_moe_matches_jax_pipeline(pool):
 
 
 #: the mesh of each case of ``_rank_raises``
-RAISE_AXES = {"moe_pp_dp": {"pp": 2, "dp": 2},
-              "moe_pp_fsdp": {"pp": 2, "fsdp": 2}, "pp_ring": {"pp": 2},
-              "pp_ulysses": {"pp": 2}, "fsdp_whole": {"fsdp": 2},
+RAISE_AXES = {"pp_ring": {"pp": 2}, "pp_ulysses": {"pp": 2},
+              "fsdp_whole": {"fsdp": 2},
               "tp_heads": {"tp": 2}, "tp_whole": {"tp": 2},
               "ep_experts": {"ep": 2}, "ep_whole": {"ep": 2},
               "batch_vs_M": {"pp": 2}, "layers_vs_pp": {"pp": 2},
@@ -355,7 +356,7 @@ def _rank_raises(case):
     axes = RAISE_AXES[case]
     config = ShardingConfig(**axes)
     mesh = config.build_mesh(device_type="cpu")
-    if case in ("moe_pp_dp", "moe_pp_fsdp", "ep_whole"):
+    if case == "ep_whole":
         cfg = replace(cfg, moe_experts=4)
     if case == "ep_experts":
         cfg = replace(cfg, moe_experts=3)
@@ -382,10 +383,11 @@ def _rank_raises(case):
     return None
 
 
-RAISES = {"moe_pp_dp": ("NotImplementedError", "A10b"),
-          "moe_pp_fsdp": ("NotImplementedError", "A10b"),
-          "pp_ring": ("NotImplementedError", "A11: pp composed with sp"),
-          "pp_ulysses": ("NotImplementedError", "A11: pp composed with sp"),
+#: pp x sp: the reference's pipelined GPT-2 raises too
+#: (tests/test_torch_gpt2_moe_pp.py::test_jax_pipeline_refuses_sp)
+SP_REFUSED = "the reference's pipelined GPT-2 raises for pp composed with sp"
+RAISES = {"pp_ring": ("NotImplementedError", SP_REFUSED),
+          "pp_ulysses": ("NotImplementedError", SP_REFUSED),
           "fsdp_whole": ("ValueError", "shard_params"),
           "tp_heads": ("ValueError", "n_head 1 does not divide by the tp"),
           "tp_whole": ("ValueError", "shard_params"),
