@@ -185,7 +185,24 @@ Phases; any failure exits non-zero:
    ranks (must equal that run's) and the ranks' routes (that run replays
    them where they part); then AdamW steps at B=16, S=1024, M = 4 (a
    warm-up, then 5 timed) in both layouts, printed and held as phase 10's,
-   with the schedule's bubble fraction.
+   with the schedule's bubble fraction;
+14. rl — the RL learners and the MNIST CNN (``ray_tpu_torch/rllib``,
+   ``models/mnist.py``) at the JAX package's widths on synthetic
+   rollouts from ``--seed``: IMPALA with the Nature-CNN (32/64/64
+   channels, dense 512, 84x84x4 uint8 frames, 6 actions, RMSprop at eps
+   0.1) on a rollout of T = 64 x B = 32, PPO (MLP 64, 64; 512 rows,
+   minibatch 512, 4 epochs), DQN (double Q, 64), SAC (256, 256 at
+   HalfCheetah's 17 observation and 6 action dims, 256), BC (256) and the
+   MNIST step (Adam 1e-3, B = 64 and 1024): each update on the card held
+   against the port's CPU path on the same state, batch and noise (metrics
+   and every leaf), then 5 timed updates after the two a profiler traces
+   (the second counted): ms per update (IMPALA also frames/s and its f32 bound), device ms
+   and kernel launches per update, peak memory, each loss finite and, for
+   IMPALA, PPO, BC and MNIST, lower after the updates on the fixed batch;
+   ``sample_action``'s frequencies over 10^5 draws within a chi-square
+   bound of the softmax, ``sample_squashed``'s actions in [-1, 1] with
+   logp the tanh-Gaussian density recomputed from the draws.  No flash
+   kernel runs on this path.
 
 The timed runs of phases 8-12 on four ranks train ``FOUR_RANK_DEPTH``
 (4) layers of GPT-2 124M's widths (or its MoE's): ring sp = 4, pp = 4 and
@@ -234,7 +251,7 @@ import torch.nn.functional as F
 
 from ray_tpu_torch import collective
 from ray_tpu_torch.collective import c10d
-from ray_tpu_torch.models import gpt2, llama
+from ray_tpu_torch.models import gpt2, llama, mnist
 from ray_tpu_torch.native import build
 from ray_tpu_torch.ops import flash_attention as fa
 from ray_tpu_torch.parallel import ring_attention as ra
@@ -245,6 +262,11 @@ from ray_tpu_torch.parallel.pipeline import schedule_info
 from ray_tpu_torch.parallel.sharding import (ShardingConfig, batch_shard,
                                              gather_params, param_shardings,
                                              seq_shard, shard_params)
+from ray_tpu_torch.rllib import bc, dqn, impala, optim, ppo, sac
+from ray_tpu_torch.rllib import models as rl_models
+from ray_tpu_torch.rllib.sample_batch import (ACTIONS, ADVANTAGES, DONES,
+                                              LOGPS, NEXT_OBS, OBS, REWARDS,
+                                              TARGETS, VALUES)
 from ray_tpu_torch.serve import Replica
 
 # H100 SXM, dense, at the full 700 W limit (NVIDIA data sheet)
@@ -3073,6 +3095,370 @@ def phase_moe_pp(seed, pools):
             for key, axes in MOE_PP_LAYOUTS.items()}
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the RL learners and the MNIST CNN
+# ---------------------------------------------------------------------------
+
+#: the Nature-CNN's Atari frames (84 x 84 x 4 uint8) and actions
+ATARI_OBS, ATARI_ACTIONS = (84, 84, 4), 6
+#: CartPole's observation dim and actions, for the MLP learners (64, 64)
+CARTPOLE_OBS, CARTPOLE_ACTIONS = 4, 2
+#: MuJoCo HalfCheetah's observation and action dims, for SAC (256, 256)
+HALFCHEETAH_OBS, HALFCHEETAH_ACT = 17, 6
+#: batch sizes: IMPALA's (T, B) is the default rollout_length 64 x 32
+#: environments; PPO's rows are 2 runners x 4 envs x 64 steps; DQN's, SAC's
+#: and BC's are their configs' train_batch_size
+RL_SIZES = {"impala": (64, 32), "ppo": 2 * 4 * 64, "dqn": 64, "sac": 256,
+            "bc": 256, "mnist": 64, "mnist_large": 1024}
+#: timed updates of each learner, after the held one and the two profiled
+RL_STEPS = 5
+#: card against the CPU path after one update from the same parameters,
+#: batch and noise, both in f32 (TF32 off): metrics |a - b| <= RL_RTOL |b| +
+#: RL_ATOL; each leaf ||p - p_cpu|| <= RL_MOVE_RTOL ||p_cpu - p_0|| +
+#: RL_ULP ||p_cpu|| (the distance apart against the distance moved, as the
+#: CPU tests hold the port against JAX; the second term covers the polyak
+#: targets, which move 0.005 of the way)
+RL_RTOL, RL_ATOL = 1e-4, 1e-5
+RL_MOVE_RTOL, RL_ULP = 1e-3, 1e-6
+#: learners whose loss on a fixed batch must fall over the updates
+RL_FALLING = ("impala", "ppo", "bc", "mnist", "mnist_large")
+#: chi-square at p = 1e-3 for 5 degrees of freedom (6 actions)
+CHI2_5_P001 = 20.515
+PEAK_F32_FLOPS = 67e12  # H100 SXM, f32 without tensor cores
+
+
+def to_device(x, device):
+    """A copy of a tree (dicts, tuples) of tensors on ``device``; leaves
+    that require grad stay leaves that do."""
+    if isinstance(x, dict):
+        return {k: to_device(v, device) for k, v in x.items()}
+    if isinstance(x, tuple):
+        return tuple(to_device(v, device) for v in x)
+    if isinstance(x, torch.Tensor):
+        return x.detach().to(device, copy=True).requires_grad_(
+            x.requires_grad)
+    return x
+
+
+def rl_batch(name, gen, sizes):
+    """A synthetic batch of learner ``name`` from ``gen`` on its device,
+    with the noise its update takes (PPO's minibatch rows, SAC's normal
+    draws)."""
+    dev = gen.device
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    def randint(hi, *shape):
+        return torch.randint(0, hi, shape, generator=gen, device=dev)
+
+    def coin(p, *shape):
+        return (torch.rand(shape, generator=gen, device=dev) < p).float()
+
+    if name == "impala":
+        T, B = sizes["impala"]
+        return {OBS: randint(256, T, B, *ATARI_OBS).to(torch.uint8),
+                ACTIONS: randint(ATARI_ACTIONS, T, B),
+                LOGPS: torch.log_softmax(normal(T, B, ATARI_ACTIONS), -1)
+                .gather(-1, randint(ATARI_ACTIONS, T, B)[..., None])[..., 0],
+                REWARDS: normal(T, B), DONES: coin(0.01, T, B),
+                "bootstrap": normal(B)}
+    if name == "ppo":
+        T, B = 64, sizes["ppo"] // 64
+        rewards, values, dones = normal(T, B), normal(T, B), coin(0.05, T, B)
+        adv, targets = ppo.compute_gae(
+            rewards.cpu().numpy(), values.cpu().numpy(),
+            dones.cpu().numpy(), normal(B).cpu().numpy(), 0.99, 0.95)
+        n = T * B
+        return {OBS: normal(n, CARTPOLE_OBS),
+                ACTIONS: randint(CARTPOLE_ACTIONS, n),
+                LOGPS: math.log(0.5) + 0.1 * normal(n),
+                VALUES: values.reshape(n),
+                ADVANTAGES: torch.tensor(adv.reshape(n), device=dev),
+                TARGETS: torch.tensor(targets.reshape(n), device=dev),
+                "idx": ppo.minibatch_indices(n, ppo.PPOConfig(), gen)}
+    if name == "dqn":
+        n = sizes["dqn"]
+        return {OBS: normal(n, CARTPOLE_OBS),
+                ACTIONS: randint(CARTPOLE_ACTIONS, n), REWARDS: normal(n),
+                NEXT_OBS: normal(n, CARTPOLE_OBS), DONES: coin(0.1, n),
+                "weights": 0.5 + 0.5 * torch.rand(n, generator=gen,
+                                                  device=dev)}
+    if name == "sac":
+        n = sizes["sac"]
+        return {OBS: normal(n, HALFCHEETAH_OBS),
+                ACTIONS: 2 * torch.rand((n, HALFCHEETAH_ACT), generator=gen,
+                                        device=dev) - 1,
+                REWARDS: normal(n), NEXT_OBS: normal(n, HALFCHEETAH_OBS),
+                DONES: coin(0.01, n),
+                "noise": sac.sac_noise(n, HALFCHEETAH_ACT, gen)}
+    if name == "bc":
+        n = sizes["bc"]
+        return {OBS: normal(n, CARTPOLE_OBS),
+                ACTIONS: randint(CARTPOLE_ACTIONS, n)}
+    return mnist.synthetic_batch(gen, sizes[name], device=dev)
+
+
+def rl_state(name, gen):
+    """What learner ``name`` updates (from ``gen``, on its device)."""
+    dev = gen.device
+    if name == "impala":
+        return {"params": rl_models.init_cnn_policy(
+            gen, ATARI_OBS, ATARI_ACTIONS, device=dev)}
+    if name in ("ppo", "bc"):
+        return {"params": rl_models.init_mlp_policy(
+            gen, CARTPOLE_OBS, CARTPOLE_ACTIONS, device=dev)}
+    if name == "dqn":
+        params = rl_models.init_mlp_policy(gen, CARTPOLE_OBS,
+                                           CARTPOLE_ACTIONS, device=dev)
+        # the target net apart from the online one, as after a few syncs
+        target = optim.tree_map(lambda p: (0.9 * p).detach(), params)
+        return {"params": params, "target": target}
+    if name == "sac":
+        params = sac.init_sac_nets(gen, HALFCHEETAH_OBS, HALFCHEETAH_ACT,
+                                   device=dev)
+        return {"params": params,
+                "target": optim.tree_map(lambda p: p.detach().clone(),
+                                         {"q1": params["q1"],
+                                          "q2": params["q2"]}),
+                "log_alpha": torch.zeros((), device=dev, requires_grad=True)}
+    return {"params": mnist.init_params(gen, device=dev)}
+
+
+def rl_updater(name, state):
+    """``update(batch) -> metrics`` of learner ``name`` over ``state``
+    (in place), with fresh optimizers: IMPALA's RMSprop (eps 0.1), Adam
+    for the others (MNIST's at 1e-3, as the Train layer's loop)."""
+    params = state["params"]
+    if name == "impala":
+        cfg = impala.ImpalaConfig()
+        cfg.cnn = True
+        upd = impala._make_update_fn(cfg, impala.make_optimizer(cfg, params))
+        return lambda b: upd(params, b)
+    if name == "ppo":
+        cfg = ppo.PPOConfig()
+        upd = ppo._make_update_fn(cfg, optim.adam(params, cfg.lr))
+        return lambda b: upd(params, {k: v for k, v in b.items()
+                                      if k != "idx"}, idx=b["idx"])
+    if name == "dqn":
+        cfg = dqn.DQNConfig()
+        opt = optim.adam(params, cfg.lr)
+
+        def dqn_step(b):
+            loss, td = dqn.dqn_update(cfg, params, state["target"], opt, b)
+            return {"loss": loss, "td": td}
+        return dqn_step
+    if name == "sac":
+        cfg = sac.SACConfig()
+        opt = optim.adam(params, cfg.lr)
+        alpha_opt = optim.adam(state["log_alpha"], cfg.alpha_lr)
+        dev = state["log_alpha"].device
+        low = torch.full((HALFCHEETAH_ACT,), -1.0, device=dev)
+        return lambda b: sac.sac_update(
+            cfg, params, state["target"], state["log_alpha"], opt,
+            alpha_opt, {k: v for k, v in b.items() if k != "noise"},
+            b["noise"], low, -low)
+    if name == "bc":
+        opt = optim.adam(params, bc.BCConfig().lr)
+        return lambda b: {"loss": bc.bc_update(params, opt, b[OBS],
+                                               b[ACTIONS])}
+    opt = optim.adam(params, 1e-3)
+
+    def mnist_step(b):
+        loss, acc = mnist.loss_fn(params, b)
+        optim.apply_gradients(opt, params, optim.grads_of(loss, params))
+        return {"loss": loss.detach(), "acc": acc}
+    return mnist_step
+
+
+def rl_loss(name, m):
+    """The loss a learner's update minimises, from its metrics (the
+    value before the update's step)."""
+    if name == "impala":
+        return m["pg_loss"] + 0.5 * m["vf_loss"] - 0.01 * m["entropy"]
+    if name == "ppo":
+        return m["policy_loss"] + 0.5 * m["vf_loss"] - 0.01 * m["entropy"]
+    if name == "sac":
+        return m["critic_loss"] + m["actor_loss"]
+    return m["loss"]
+
+
+def rl_hold(name, seed, sizes=RL_SIZES):
+    """Learner ``name``'s update on the card against the port's CPU path
+    on the same state, batch and noise: (worst metric error over its
+    tolerance, worst leaf distance over its tolerance, the card's state,
+    batch, update and first metrics).  Fails when either exceeds 1."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    state, batch = rl_state(name, gen), rl_batch(name, gen, sizes)
+    state0, cpu_state = to_device(state, "cpu"), to_device(state, "cpu")
+    update = rl_updater(name, state)
+    m_card = update(batch)
+    m_cpu = rl_updater(name, cpu_state)(to_device(batch, "cpu"))
+    m_err = max(float(((a.cpu() - b).abs() / (RL_RTOL * b.abs() + RL_ATOL))
+                      .max()) for a, b in ((m_card[k], m_cpu[k])
+                                           for k in m_cpu))
+    leaf_err = 0.0
+    for a, b, p0 in zip(optim.tree_leaves(state), optim.tree_leaves(
+            cpu_state), optim.tree_leaves(state0)):
+        a, b, p0 = a.detach().cpu(), b.detach(), p0.detach()
+        apart = float((a - b).norm())
+        tol = float(RL_MOVE_RTOL * (b - p0).norm() + RL_ULP * b.norm())
+        leaf_err = max(leaf_err, apart / tol if apart else 0.0)
+    finite = all(torch.isfinite(v).all() for v in m_card.values())
+    if not finite or m_err > 1 or leaf_err > 1:
+        fail(f"rl {name}: the card's update against the CPU path: metrics "
+             f"{m_err:.3f}, leaves {leaf_err:.3f} of their tolerances; "
+             f"finite {finite}")
+    return m_err, leaf_err, state, batch, update, m_card
+
+
+def count_launches(fn, top=4):
+    """(kernel launches, device ms, the ``top`` kernels by device time as
+    (name, ms, launches)) of one call of fn, from a profiler trace of its
+    second call: the trace of a first call in a window can miss its first
+    kernels (39 of them, in a process that had traced before)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    from torch.profiler import schedule
+
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                  schedule=schedule(wait=0, warmup=1, active=1,
+                                    repeat=1)) as prof:
+        for _ in range(2):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
+    busy = sum(e.time_range.end - e.time_range.start for e in events) / 1e3
+    kernels = [e for e in events if not e.name.startswith("Memcpy")
+               and not e.name.startswith("Memset")]
+    by_name = {}
+    for e in kernels:
+        ms, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (ms + (e.time_range.end - e.time_range.start) / 1e3,
+                           n + 1)
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+    return len(kernels), busy, [(k, ms, n) for k, (ms, n) in ranked]
+
+
+def nature_cnn_update_flops(frames):
+    """Operations of one Nature-CNN update (forward, and the backward
+    without the first conv's input gradient) on ``frames`` 84x84x4
+    frames: 2 x MACs by layer, from the shapes."""
+    convs = [(20 * 20, 32, 8 * 8 * 4), (9 * 9, 64, 4 * 4 * 32),
+             (7 * 7, 64, 3 * 3 * 64)]
+    macs = [hw * cout * k for hw, cout, k in convs]
+    macs += [3136 * 512, 512 * (ATARI_ACTIONS + 1)]
+    fwd = 2 * sum(macs)
+    return frames * (3 * fwd - 2 * macs[0])
+
+
+def rl_sampling_checks(seed):
+    """``sample_action``'s frequencies over 10^5 draws against the softmax
+    (chi-square), and ``sample_squashed``'s actions in [-1, 1] with logp
+    the tanh-Gaussian density recomputed in f64 from the draws."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    with torch.no_grad():
+        sample_action_check(gen)
+        sample_squashed_check(gen)
+
+
+def sample_action_check(gen):
+    params = rl_models.init_mlp_policy(gen, CARTPOLE_OBS, ATARI_ACTIONS,
+                                       device="cuda")
+    params["pi"]["b"].copy_(torch.linspace(-1.0, 1.5, ATARI_ACTIONS))
+    n = 100_000
+    obs = torch.randn(1, CARTPOLE_OBS, generator=gen,
+                      device="cuda").expand(n, -1)
+    a, logp, _ = rl_models.sample_action(params, obs, gen)
+    probs = torch.softmax(rl_models.mlp_forward(params, obs[:1])[0][0],
+                          -1).double()
+    counts = torch.bincount(a, minlength=ATARI_ACTIONS).double()
+    chi2 = float(((counts - n * probs) ** 2 / (n * probs)).sum())
+    logp_err = float((logp.double() - probs.log()[a]).abs().max())
+    print(f"[rl] sample_action: {n} Gumbel-max draws over {ATARI_ACTIONS} "
+          f"actions, counts {counts.long().tolist()} against "
+          f"{[round(x, 1) for x in (n * probs).tolist()]}: chi-square "
+          f"{chi2:.3f} (bound {CHI2_5_P001}, p = 1e-3, 5 dof); logp max "
+          f"err {logp_err:.2e}", flush=True)
+    if chi2 > CHI2_5_P001 or logp_err > 1e-5:
+        fail("sample_action's draws do not follow the softmax")
+
+
+def sample_squashed_check(gen):
+    n = 100_000
+    nets = sac.init_sac_nets(gen, HALFCHEETAH_OBS, HALFCHEETAH_ACT,
+                             device="cuda")
+    nets["actor"]["out"]["w"].mul_(10.0)  # spread mean and log_std
+    obs = torch.randn(n, HALFCHEETAH_OBS, generator=gen, device="cuda")
+    noise = torch.randn(n, HALFCHEETAH_ACT, generator=gen, device="cuda")
+    act, logp = sac.sample_squashed(nets["actor"], obs, noise=noise)
+    mean, log_std = (x.double() for x in sac.actor_dist(nets["actor"], obs))
+    z = mean + torch.exp(log_std) * noise.double()
+    ref = (-0.5 * noise.double() ** 2 - log_std - 0.5 * math.log(2 * math.pi)
+           + 2 * torch.log(torch.cosh(z))).sum(-1)
+    err = float((logp.double() - ref).abs().max())
+    print(f"[rl] sample_squashed: {n} draws of {HALFCHEETAH_ACT} dims: "
+          f"actions in [{float(act.min()):.6f}, {float(act.max()):.6f}], "
+          f"|z| up to {float(z.abs().max()):.1f}; logp against the density "
+          f"recomputed in f64 (log sech^2): max err {err:.2e} (tol 5e-4)",
+          flush=True)
+    if act.abs().max() > 1 or err > 5e-4:
+        fail("sample_squashed's actions or logp are off")
+
+
+def phase_rl(seed):
+    """The RL learners' updates and the MNIST step on the card, each held
+    against the port's CPU path, then timed; the samplers' draws."""
+    free_memory("rl")
+    reset_launches()
+    for name in RL_SIZES:
+        m_err, leaf_err, state, batch, update, m0 = rl_hold(name, seed)
+        n_launch, busy_ms, ranked = count_launches(lambda: update(batch))
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        runs = [update(batch) for _ in range(RL_STEPS)]
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end) / RL_STEPS
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        first = float(rl_loss(name, m0))
+        last = float(rl_loss(name, runs[-1]))
+        size = RL_SIZES[name]
+        extra = ""
+        if name == "impala":
+            frames = size[0] * size[1]
+            flops = nature_cnn_update_flops(frames)
+            extra = (f"; {frames * 1e3 / ms:.1f} frames/s; {flops / 1e9:.1f} "
+                     f"GFLOP, bound {flops / PEAK_F32_FLOPS * 1e3:.3f} ms "
+                     f"(operations, f32 at 67 TFLOP/s)")
+        print(f"[rl] {name} (batch {size}): card vs CPU path after one "
+              f"update: metrics {m_err:.3f}, leaves {leaf_err:.3f} of their "
+              f"tolerances; {ms:.3f} ms per update over {RL_STEPS} (CUDA "
+              f"events, as a caller waits), {busy_ms:.3f} ms of device work "
+              f"in {n_launch} kernel launches per update (profiler), so the "
+              f"device idles {1 - busy_ms / ms:.1%} of an update; peak "
+              f"{peak:.3f} GB{extra}; loss "
+              f"{first:.6f} -> {last:.6f} over {RL_STEPS + 3} updates on one "
+              f"batch", flush=True)
+        print(f"[rl] {name}: top kernels by device time per update: "
+              + "; ".join(f"{k_ms:.3f} ms in {n} x {k[:70]}"
+                          for k, k_ms, n in ranked), flush=True)
+        if not (math.isfinite(first) and math.isfinite(last)):
+            fail(f"rl {name}: loss not finite")
+        if name in RL_FALLING and not last < first:
+            fail(f"rl {name}: loss did not fall on a fixed batch")
+        del state, batch, update
+        free_memory("rl")
+    rl_sampling_checks(seed)
+    if any(read_launches().values()):
+        fail(f"the RL path launched a flash kernel: {read_launches()}")
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3115,6 +3501,7 @@ def main():
         finally:
             for pool in pools.values():
                 pool.close()
+    run("14 rl", phase_rl, args.seed)
     print(f"[time] phases: {seconds}; all {sum(seconds.values()):.1f} s",
           flush=True)
     print(card_line())

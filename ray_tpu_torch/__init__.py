@@ -8,15 +8,16 @@ it keeps its own copy.  Every Pallas kernel on a ported path is a kernel
 written by hand for ``sm_90a`` under ``csrc/``.
 
 Sub-packages: ``ops`` (flash attention), ``native`` (the nvcc build of
-``csrc``), ``models`` (GPT-2, Llama), ``core`` (config flags,
+``csrc``), ``models`` (GPT-2, Llama, the MNIST CNN), ``core`` (config flags,
 exceptions), ``serve`` (the replica, batching, multiplexing),
 ``parallel`` (mesh, sharding rules, ring and Ulysses attention, the
-pipeline, spawned ranks) and ``collective`` (named-axis collectives over
-process groups).
+pipeline, spawned ranks), ``collective`` (named-axis collectives over
+process groups) and ``rllib`` (policy nets, optax's optimizer steps, the
+PPO, IMPALA, DQN, SAC and BC updates).
 No runtime is started on import.
 """
 
 from ray_tpu_torch._version import __version__
 
 __all__ = ["__version__", "collective", "core", "models", "native", "ops",
-           "parallel", "serve"]
+           "parallel", "rllib", "serve"]

@@ -1,1 +1,2 @@
-"""Models of the port: ``gpt2`` (forward)."""
+"""Models of the port: ``gpt2`` (with its MoE), ``llama`` and the
+``mnist`` CNN."""

@@ -7,7 +7,9 @@ its qkv buffer, a two-rank tensor-parallel GPT-2 forward, and the MoE over
 two ranks: its experts on ep, and its routing with the global capacity
 under dp; GPT-2 XL's attention shape on an fsdp = 2 rank and a two-rank
 fsdp train step; the MoE at pp = 2 x dp = 2 on four ranks, each routing its
-block of every global microbatch.
+block of every global microbatch; one update of each RL learner (IMPALA
+with the Nature-CNN on a short rollout, PPO, DQN, SAC, BC) and an MNIST
+step against the port's CPU path.
 
 Marked ``cuda``: every test skips where there is no CUDA device.  On a
 machine with one (no JAX needed, hence ``--noconftest``):
@@ -23,9 +25,10 @@ import pytest
 import torch
 
 from chip_smoke import (G_PTOL, G_RTOL, LOGITS_TOL, MOE_GRAD_REL_TOL,
-                        MOE_LOSS_TOL, TRAIN_GRAD_REL_TOL, TRAIN_LOSS_TOL,
-                        bwd_magnitudes, global_routes, grad_tree, moe_probe,
-                        pinned_routes, sp_attention_errors)
+                        MOE_LOSS_TOL, RL_SIZES, TRAIN_GRAD_REL_TOL,
+                        TRAIN_LOSS_TOL, bwd_magnitudes, global_routes,
+                        grad_tree, moe_probe, pinned_routes, rl_hold,
+                        set_precision, sp_attention_errors)
 from ray_tpu_torch import collective
 from ray_tpu_torch.models import gpt2, llama
 from ray_tpu_torch.ops import flash_attention as fa
@@ -1028,3 +1031,14 @@ def test_four_rank_moe_pp_dp_step_on_one_card(cuda, tmp_path):
                 MOE_GRAD_REL_TOL, name
             assert (q - p.detach().cpu()).abs().max().item() <= \
                 2 * MOE_PP_LR, name
+
+
+@pytest.mark.parametrize("name", ["impala", "ppo", "dqn", "sac", "bc",
+                                  "mnist"])
+def test_rl_update_on_card_matches_cpu(cuda, name):
+    """One update on the card against the port's CPU path on the same
+    state, batch and noise, with phase 14's tolerances (IMPALA at a
+    rollout of T = 8 x B = 4 frames of 84x84x4)."""
+    set_precision()
+    m_err, leaf_err, *_ = rl_hold(name, 0, {**RL_SIZES, "impala": (8, 4)})
+    assert m_err <= 1 and leaf_err <= 1

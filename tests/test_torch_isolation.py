@@ -38,12 +38,31 @@ def test_no_forbidden_imports():
     assert bad == []
 
 
-def test_package_imports_with_jax_and_ray_tpu_blocked():
-    mods = sorted(
+def _port_modules():
+    return sorted(
         os.path.relpath(p, ROOT)[:-3].replace(os.sep, ".")
         .removesuffix(".__init__")
         for p in _port_files()
         if not p.endswith(SCRIPTS))
+
+
+def test_all_names_every_subpackage():
+    """``ray_tpu_torch.__all__`` lists each sub-package, and the walk that
+    the blocked import takes reaches every module (the RL learners and
+    the MNIST model included)."""
+    import ray_tpu_torch
+
+    pkg = os.path.join(ROOT, "ray_tpu_torch")
+    subs = {d for d in os.listdir(pkg)
+            if os.path.isfile(os.path.join(pkg, d, "__init__.py"))}
+    assert subs == set(ray_tpu_torch.__all__) - {"__version__"}
+    assert {"ray_tpu_torch.rllib", "ray_tpu_torch.rllib.optim",
+            "ray_tpu_torch.rllib.sac",
+            "ray_tpu_torch.models.mnist"} <= set(_port_modules())
+
+
+def test_package_imports_with_jax_and_ray_tpu_blocked():
+    mods = _port_modules()
     code = (
         "import sys\n"
         f"for m in {FORBIDDEN!r}: sys.modules[m] = None\n"
