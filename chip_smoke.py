@@ -202,7 +202,22 @@ Phases; any failure exits non-zero:
    ``sample_action``'s frequencies over 10^5 draws within a chi-square
    bound of the softmax, ``sample_squashed``'s actions in [-1, 1] with
    logp the tanh-Gaussian density recomputed from the draws.  No flash
-   kernel runs on this path.
+   kernel runs on this path;
+15. runtime — the port's core runtime (``ray_tpu_torch.init``) on one
+   node, the card as its chip resource (``"TPU"``, asked for with
+   ``num_gpus=1``): ``cluster_resources()`` must count the card; a CPU
+   task's worker must not see it (``CUDA_VISIBLE_DEVICES=""``); a GPU task
+   returns a 67.1 MB bf16 CUDA tensor drawn from ``--seed``, twice (the
+   first starts a worker), which ``get`` must return as a CPU tensor bit-equal
+   to the same draw in the driver (get ms once ready, submit to value);
+   ``put`` of a 67.1 MB f32 CUDA tensor, read by a GPU task, must give the
+   driver's f64 sum; a GPU actor builds GPT-2 124M from phase 3's seed, its
+   first forward's logits (S=500) must match phase 3's within phase 3's
+   gate and its tokens for phase 3's four prompts must equal phase 3's
+   ``Replica``'s, with ``n_layer`` forward-kernel launches a forward counted
+   in its own process; after ``shutdown()`` no
+   ``ray_tpu_torch.core.*_main`` process and no ``rtt_store`` segment may
+   remain.
 
 The timed runs of phases 8-12 on four ranks train ``FOUR_RANK_DEPTH``
 (4) layers of GPT-2 124M's widths (or its MoE's): ring sp = 4, pp = 4 and
@@ -213,12 +228,15 @@ share one pool of 2 ranks and one of 4 (``CardPool``), started once
 ("8-13 ranks up"); each rank releases its cached device memory after
 every task.  Each phase's seconds are printed after it.
 
-The last two lines are a JSON object of per-kernel numbers and the
-result line ``{"ok": true, "device": {...}}``.  ``--profile`` adds
-``torch.profiler`` tables of device time by kernel for a forward at
-S=1024, a train step, a Llama forward at S=2048, a Llama decode step, an
-MoE forward at S=1000 and train step, and an XL train step with each
-head, each with the device's idle share over the traced calls.
+The forward kernel's launches are listed by path, the runtime's actor
+(``runtime_actor``) among them.  The last two lines are a JSON object of
+per-kernel numbers and the result line ``{"ok": true, "device":
+{...}}``.  ``--profile`` adds ``torch.profiler`` tables of device time
+by kernel for a forward at S=1024, a train step, a Llama forward at
+S=2048, a Llama decode step, an MoE forward at S=1000 and train step, and
+an XL train step with each head, each with the device's idle share over
+the traced calls, and times the runtime put's copy to the host and its
+serialize alone.
 
 Precision: TF32 is off for matmuls and cuDNN
 (``torch.backends.cuda.matmul.allow_tf32 = False``,
@@ -237,6 +255,7 @@ import gc
 import hashlib
 import json
 import math
+import os
 import re
 import shutil
 import subprocess
@@ -937,7 +956,8 @@ def phase_serve(seed, profile):
     if l_err > LOGITS_TOL:
         fail("logits with the kernel disagree with dense attention")
 
-    f0, results = serve_requests(replica, gen_obj, prompts, "serve")
+    f0, results, request_ms = serve_requests(replica, gen_obj, prompts,
+                                             "serve")
     t = time.perf_counter()
     items = list(replica.handle_request_stream(
         {"prompt": prompts[64], "max_tokens": 8}, method="stream"))
@@ -972,7 +992,8 @@ def phase_serve(seed, profile):
           f"{1 - dev_ms / wall_ms:.1%} of the issued time", flush=True)
     if profile:
         profile_forward(gen_obj.params, x, cfg)
-    return launches
+    return launches, {"prompts": prompts, "tokens": results,
+                      "logits": lk.cpu(), "ms": request_ms}
 
 
 def serve_prompts(seed):
@@ -987,12 +1008,13 @@ def serve_requests(replica, gen_obj, prompts, tag):
     """A warm-up request, then one of 8 new tokens at each prompt of 16,
     127, 500 and 1000 tokens through ``handle_request``, each checked and
     printed with its tokens/s; the launch counts are set to 0 after the
-    warm-up.  Returns (forwards before the four, tokens by prompt)."""
+    warm-up.  Returns (forwards before the four, tokens by prompt, ms by
+    prompt)."""
     cfg = gen_obj.cfg
     replica.handle_request({"prompt": prompts[16], "max_tokens": 2})  # warm
     reset_launches()
     f0 = gen_obj.forwards
-    results = {}
+    results, ms = {}, {}
     for L in (16, 127, 500, 1000):
         t = time.perf_counter()
         out = replica.handle_request({"prompt": prompts[L], "max_tokens": 8})
@@ -1001,11 +1023,11 @@ def serve_requests(replica, gen_obj, prompts, tag):
         if (len(toks) != L + 8 or toks[:L] != prompts[L]
                 or not all(0 <= x < cfg.vocab_size for x in toks[L:])):
             fail(f"request with a {L}-token prompt returned {toks[L:]}")
-        results[L] = toks
+        results[L], ms[L] = toks, dt * 1e3
         print(f"[{tag}] prompt {L}: 8 tokens in {dt * 1e3:.1f} ms = "
               f"{8 / dt:.1f} tokens/s, {dt / 8 * 1e3:.3f} ms per forward "
               f"(S={L}..{L + 7}); new tokens {toks[L:]}", flush=True)
-    return f0, results
+    return f0, results, ms
 
 
 def profile_forward(params, x, cfg):
@@ -1035,16 +1057,22 @@ def device_idle_share(events):
 def print_profile(fn, rows, label, calls=1):
     """Device time by kernel of ``calls`` back-to-back calls of fn
     (torch.profiler's CUDA events), per call, and the device's idle share
-    over them; returns the device ms per call."""
+    over them; returns the device ms per call.  The calls traced are the
+    schedule's second cycle, as in ``count_launches``: the trace of a
+    first cycle can miss its first kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
+    from torch.profiler import schedule
 
     torch.cuda.synchronize()
-    with tprofile(activities=[ProfilerActivity.CPU,
-                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                  schedule=schedule(wait=0, warmup=1, active=1,
+                                    repeat=1)) as prof:
+        for _ in range(2):
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
     # CUDA events, less the ranges that annotations (Optimizer.step, ...)
     # mark on the device timeline over kernels already counted
     def on_device(e):
@@ -1469,7 +1497,7 @@ def phase_moe(seed, profile):
           f"{cfg.moe_top_k}, capacity factor {cfg.moe_capacity_factor}: "
           f"{gpt2.num_params(gen_obj.params)} params", flush=True)
     _, prompts = serve_prompts(seed)
-    f0, _ = serve_requests(replica, gen_obj, prompts, "moe")
+    f0, _, _ = serve_requests(replica, gen_obj, prompts, "moe")
     serve_launches = fa.KERNEL_LAUNCHES
     forwards = gen_obj.forwards - f0
     print(f"[moe] kernel launches {serve_launches} = n_layer {cfg.n_layer} "
@@ -3459,6 +3487,210 @@ def phase_rl(seed):
         fail(f"the RL path launched a flash kernel: {read_launches()}")
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the core runtime on the card
+# ---------------------------------------------------------------------------
+
+# a bf16 tensor of 2^25 elements: 67.1 MB
+RUNTIME_DRAW_SHAPE = (8192, 4096)
+# an f32 tensor of 2^24 elements: 67.1 MB
+RUNTIME_PUT_SHAPE = (4096, 4096)
+
+
+def runtime_draw(seed):
+    """The GPU task's value, drawn on the card: the same bits wherever it
+    is drawn from the same seed on this card."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    out = torch.randn(RUNTIME_DRAW_SHAPE, generator=gen, device="cuda",
+                      dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    return out
+
+
+def card_seen():
+    """What a task's worker sees of the card."""
+    return [torch.cuda.is_available(),
+            os.environ.get("CUDA_VISIBLE_DEVICES")]
+
+
+def sum_on_card(t):
+    """An f64 sum of a tensor the runtime handed over, taken on the card;
+    the device the tensor arrived on."""
+    return [float(t.to("cuda").double().sum()), t.device.type]
+
+
+class RuntimeGenerator:
+    """Phase 3's ``Generator`` in a GPU actor: GPT-2 124M from the seed,
+    greedy requests of 8 new tokens; the forward kernel's launches are
+    counted in the actor's own process from its start."""
+
+    def __init__(self, seed):
+        # Generator by reference, from the script's module: by value,
+        # cloudpickle would have to pickle the torch.backends.cudnn module
+        # object that set_precision touches, and it cannot
+        import chip_smoke
+
+        fa.KERNEL_LAUNCHES = 0
+        self.gen = chip_smoke.Generator("small", "cuda", seed)
+
+    def first_forward(self, prompt):
+        """Logits of one forward over ``prompt``, on the card: the runtime
+        takes them to the host."""
+        x = torch.tensor([prompt], dtype=torch.long, device="cuda")
+        with torch.inference_mode():
+            logits = gpt2.forward(self.gen.params, x, self.gen.cfg)
+        self.gen.forwards += 1
+        return logits
+
+    def generate(self, prompt, max_tokens=8):
+        """(tokens, ms inside the actor) of one request."""
+        t = time.perf_counter()
+        tokens = self.gen({"prompt": prompt,
+                           "max_tokens": max_tokens})["tokens"]
+        return tokens, (time.perf_counter() - t) * 1e3
+
+    def launches(self):
+        """(forward kernel launches, forwards) in this process."""
+        return fa.KERNEL_LAUNCHES, self.gen.forwards
+
+
+def phase_runtime(seed, serve_ref, profile):
+    """Phase 15: the port's core runtime on one node, with the card as the
+    chip resource; ``serve_ref`` is phase 3's tokens, first logits and ms
+    per request.  ``profile`` also times the put's copy to the host and
+    its serialize alone."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.session_root import new_session_root
+    from ray_tpu_torch.util import chaos
+
+    free_memory("runtime")
+    root = new_session_root()
+    rt.config.temp_dir = root
+    baseline = chaos.snapshot_host()
+    t = time.perf_counter()
+    rt.init()
+    try:
+        launches = runtime_checks(rt, seed, serve_ref, profile,
+                                  time.perf_counter() - t)
+    finally:
+        rt.shutdown()
+    try:
+        chaos.assert_clean_host(baseline)
+    except chaos.HostLeakError as e:
+        fail(f"runtime shutdown left {e}")
+    shutil.rmtree(root, ignore_errors=True)
+    print("[runtime] shutdown: no ray_tpu_torch.core.*_main process and no "
+          "rtt_store segment left", flush=True)
+    return launches
+
+
+def runtime_checks(rt, seed, serve_ref, profile, init_s):
+    resources = rt.cluster_resources()
+    print(f"[runtime] init in {init_s:.2f} s; cluster_resources "
+          f"{resources}; card {torch.cuda.get_device_name(0)} "
+          f"({card_line()})", flush=True)
+    if resources.get("TPU") != float(torch.cuda.device_count()):
+        fail(f"the runtime counts {resources.get('TPU')} chips, torch "
+             f"{torch.cuda.device_count()} cards")
+
+    available, visible = rt.get(rt.remote(card_seen).remote(), timeout=120)
+    print(f"[runtime] CPU task: torch.cuda.is_available() {available} in "
+          f"its worker (CUDA_VISIBLE_DEVICES={visible!r})", flush=True)
+    if available or visible != "":
+        fail("a CPU task's worker can see the card")
+
+    want = runtime_draw(seed).cpu()
+    mb = want.numel() * want.element_size() / 1e6
+    draw = rt.remote(num_gpus=1)(runtime_draw)
+    for label in ("first: a worker starts and opens the card", "again"):
+        t = time.perf_counter()
+        ref = draw.remote(seed)
+        ready, _ = rt.wait([ref], timeout=300)
+        t_ready = time.perf_counter()
+        got = rt.get(ready[0])
+        t_get = time.perf_counter()
+        same = (type(got) is torch.Tensor and got.device.type == "cpu"
+                and got.dtype == torch.bfloat16 and got.shape == want.shape
+                and torch.equal(got.view(torch.int16),
+                                want.view(torch.int16)))
+        print(f"[runtime] GPU task -> {mb:.1f} MB bf16 CUDA tensor "
+              f"({label}): get {(t_get - t_ready) * 1e3:.3f} ms once ready "
+              f"({mb / 1e3 / (t_get - t_ready):.2f} GB/s); submit to value "
+              f"{(t_get - t) * 1e3:.1f} ms (the draw, the copy to the host "
+              f"and into the store, and get); a CPU bf16 tensor bit-equal "
+              f"to the driver's draw: {same}", flush=True)
+        if not same:
+            fail("the GPU task's tensor did not come back bit-equal")
+    del got, want
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    x = torch.randn(RUNTIME_PUT_SHAPE, generator=gen, device="cuda")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    x_ref = rt.put(x)
+    put_ms = (time.perf_counter() - t) * 1e3
+    task_sum, device = rt.get(
+        rt.remote(num_gpus=1)(sum_on_card).remote(x_ref), timeout=120)
+    driver_sum = float(x.double().sum())
+    print(f"[runtime] put of a {x.numel() * 4 / 1e6:.1f} MB f32 CUDA tensor "
+          f"from the driver: {put_ms:.1f} ms; a GPU task got it on the "
+          f"{device} and summed it on the card in f64: {task_sum!r}, the "
+          f"driver's {driver_sum!r}", flush=True)
+    if device != "cpu" or not math.isclose(task_sum, driver_sum,
+                                           rel_tol=1e-12):
+        fail("the sums of the put tensor disagree")
+    if profile:
+        from ray_tpu_torch.core import serialization
+
+        t = time.perf_counter()
+        x.cpu()
+        host_ms = (time.perf_counter() - t) * 1e3
+        t = time.perf_counter()
+        serialization.serialize(x)
+        print(f"[profile] runtime put's parts alone: the copy to the host "
+              f"{host_ms:.1f} ms, serialize with that copy "
+              f"{(time.perf_counter() - t) * 1e3:.1f} ms", flush=True)
+    del x, x_ref
+
+    t = time.perf_counter()
+    actor = rt.remote(num_gpus=1)(RuntimeGenerator).remote(seed)
+    logits = rt.get(actor.first_forward.remote(serve_ref["prompts"][500]),
+                    timeout=300)
+    err = (logits.float() - serve_ref["logits"].float()).abs().max().item()
+    print(f"[runtime] GPU actor up and its first forward (S=500) back in "
+          f"{time.perf_counter() - t:.2f} s: a {logits.device.type} "
+          f"{logits.dtype} tensor {tuple(logits.shape)}; max abs diff from "
+          f"phase 3's {err:.4e} (tol {LOGITS_TOL}), bit-equal "
+          f"{torch.equal(logits, serve_ref['logits'])}", flush=True)
+    if logits.shape != serve_ref["logits"].shape or not err <= LOGITS_TOL:
+        fail("the actor's first logits disagree with phase 3's")
+    # phase 3's warm-up request, so that the four are timed alike
+    rt.get(actor.generate.remote(serve_ref["prompts"][16], 2), timeout=300)
+    for L in (16, 127, 500, 1000):
+        t = time.perf_counter()
+        tokens, inside_ms = rt.get(
+            actor.generate.remote(serve_ref["prompts"][L]), timeout=300)
+        ms = (time.perf_counter() - t) * 1e3
+        same = tokens == serve_ref["tokens"][L]
+        print(f"[runtime] actor, prompt {L}: 8 tokens in {ms:.1f} ms as the "
+              f"driver waits (host clock), {inside_ms:.1f} ms of it inside "
+              f"the actor; phase 3's replica {serve_ref['ms'][L]:.1f} ms; "
+              f"tokens equal phase 3's: {same}", flush=True)
+        if not same:
+            fail(f"the actor's tokens for prompt {L} differ from phase 3's: "
+                 f"{tokens[L:]} against {serve_ref['tokens'][L][L:]}")
+    launches, forwards = rt.get(actor.launches.remote(), timeout=60)
+    n_layer = gpt2.GPT2_SMALL.n_layer
+    print(f"[runtime] actor's flash_fwd launches, read in its process: "
+          f"{launches} = n_layer {n_layer} x forwards {forwards}: "
+          f"{launches == n_layer * forwards}", flush=True)
+    if forwards != 1 + 2 + 4 * 8 or launches != n_layer * forwards:
+        fail("the actor did not run the forward kernel once per layer per "
+             "forward")
+    rt.kill(actor)
+    return launches
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3484,7 +3716,8 @@ def main():
     run("1b sm90", phase_sm90_checks, args.seed)
     kern = run("2 kernels", phase_kernels, args.seed)
     bwd = run("2b backward kernels", phase_bwd_kernels, args.seed)
-    serve_launches = run("3 serve", phase_serve, args.seed, args.profile)
+    serve_launches, serve_ref = run("3 serve", phase_serve, args.seed,
+                                    args.profile)
     train = run("4 train", phase_train, args.seed, args.profile)
     llama_launches = run("5 llama", phase_llama, args.seed, args.profile)
     moe_serve, moe_train = run("6 moe", phase_moe, args.seed, args.profile)
@@ -3502,6 +3735,8 @@ def main():
             for pool in pools.values():
                 pool.close()
     run("14 rl", phase_rl, args.seed)
+    runtime_launches = run("15 runtime", phase_runtime, args.seed, serve_ref,
+                           args.profile)
     print(f"[time] phases: {seconds}; all {sum(seconds.values()):.1f} s",
           flush=True)
     print(card_line())
@@ -3511,7 +3746,8 @@ def main():
                **moe_pp_runs}
     paths = {
         "flash_fwd": {"serve": serve_launches, "llama": llama_launches,
-                      "moe_serve": moe_serve},
+                      "moe_serve": moe_serve,
+                      "runtime_actor": runtime_launches},
         "flash_bwd_dq": {}, "flash_bwd_dkv": {}}
     for name, by_path in paths.items():
         by_path.update({path: run[name] for path, run in trained.items()})

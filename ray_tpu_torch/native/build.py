@@ -8,6 +8,16 @@ changed source builds anew, an unchanged one is loaded as it is.  The
 sources are compiled for ``sm_90a`` (Hopper) only.
 
 A failed build raises ``KernelBuildError``: there is no fallback.
+
+The runtime's two host libraries, ``native/src/object_store.cc`` (the shm
+object store) and ``native/src/frame_codec.cc`` (the control plane's frame
+codec), are built here too, one ``g++`` each, into ``_build/``, as
+``ray_tpu/native/build.py`` builds them.  Their callers keep that file's
+failure policies: the store is a hard dependency of the data plane, so
+``lib_path("store")`` raises ``NativeBuildError``; the codec only speeds the
+control plane up, so ``try_lib_path("codec")`` returns None (warning once)
+and the caller uses the pure-Python codec.  That is runtime behaviour, not a
+kernel's fallback.
 """
 
 from __future__ import annotations
@@ -18,6 +28,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sys
 import threading
 from typing import Dict, Iterable, Optional
 
@@ -112,3 +123,81 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(build([name])[name])
             _loaded[name] = lib
         return lib
+
+
+# ---------------------------------------------------------------------------
+# Host libraries of the runtime: ray_tpu/native/build.py's build, its output
+# in _build/ (tests/test_torch_runtime_copy.py holds it to that file).
+
+_DIR = os.path.dirname(os.path.abspath(__file__))
+
+# name -> (source file under src/, output .so)
+_LIBS = {
+    "store": ("object_store.cc", "librt_store.so"),
+    "codec": ("frame_codec.cc", "librt_codec.so"),
+}
+
+_warned: set = set()
+
+
+class NativeBuildError(RuntimeError):
+    pass
+
+
+def _build(src: str, lib: str):
+    # Per-pid temp name: two processes racing to build must not scribble
+    # over each other's half-written .so (os.replace keeps the swap atomic).
+    tmp = f"{lib}.tmp{os.getpid()}"
+    cmd = [
+        "g++", "-std=c++17", "-O3", "-fPIC", "-shared", "-pthread",
+        "-o", tmp, src,
+    ]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+    except (FileNotFoundError, OSError) as e:
+        raise NativeBuildError(f"native build failed ({e}): {' '.join(cmd)}")
+    if proc.returncode != 0:
+        try:
+            os.unlink(tmp)
+        except OSError:
+            pass
+        raise NativeBuildError(
+            f"native build failed: {' '.join(cmd)}\n{proc.stderr}"
+        )
+    os.replace(tmp, lib)
+
+
+def lib_path(name: str = "store") -> str:
+    """Return path to the named native library, building if stale/missing.
+
+    Raises ``NativeBuildError`` when the compiler is unavailable or the
+    build fails.
+    """
+    try:
+        src_name, lib_name = _LIBS[name]
+    except KeyError:
+        raise NativeBuildError(f"unknown native library {name!r}") from None
+    src = os.path.join(_DIR, "src", src_name)
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    lib = os.path.join(BUILD_DIR, lib_name)
+    with _lock:
+        if (
+            not os.path.exists(lib)
+            or os.path.getmtime(lib) < os.path.getmtime(src)
+        ):
+            _build(src, lib)
+    return lib
+
+
+def try_lib_path(name: str) -> "str | None":
+    """``lib_path`` that degrades to None (warn once) instead of raising —
+    for native components with a pure-Python fallback."""
+    try:
+        return lib_path(name)
+    except NativeBuildError as e:
+        if name not in _warned:
+            _warned.add(name)
+            sys.stderr.write(
+                f"[ray_tpu_torch] native {name} library unavailable, using "
+                f"pure-Python fallback: {e}\n")
+        return None

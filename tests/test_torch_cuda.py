@@ -9,7 +9,8 @@ under dp; GPT-2 XL's attention shape on an fsdp = 2 rank and a two-rank
 fsdp train step; the MoE at pp = 2 x dp = 2 on four ranks, each routing its
 block of every global microbatch; one update of each RL learner (IMPALA
 with the Nature-CNN on a short rollout, PPO, DQN, SAC, BC) and an MNIST
-step against the port's CPU path.
+step against the port's CPU path; the runtime's serializer on card tensors,
+alone and nested in a GPU task's result that a CPU task reads.
 
 Marked ``cuda``: every test skips where there is no CUDA device.  On a
 machine with one (no JAX needed, hence ``--noconftest``):
@@ -1042,3 +1043,79 @@ def test_rl_update_on_card_matches_cpu(cuda, name):
     set_precision()
     m_err, leaf_err, *_ = rl_hold(name, 0, {**RL_SIZES, "impala": (8, 4)})
     assert m_err <= 1 and leaf_err <= 1
+
+
+def test_runtime_serialization_takes_card_tensors_to_host(cuda):
+    """The runtime's serializer takes a tensor on the card to the host: a
+    CPU tensor of its dtype and shape, bit for bit (bf16, a strided f32
+    view, an empty one), its bytes one out-of-band buffer."""
+    from ray_tpu_torch.core import serialization
+
+    x = torch.randn(1024, 768, device="cuda", generator=cuda)
+    for t in (x.to(torch.bfloat16), x.t()[::2], x[:0]):
+        ser = serialization.serialize(t)
+        assert [b.nbytes for b in ser.buffers] == [t.numel() * t.element_size()]
+        back = serialization.loads(ser.to_bytes())
+        assert back.device.type == "cpu" and back.dtype == t.dtype
+        assert back.shape == t.shape
+        assert torch.equal(back, t.cpu())
+
+
+NESTED_ON_CARD = """
+import json, sys
+import torch
+import ray_tpu_torch as rt
+
+
+def draw():
+    g = torch.Generator(device="cuda").manual_seed(7)
+    w = torch.randn(512, 256, device="cuda", generator=g)
+    return {"loss": w.mean(), "grads": {"w": w.to(torch.bfloat16),
+                                        "b": w[0]}, "step": 3}
+
+
+def on_host(value):
+    return {"cuda": torch.cuda.is_available(),
+            "devices": sorted({t.device.type for t in (
+                value["loss"], *value["grads"].values())}),
+            "sums": [float(t.cpu().double().sum()) for t in (
+                value["loss"], *value["grads"].values())]}
+
+
+rt.init(num_cpus=2)
+ref = rt.remote(num_gpus=1)(draw).remote()
+seen = rt.get(rt.remote(on_host).remote(ref), timeout=120)
+back = rt.get(ref, timeout=120)
+want = draw()
+same = (back["step"] == 3 and back["loss"].device.type == "cpu"
+        and all(torch.equal(back["grads"][k], want["grads"][k].cpu())
+                for k in want["grads"])
+        and torch.equal(back["loss"], want["loss"].cpu())
+        and back["grads"]["w"].dtype == torch.bfloat16)
+rt.shutdown()
+print("RESULT " + json.dumps({"seen": seen, "want": on_host(want),
+                              "same": same}))
+"""
+
+
+def test_runtime_nested_card_tensors_load_in_a_cpu_worker(cuda, tmp_path):
+    """A GPU task returns a dict of tensors on the card; a CPU task, whose
+    worker cannot see the card, reads it as CPU tensors, and the driver gets
+    them back bit-equal to the same draw made on the card."""
+    import json
+    import os
+    import sys
+
+    from test_torch_runtime_parity import ROOT, run_driver
+
+    main = tmp_path / "main.py"
+    main.write_text(NESTED_ON_CARD)
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc, stdout, stderr = run_driver([sys.executable, str(main)],
+                                      str(tmp_path), env, timeout=300)
+    assert proc.returncode == 0, stderr
+    line = [l for l in stdout.splitlines() if l.startswith("RESULT ")]
+    out = json.loads(line[-1][len("RESULT "):])
+    assert out["same"]
+    assert out["seen"]["cuda"] is False and out["seen"]["devices"] == ["cpu"]
+    assert out["seen"]["sums"] == out["want"]["sums"]

@@ -1,10 +1,13 @@
 """The port stands alone: ray_tpu_torch and chip_smoke.py import no JAX,
-nothing of ray_tpu, and no cloudpickle."""
+nothing of ray_tpu, and not the installed cloudpickle (the runtime ships
+functions with its vendored copy, ``ray_tpu_torch._vendor.cloudpickle``)."""
 
 import ast
 import os
 import subprocess
 import sys
+
+from test_torch_runtime_parity import run_driver
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "cloudpickle", "ray_tpu")
@@ -47,18 +50,27 @@ def _port_modules():
 
 
 def test_all_names_every_subpackage():
-    """``ray_tpu_torch.__all__`` lists each sub-package, and the walk that
-    the blocked import takes reaches every module (the RL learners and
-    the MNIST model included)."""
+    """``ray_tpu_torch.__all__`` lists each public sub-package beside the
+    runtime's API, and the walk that the blocked import takes reaches every
+    module (the RL learners, the MNIST model, the runtime, the vendored
+    cloudpickle and the native build included)."""
     import ray_tpu_torch
 
     pkg = os.path.join(ROOT, "ray_tpu_torch")
     subs = {d for d in os.listdir(pkg)
             if os.path.isfile(os.path.join(pkg, d, "__init__.py"))}
-    assert subs == set(ray_tpu_torch.__all__) - {"__version__"}
+    listed = {n for n in ray_tpu_torch.__all__
+              if os.path.isdir(os.path.join(pkg, n))}
+    assert listed == subs - {"_vendor"}
+    assert {"init", "remote", "get", "put", "wait"} <= set(
+        ray_tpu_torch.__all__)
     assert {"ray_tpu_torch.rllib", "ray_tpu_torch.rllib.optim",
-            "ray_tpu_torch.rllib.sac",
-            "ray_tpu_torch.models.mnist"} <= set(_port_modules())
+            "ray_tpu_torch.rllib.sac", "ray_tpu_torch.models.mnist",
+            "ray_tpu_torch.core.raylet", "ray_tpu_torch.core.worker_main",
+            "ray_tpu_torch.util.chaos", "ray_tpu_torch.native.build",
+            "ray_tpu_torch._vendor.cloudpickle",
+            "ray_tpu_torch._vendor.cloudpickle.cloudpickle"} <= set(
+                _port_modules())
 
 
 def test_package_imports_with_jax_and_ray_tpu_blocked():
@@ -77,3 +89,52 @@ def test_package_imports_with_jax_and_ray_tpu_blocked():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("ok")
+
+
+CLUSTER = """
+import os, sys
+for m in FORBIDDEN:
+    sys.modules[m] = None
+import ray_tpu_torch as rt
+
+rt.init(num_cpus=2)
+
+
+def loaded():
+    return sorted(m for m in FORBIDDEN if sys.modules.get(m) is not None)
+
+
+@rt.remote
+def task(x):
+    return [x * 2, loaded()]
+
+
+@rt.remote
+class Actor:
+    def __init__(self, base):
+        self.base = base
+
+    def add(self, x):
+        return [self.base + x, loaded()]
+
+
+print("task", rt.get(task.remote(21), timeout=60))
+print("actor", rt.get(Actor.remote(1).add.remote(2), timeout=60))
+print("driver", loaded())
+rt.shutdown()
+"""
+
+
+def test_cluster_runs_with_jax_and_ray_tpu_blocked(tmp_path):
+    """A port cluster starts in a driver where jax, jaxlib, ray_tpu and the
+    installed cloudpickle cannot be imported; a task and an actor call
+    return, and neither the workers nor the driver loaded any of them."""
+    main = tmp_path / "main.py"
+    main.write_text(f"FORBIDDEN = {FORBIDDEN!r}\n" + CLUSTER)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = ROOT
+    proc, stdout, stderr = run_driver([sys.executable, str(main)],
+                                      str(tmp_path), env)
+    assert proc.returncode == 0, stderr
+    assert stdout.splitlines() == [
+        "task [42, []]", "actor [3, []]", "driver []"], stdout

@@ -1,0 +1,212 @@
+"""The port's runtime is a copy of the JAX package's, hunk for hunk.
+
+Each file of ``COPIED`` is ``ray_tpu/<path>`` with every ``ray_tpu`` renamed
+``ray_tpu_torch`` (hunk a, applied to the reference before the diff).  Where
+the two still differ, the lines must lie in a hunk that ``HUNKS`` lists for
+that file by its lines in the reference, and every listed hunk must still be
+there.  The hunks:
+
+(a) ``ray_tpu`` becomes ``ray_tpu_torch`` (the rename above);
+(b) the vendored cloudpickle (``ray_tpu_torch._vendor``) in place of the
+    installed one;
+(c) a ``torch.Tensor`` taken to the host in place of a ``jax.Array``
+    (``core/serialization.py``'s docstring, ``_device_to_host``, and
+    ``serialize``'s pickler, which takes tensors on the card inside the
+    value to the host too);
+(d) the chip count from ``torch.cuda.device_count()`` in place of
+    ``jax.devices()``, under the same conditions;
+(e) CPU workers kept off the card by ``CUDA_VISIBLE_DEVICES=""`` in place of
+    ``JAX_PLATFORMS=cpu``;
+(f) no hunk: the chip resource keeps the key ``"TPU"`` (``num_gpus=`` is its
+    alias), held by ``test_chip_resource_key``;
+(g) object-store segments named ``rtt_store_`` in place of ``rt_store_``, so
+    that neither package's leak audits and sweeps count the other's;
+(h) the host libraries built into ``ray_tpu_torch/_build/``.
+
+``ray_tpu_torch/__init__.py`` carries ``ray_tpu/__init__.py``'s API and
+``ray_tpu_torch/native/build.py`` ``ray_tpu/native/build.py``'s host build
+beside the port's own code: those definitions are held one by one.
+"""
+
+import ast
+import difflib
+import os
+import re
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+REF = os.path.join(ROOT, "ray_tpu")
+PORT = os.path.join(ROOT, "ray_tpu_torch")
+RENAME = re.compile(r"(?<![A-Za-z0-9_])ray_tpu(?![A-Za-z0-9_])")
+
+CORE = sorted(f"core/{f}" for f in os.listdir(os.path.join(REF, "core"))
+              if f.endswith(".py"))
+UTIL = [f"util/{m}.py" for m in (
+    "__init__", "locks", "retry", "scheduling_strategies", "metrics",
+    "metrics_query", "alerts", "tracing", "profiling", "state", "chaos",
+    "trace_analysis")]
+COPIED = CORE + UTIL + ["runtime_context.py", "dag.py",
+                        "native/src/object_store.cc",
+                        "native/src/frame_codec.cc"]
+
+# path -> [(hunk, first reference line, last reference line)]; an insertion
+# after reference line n is at (n, n)
+HUNKS = {
+    "core/actor.py": [("b", 254, 254)],
+    "core/object_store.py": [("g", 155, 155), ("g", 169, 169)],
+    "core/raylet.py": [("e", 1084, 1093), ("b", 4139, 4139),
+                       ("b", 5366, 5366)],
+    "core/raylet_main.py": [("g", 59, 59)],
+    "core/serialization.py": [("c", 6, 6), ("c", 19, 21), ("c", 25, 28),
+                              ("c", 87, 97), ("b", 124, 124),
+                              ("c", 126, 126)],
+    "core/worker.py": [("b", 25, 25), ("g", 658, 658), ("d", 694, 703),
+                       ("g", 715, 715)],
+    "core/worker_main.py": [("b", 26, 26)],
+    "util/chaos.py": [("g", 470, 470)],
+}
+
+# hunks whose new lines are the reference's under one textual substitution
+SUBSTITUTE = {
+    "b": ("import cloudpickle", "from ray_tpu_torch._vendor import cloudpickle"),
+    "g": ("rt_store", "rtt_store"),
+}
+
+
+def _renamed(path):
+    with open(os.path.join(REF, path), encoding="utf-8") as f:
+        return RENAME.sub("ray_tpu_torch", f.read())
+
+
+def _read(path):
+    with open(os.path.join(PORT, path), encoding="utf-8") as f:
+        return f.read()
+
+
+def _check_hunks(ref_lines, port_lines, hunks, first_line=1):
+    """Every difference lies in a listed hunk, every hunk is there, and the
+    substitution hunks are exactly their substitution."""
+    ops = [op for op in difflib.SequenceMatcher(
+        None, ref_lines, port_lines, autojunk=False).get_opcodes()
+        if op[0] != "equal"]
+    seen = set()
+    for _, i1, i2, j1, j2 in ops:
+        lo = i1 + first_line
+        hi = max(i2 + first_line - 1, lo - (i1 == i2))
+        lo = min(lo, hi)
+        inside = [h for h in hunks if h[1] <= lo and hi <= h[2]]
+        assert inside, (f"reference lines {lo}-{hi} differ outside the "
+                        f"listed hunks: {ref_lines[i1:i2]} -> "
+                        f"{port_lines[j1:j2]}")
+        label = inside[0][0]
+        seen.add(inside[0])
+        if label in SUBSTITUTE:
+            old, new = SUBSTITUTE[label]
+            assert [l.replace(old, new) for l in ref_lines[i1:i2]] == \
+                port_lines[j1:j2], (label, ref_lines[i1:i2],
+                                    port_lines[j1:j2])
+    assert seen == set(hunks), f"listed hunks not found: {set(hunks) - seen}"
+
+
+@pytest.mark.parametrize("path", COPIED)
+def test_copy_differs_only_in_listed_hunks(path):
+    hunks = HUNKS.get(path, [])
+    assert {h[0] for h in hunks} <= set("bcdegh")
+    _check_hunks(_renamed(path).splitlines(), _read(path).splitlines(),
+                 hunks)
+
+
+def test_copy_list_is_whole():
+    """Every module of the reference's core is copied, and the port's core
+    and util hold nothing that is not a copy."""
+    for sub in ("core", "util"):
+        port = {f"{sub}/{f}" for f in os.listdir(os.path.join(PORT, sub))
+                if f.endswith(".py")}
+        assert port == {p for p in COPIED if p.startswith(sub + "/")}
+    assert set(CORE) == {f"core/{f}" for f in os.listdir(
+        os.path.join(REF, "core")) if f.endswith(".py")}
+    assert set(HUNKS) <= set(COPIED)
+
+
+def _definitions(source):
+    """name -> (first line, lines) of each top-level def, class and
+    assignment to one name."""
+    out = {}
+    lines = source.splitlines()
+    for node in ast.parse(source).body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            name = node.name
+        elif isinstance(node, (ast.Assign, ast.AnnAssign)):
+            targets = getattr(node, "targets", None) or [node.target]
+            if len(targets) != 1 or not isinstance(targets[0], ast.Name):
+                continue
+            name = targets[0].id
+        else:
+            continue
+        first = min([node.lineno] + [d.lineno for d in getattr(
+            node, "decorator_list", [])])
+        out[name] = (first, lines[first - 1:node.end_lineno])
+    return out
+
+
+HOST_BUILD = ("_LIBS", "_warned", "NativeBuildError", "_build", "lib_path",
+              "try_lib_path")
+# (h): the output directory, at ray_tpu/native/build.py's lib_path
+HOST_BUILD_HUNKS = {"lib_path": [("h", 74, 74)]}
+
+
+@pytest.mark.parametrize("name", HOST_BUILD)
+def test_host_build_is_the_reference(name):
+    ref = _definitions(_renamed("native/build.py"))
+    port = _definitions(_read("native/build.py"))
+    first, ref_lines = ref[name]
+    _check_hunks(ref_lines, port[name][1], HOST_BUILD_HUNKS.get(name, []),
+                 first_line=first)
+
+
+def test_api_is_the_reference():
+    """``ray_tpu_torch/__init__.py`` defines every function of
+    ``ray_tpu/__init__.py`` as it stands there, imports what it imports
+    and exports what it exports; its lazy ``__getattr__`` names only
+    sub-packages the port has."""
+    ref_src = _renamed("__init__.py")
+    port_src = _read("__init__.py")
+    ref, port = _definitions(ref_src), _definitions(port_src)
+    funcs = [n for n, (_, lines) in ref.items()
+             if lines[0].startswith("def ") and n != "__getattr__"]
+    assert len(funcs) == 14
+    for name in funcs:
+        assert port[name][1] == ref[name][1], name
+
+    def imports(src):
+        return [ast.unparse(n) for n in ast.parse(src).body
+                if isinstance(n, (ast.Import, ast.ImportFrom))]
+
+    assert imports(port_src) == imports(ref_src)
+    import ray_tpu_torch
+
+    ref_all = ast.literal_eval(ref["__all__"][1][0].split("=", 1)[1].strip()
+                               + "".join(ref["__all__"][1][1:]))
+    assert set(ref_all) <= set(ray_tpu_torch.__all__)
+    getattr_node = next(n for n in ast.parse(port_src).body
+                        if isinstance(n, ast.FunctionDef)
+                        and n.name == "__getattr__")
+    lazy = next(ast.literal_eval(n.comparators[0]) for n in ast.walk(
+        getattr_node) if isinstance(n, ast.Compare))
+    for name in lazy:
+        assert os.path.isfile(os.path.join(PORT, name, "__init__.py")), name
+        assert getattr(ray_tpu_torch, name).__name__ == f"ray_tpu_torch.{name}"
+
+
+def test_chip_resource_key():
+    """(f): ``num_gpus=`` and ``num_tpus=`` ask for the key ``"TPU"``, one
+    accelerator chip, as in the reference."""
+    from ray_tpu.core.remote_function import _build_resources as ref_build
+
+    from ray_tpu_torch.core.remote_function import _build_resources
+
+    for opts in ({"num_gpus": 1}, {"num_tpus": 2, "num_cpus": 0},
+                 {"num_cpus": 2, "resources": {"x": 1}}):
+        assert _build_resources(opts) == ref_build(opts)
+    assert _build_resources({"num_gpus": 1}) == {"CPU": 1.0, "TPU": 1.0}

@@ -1,0 +1,552 @@
+"""One driver program, two packages: the port's runtime gives what the JAX
+package's gives.
+
+Each test writes one driver program, runs it through ``ray_tpu`` and through
+``ray_tpu_torch`` (the package is the program's first argument), each in its
+own subprocess started from a directory outside the repo, and compares the
+JSON the two print.  The programs define their functions, closures and
+classes in ``__main__``, so both runtimes ship them by value with
+cloudpickle: the installed package in the JAX package, the vendored copy in
+the port.  Exception classes are compared by name and messages as they
+stand, once the package's name and the random ids in them are made equal.
+
+Each driver runs under a session root of its own
+(``ray_tpu_torch.session_root.new_session_root``, passed as
+``RAY_TPU_TEMP_DIR``, a flag of both packages), so no two drivers, of one
+package or of both, meet in the default ``/tmp`` root.  The port's own runs
+are also held to its leak audit: no ``ray_tpu_torch.core.*_main`` process
+and no ``rtt_store_`` segment of the driver is left after it exits.  The
+audit counts only what the drivers a test started left
+(``assert_port_left_nothing``), so the port's clusters in other test
+workers do not count; the other port runtime test files use both.
+"""
+
+import concurrent.futures
+import json
+import os
+import re
+import shutil
+import subprocess
+import sys
+import time
+
+from ray_tpu_torch.session_root import new_session_root
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PACKAGES = ("ray_tpu", "ray_tpu_torch")
+
+HEADER = """\
+import importlib, json, sys, time
+rt = importlib.import_module(sys.argv[1])
+OUT = {}
+
+
+def error(fn):
+    try:
+        fn()
+    except Exception as e:  # noqa: BLE001
+        return [type(e).__name__, str(e)]
+    return None
+
+
+"""
+FOOTER = """
+rt.shutdown()
+print("RESULT " + json.dumps(OUT, sort_keys=True))
+"""
+
+
+def port_leftovers(driver_pids):
+    """The port's runtime processes and store segments of the drivers with
+    these pids.  A worker names its driver in its session directory
+    (``session_<time>_<pid>_<hex>``, in ``RAY_TPU_SESSION_DIR``), a segment
+    in its name (``rtt_store_<pid>_<hex>``)."""
+    from ray_tpu_torch.util import chaos
+
+    mine = {str(p) for p in driver_pids}
+    procs = []
+    for pid, module in chaos._runtime_pids().items():
+        try:
+            with open(f"/proc/{pid}/environ", "rb") as f:
+                env = f.read().split(b"\0")
+        except OSError:  # exited since
+            continue
+        for var in env:
+            if var.startswith(b"RAY_TPU_SESSION_DIR="):
+                parts = os.path.basename(var.decode()).split("_")
+                if parts[2:3] and parts[2] in mine:
+                    procs.append(f"pid {pid} ({module})")
+    segments = [s for s in chaos._shm_segments()
+                if s.split("_")[2:3] and s.split("_")[2] in mine]
+    return procs + segments
+
+
+def assert_port_left_nothing(driver_pids, grace_s=15.0):
+    """Teardown is asynchronous: poll up to ``grace_s`` for the drivers'
+    processes and segments to go."""
+    deadline = time.monotonic() + grace_s
+    while True:
+        left = port_leftovers(driver_pids)
+        if not left:
+            return
+        assert time.monotonic() < deadline, f"left after shutdown: {left}"
+        time.sleep(0.25)
+
+
+def run_driver(args, cwd, env, timeout=120):
+    """Run a driver program under a session root of its own, removed after
+    it exits: (proc, stdout, stderr), its port processes and segments held
+    to the leak audit."""
+    root = new_session_root()
+    try:
+        proc = subprocess.Popen(
+            args, cwd=cwd, env=dict(env, RAY_TPU_TEMP_DIR=root),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        try:
+            stdout, stderr = proc.communicate(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            stdout, stderr = proc.communicate()
+        assert_port_left_nothing([proc.pid])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return proc, stdout, stderr
+
+
+def _normalize(value):
+    text = json.dumps(value, sort_keys=True).replace("ray_tpu_torch",
+                                                     "ray_tpu")
+    return json.loads(re.sub(r"\b[0-9a-f]{16,}\b", "<id>", text))
+
+
+def run_both(tmp_path, body, timeout=120):
+    """The program's OUT through each package, normalized: {package: OUT}.
+    The two drivers run at the same time, each under its own root."""
+    main = tmp_path / "main.py"
+    main.write_text(HEADER + body + FOOTER)
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    with concurrent.futures.ThreadPoolExecutor(len(PACKAGES)) as pool:
+        runs = {pkg: pool.submit(run_driver, [sys.executable, str(main), pkg],
+                                 str(tmp_path), env, timeout)
+                for pkg in PACKAGES}
+        ended = {pkg: run.result() for pkg, run in runs.items()}
+    out = {}
+    for pkg, (proc, stdout, stderr) in ended.items():
+        assert proc.returncode == 0, f"{pkg}:\n{stdout}\n{stderr}"
+        line = [l for l in stdout.splitlines() if l.startswith("RESULT ")]
+        assert line, f"{pkg}: no result\n{stdout}\n{stderr}"
+        out[pkg] = _normalize(json.loads(line[-1][len("RESULT "):]))
+    return out
+
+
+def check_same(tmp_path, body, want=None):
+    out = run_both(tmp_path, body)
+    assert out["ray_tpu_torch"] == out["ray_tpu"]
+    if want is not None:
+        for key, value in want.items():
+            assert out["ray_tpu"][key] == value, key
+    return out["ray_tpu"]
+
+
+TASKS = """
+import concurrent.futures
+import dataclasses
+
+rt.init(num_cpus=4)
+BASE = 7
+
+
+def helper(x):
+    return x + BASE
+
+
+@rt.remote
+def closure_task(x):
+    return helper(x) * 2
+
+
+class Point:
+    def __init__(self, x, y):
+        self.x, self.y = x, y
+
+    def norm2(self):
+        return self.x ** 2 + self.y ** 2
+
+
+@rt.remote
+def make_point(x, y):
+    return Point(x, y)
+
+
+@rt.remote
+def use_point(p):
+    return [type(p).__name__, type(p).__module__, p.norm2()]
+
+
+def fact(n):
+    return 1 if n <= 1 else n * fact(n - 1)
+
+
+@rt.remote
+def recursive(n):
+    return fact(n)
+
+
+@dataclasses.dataclass
+class Cfg:
+    a: int
+    b: str = "x"
+
+
+@rt.remote
+def bump(c):
+    return dataclasses.replace(c, a=c.a + 1)
+
+
+@rt.remote
+def inner(x):
+    return x * 10
+
+
+@rt.remote
+def outer(x):
+    return rt.get(inner.remote(x)) + 1
+
+
+@rt.remote
+def fan_out(n):
+    return sum(rt.get([inner.remote(i) for i in range(n)]))
+
+
+def make_adder(k):
+    @rt.remote
+    def add(x):
+        return x + k
+    return add
+
+
+@rt.remote
+def uses_submodule():
+    return concurrent.futures.ThreadPoolExecutor.__name__
+
+
+@rt.remote(num_returns=2)
+def two(a, b=5):
+    return a, b
+
+
+OUT["closure"] = rt.get([closure_task.remote(i) for i in range(4)])
+OUT["class"] = rt.get(use_point.remote(make_point.remote(3, 4)))
+p = rt.get(make_point.remote(1, 2))
+OUT["class_in_driver"] = [type(p).__name__, p.norm2(), type(p) is Point]
+OUT["recursive"] = rt.get(recursive.remote(12))
+OUT["dataclass"] = repr(rt.get(bump.remote(Cfg(1))))
+OUT["nested"] = rt.get(outer.remote(4))
+OUT["fan_out"] = rt.get(fan_out.remote(5))
+OUT["local_closure"] = rt.get(make_adder(5).remote(1))
+OUT["submodule"] = rt.get(uses_submodule.remote())
+OUT["num_returns"] = rt.get(list(two.remote(1, b=3)))
+OUT["ref_arg"] = rt.get(inner.remote(rt.put(6)))
+OUT["lambda"] = rt.get(rt.remote(lambda x: x - 1).remote(10))
+"""
+
+
+def test_tasks(tmp_path):
+    check_same(tmp_path, TASKS, {
+        "closure": [14, 16, 18, 20], "class": ["Point", "__main__", 25],
+        "class_in_driver": ["Point", 5, True], "recursive": 479001600,
+        "dataclass": "Cfg(a=2, b='x')", "nested": 41, "fan_out": 100,
+        "local_closure": 6, "submodule": "ThreadPoolExecutor",
+        "num_returns": [1, 3], "ref_arg": 60, "lambda": 9})
+
+
+ACTORS = """
+rt.init(num_cpus=4)
+
+
+@rt.remote
+class Counter:
+    def __init__(self, start):
+        self.n = start
+        self.log = []
+
+    def incr(self, k=1):
+        self.n += k
+        self.log.append(k)
+        return self.n
+
+    def state(self):
+        return [self.n, self.log]
+
+    def fail(self):
+        raise ValueError("counter refused")
+
+
+c = Counter.remote(10)
+OUT["calls"] = [rt.get(c.incr.remote()) for _ in range(3)]
+OUT["ordered"] = rt.get([c.incr.remote(k) for k in range(5)])
+OUT["state"] = rt.get(c.state.remote())
+OUT["method_error"] = error(lambda: rt.get(c.fail.remote()))
+OUT["after_error"] = rt.get(c.incr.remote())
+named = Counter.options(name="ctr").remote(0)
+rt.get(named.incr.remote(5))
+OUT["named"] = rt.get(rt.get_actor("ctr").incr.remote())
+OUT["missing_name"] = error(lambda: rt.get_actor("nope"))
+OUT["handle_arg"] = rt.get(rt.remote(lambda h: rt.get(h.incr.remote(100)))
+                           .remote(named))
+rt.kill(c)
+OUT["killed"] = error(lambda: rt.get(c.incr.remote(), timeout=30))[0]
+rt.kill(named)
+"""
+
+
+def test_actors(tmp_path):
+    out = check_same(tmp_path, ACTORS, {
+        "calls": [11, 12, 13], "ordered": [13, 14, 16, 19, 23],
+        "state": [23, [1, 1, 1, 0, 1, 2, 3, 4]], "after_error": 24,
+        "named": 6, "handle_arg": 106,
+        "missing_name": ["ValueError", "no actor named 'nope'"],
+        "killed": "ActorDiedError"})
+    assert out["method_error"][0] == "TaskError"
+    assert "ValueError: counter refused" in out["method_error"][1]
+
+
+OBJECTS = """
+import numpy as np
+import torch
+
+rt.init(num_cpus=4)
+a = np.arange(1 << 20, dtype=np.float64)
+b = rt.get(rt.put(a))
+OUT["numpy"] = [type(b).__name__, str(b.dtype), bool((a == b).all()),
+                b.base is not None and not b.flags.owndata]
+
+
+@rt.remote
+def ones(n):
+    return np.ones(n, np.float32)
+
+
+c = rt.get(ones.remote(1 << 21))
+OUT["numpy_task"] = [float(c.sum()), c.base is not None]
+g = torch.Generator().manual_seed(0)
+t32 = torch.randn(512, 1024, generator=g)
+for name, t in (("f32", t32), ("bf16", t32.to(torch.bfloat16)),
+                ("i64", torch.arange(12).reshape(3, 4)),
+                ("scalar", torch.tensor(2.5)), ("empty", torch.zeros(0, 3))):
+    u = rt.get(rt.put(t))
+    OUT["put_" + name] = [type(u).__name__, str(u.dtype), list(u.shape),
+                          u.device.type, torch.equal(u, t)]
+
+
+@rt.remote
+def double(t):
+    return [str(t.dtype), t * 2]
+
+
+dt, d = rt.get(double.remote(t32.to(torch.bfloat16)))
+OUT["task_bf16"] = [dt, str(d.dtype),
+                    torch.equal(d, t32.to(torch.bfloat16) * 2)]
+inner = rt.put([1, 2, 3])
+outer = rt.put({"r": inner, "s": [rt.put("x")]})
+got = rt.get(outer)
+OUT["ref_in_value"] = [rt.get(got["r"]), rt.get(got["s"][0])]
+
+
+@rt.remote
+def total(refs):
+    return sum(rt.get(refs))
+
+
+OUT["refs_in_arg"] = rt.get(total.remote([rt.put(i) for i in range(5)]))
+
+
+@rt.remote
+def make_ref():
+    return {"ref": rt.put(np.full(4, 3.0))}
+
+
+OUT["ref_from_task"] = rt.get(rt.get(make_ref.remote())["ref"]).tolist()
+OUT["free"] = error(lambda: rt.free([rt.put(1)]))
+"""
+
+
+def test_objects(tmp_path):
+    tensor = ["Tensor", "torch.float32", [512, 1024], "cpu", True]
+    check_same(tmp_path, OBJECTS, {
+        "numpy": ["ndarray", "float64", True, True],
+        "numpy_task": [float(1 << 21), True],
+        "put_f32": tensor,
+        "put_bf16": tensor[:1] + ["torch.bfloat16"] + tensor[2:],
+        "put_i64": ["Tensor", "torch.int64", [3, 4], "cpu", True],
+        "put_scalar": ["Tensor", "torch.float32", [], "cpu", True],
+        "put_empty": ["Tensor", "torch.float32", [0, 3], "cpu", True],
+        "task_bf16": ["torch.bfloat16", "torch.bfloat16", True],
+        "ref_in_value": [[1, 2, 3], "x"], "refs_in_arg": 10,
+        "ref_from_task": [3.0, 3.0, 3.0, 3.0], "free": None})
+
+
+WAIT_CANCEL = """
+rt.init(num_cpus=4)
+
+
+@rt.remote
+def quick(t):
+    time.sleep(t)
+    return t
+
+
+@rt.remote
+def long_loop(n):
+    for _ in range(n):
+        time.sleep(0.05)
+    return n
+
+
+refs = [quick.remote(0.01), quick.remote(0.02), long_loop.remote(600)]
+ready, rest = rt.wait(refs, num_returns=2, timeout=20)
+OUT["wait_two"] = [sorted(rt.get(ready)), len(rest), rest[0] == refs[2]]
+ready, rest = rt.wait(refs, num_returns=3, timeout=0.5)
+OUT["wait_timeout"] = [len(ready), len(rest)]
+ready, rest = rt.wait(refs[:2], num_returns=1)
+OUT["wait_one"] = [len(ready), len(rest)]
+OUT["wait_duplicate"] = error(lambda: rt.wait([refs[0], refs[0]]))
+OUT["wait_zero"] = error(lambda: rt.wait(refs, num_returns=0))
+OUT["wait_not_list"] = error(lambda: rt.wait(refs[0]))
+OUT["get_timeout"] = error(lambda: rt.get(refs[2], timeout=0.0))
+OUT["cancel_running"] = rt.cancel(refs[2])
+OUT["cancelled"] = error(lambda: rt.get(refs[2], timeout=30))
+
+
+@rt.remote(num_cpus=4)
+def hog():
+    time.sleep(3)
+    return "hog"
+
+
+h = hog.remote()
+time.sleep(0.5)
+queued = quick.remote(0)
+OUT["cancel_queued"] = rt.cancel(queued)
+OUT["queued"] = error(lambda: rt.get(queued, timeout=30))
+OUT["hog"] = rt.get(h, timeout=30)
+OUT["cancel_done"] = rt.cancel(refs[0])
+"""
+
+
+def test_wait_and_cancel(tmp_path):
+    out = check_same(tmp_path, WAIT_CANCEL, {
+        "wait_two": [[0.01, 0.02], 1, True], "wait_timeout": [2, 1],
+        "wait_one": [1, 1],
+        "wait_duplicate": ["ValueError", "wait() got duplicate ObjectRefs"],
+        "wait_zero": ["ValueError", "num_returns must be in [1, 3]"],
+        "wait_not_list": ["TypeError", "wait() expects a list of ObjectRefs"],
+        "get_timeout": ["GetTimeoutError", "get() timed out after 0.0s"],
+        "hog": "hog"})
+    assert out["cancel_running"] and out["cancel_queued"]
+    assert out["cancelled"][0] == out["queued"][0] == "TaskCancelledError"
+
+
+ERRORS = """
+rt.init(num_cpus=2)
+
+
+@rt.remote
+def bad(x):
+    raise ValueError(f"bad {x}")
+
+
+@rt.remote
+def echo(x):
+    return x
+
+
+@rt.remote
+def catches():
+    try:
+        rt.get(bad.remote(7))
+    except rt.TaskError as e:
+        return ["caught", type(e).__name__, "ValueError: bad 7" in str(e)]
+
+
+OUT["task"] = error(lambda: rt.get(bad.remote(3)))
+OUT["dependency"] = error(lambda: rt.get(echo.remote(bad.remote(1))))
+OUT["inside_task"] = rt.get(catches.remote())
+OUT["is_rt_error"] = issubclass(rt.TaskError, rt.RayTpuError)
+OUT["get_type"] = error(lambda: rt.get(1))
+OUT["get_mixed"] = error(lambda: rt.get([echo.remote(1), 2]))
+OUT["put_ref"] = error(lambda: rt.put(echo.remote(1)))
+OUT["remote_positional"] = error(lambda: rt.remote(1, 2))
+OUT["direct_call"] = error(lambda: echo(1))
+OUT["reinit"] = error(lambda: rt.init())
+OUT["bad_pg"] = error(lambda: rt.placement_group([{"CPU": 1}], "RING"))
+"""
+
+
+def test_errors(tmp_path):
+    out = check_same(tmp_path, ERRORS, {
+        "inside_task": ["caught", "TaskError", True], "is_rt_error": True,
+        "get_type": ["TypeError", "get() got <class 'int'>"],
+        "put_ref": ["TypeError", "put() of an ObjectRef is not allowed"]})
+    for key in ("task", "dependency"):
+        assert out[key][0] == "TaskError"
+        assert out[key][1].startswith("task bad failed:\nTraceback")
+    for key in ("get_mixed", "remote_positional", "direct_call", "reinit",
+                "bad_pg"):
+        assert out[key] is not None, key
+
+
+PLACEMENT = """
+PlacementGroupSchedulingStrategy = importlib.import_module(
+    sys.argv[1] + ".util.scheduling_strategies"
+).PlacementGroupSchedulingStrategy
+
+rt.init(num_cpus=4)
+
+
+def cpus():
+    return rt.available_resources().get("CPU")
+
+
+@rt.remote
+def where():
+    ctx = rt.get_runtime_context()
+    return ctx.get_node_id() == NODE
+
+
+NODE = rt.nodes()[0]["NodeID"]
+OUT["total"] = rt.cluster_resources()
+OUT["nodes"] = [len(rt.nodes()), rt.nodes()[0]["Alive"]]
+pack = rt.placement_group([{"CPU": 1}, {"CPU": 1}], strategy="PACK")
+OUT["pack_ready"] = rt.get(pack.ready(), timeout=30)
+OUT["pack_wait"] = pack.wait(10)
+OUT["cpus_with_pack"] = cpus()
+spread = rt.placement_group([{"CPU": 1}, {"CPU": 1}], strategy="SPREAD")
+OUT["spread_ready"] = spread.wait(30)
+OUT["cpus_with_both"] = cpus()
+OUT["in_bundle"] = rt.get([where.options(
+    scheduling_strategy=PlacementGroupSchedulingStrategy(
+        pack, placement_group_bundle_index=i)).remote() for i in (0, 1)],
+    timeout=30)
+OUT["in_group"] = rt.get(where.options(
+    scheduling_strategy=PlacementGroupSchedulingStrategy(spread)).remote(),
+    timeout=30)
+OUT["too_big"] = error(lambda: rt.placement_group([{"CPU": 64}]))
+rt.remove_placement_group(spread)
+rt.remove_placement_group(pack)
+deadline = time.monotonic() + 10
+while cpus() != 4.0 and time.monotonic() < deadline:
+    time.sleep(0.05)
+OUT["cpus_after_remove"] = cpus()
+OUT["bundle_count"] = pack.bundle_count
+"""
+
+
+def test_placement_groups(tmp_path):
+    check_same(tmp_path, PLACEMENT, {
+        "total": {"CPU": 4.0}, "nodes": [1, True], "pack_ready": True,
+        "pack_wait": True, "cpus_with_pack": 2.0, "spread_ready": True,
+        "cpus_with_both": 0.0, "in_bundle": [True, True], "in_group": True,
+        "cpus_after_remove": 4.0, "bundle_count": 2,
+        "too_big": ["ValueError",
+                    "placement group [{'CPU': 64}] exceeds cluster capacity"]})
