@@ -217,19 +217,41 @@ Phases; any failure exits non-zero:
    ``Replica``'s, with ``n_layer`` forward-kernel launches a forward counted
    in its own process; after ``shutdown()`` no
    ``ray_tpu_torch.core.*_main`` process and no ``rtt_store`` segment may
-   remain.
+   remain;
+16. serve run — Serve on the port's runtime (``ray_tpu_torch.serve``:
+   controller, router, HTTP proxy), under a session root of its own:
+   ``serve.start()``, then ``serve.run`` of ``Generator`` (GPT-2 124M from
+   ``--seed``, deployed by reference from this script's module, its
+   replica on the card with ``ray_actor_options={"num_tpus": 1}``): the
+   first request's logits (S=500) bit-equal to phase 3's, phase 3's four
+   prompts through a ``DeploymentHandle`` and over HTTP with phase 3's
+   tokens, one HTTP stream (``?stream=1``) yielding phase 3's new tokens
+   in order, ms per request beside phase 3's, and ``n_layer`` launches a
+   forward read in the replica's process; then, that deployment deleted,
+   ``LlamaServer`` (Llama-2 7B) the same way: the uncached forward at
+   phase 5's S=2048 tokens (last logits and every argmax bit-equal to
+   phase 5's, ``n_layer`` launches), phase 5's greedy request at prompt
+   128 (32 new tokens) through the handle and over HTTP with phase 5's
+   tokens, prefill and per-token ms beside phase 5's; after
+   ``serve.shutdown()`` and ``shutdown()`` nothing may remain, as in
+   phase 15.
 
-The timed runs of phases 8-12 on four ranks train ``FOUR_RANK_DEPTH``
-(4) layers of GPT-2 124M's widths (or its MoE's): ring sp = 4, pp = 4 and
-dp x pp, dp x tp, tp x sp and pp x tp, dp x ep, ep x tp and pp x ep, dp x
-fsdp, fsdp x tp and pp x fsdp; their batches, sequences, widths and timed
-steps are as written above, and every check keeps its depth.  Phases 8-13
+The timed runs of phases 8-12 on four ranks, and the MoE's in phases
+10-13 on two or four ranks, train ``FOUR_RANK_DEPTH`` (4) layers of GPT-2
+124M's widths (or its MoE's): ring sp = 4, pp = 4 and dp x pp, dp x tp,
+tp x sp and pp x tp, dp x fsdp, fsdp x tp and pp x fsdp; the MoE at tp =
+2, ep = 2, dp = 2, ring sp = 2, fsdp = 2, dp x ep, ep x tp, pp x ep, pp x
+dp and pp x fsdp.  Their batches, sequences, widths and timed steps are as
+written above, and every check keeps its depth (the 12-layer checks' first
+four layers drop few choices or none at ``--seed`` 0: at 4 layers the
+drop gates would hold little).  Phases 8-13
 share one pool of 2 ranks and one of 4 (``CardPool``), started once
 ("8-13 ranks up"); each rank releases its cached device memory after
 every task.  Each phase's seconds are printed after it.
 
 The forward kernel's launches are listed by path, the runtime's actor
-(``runtime_actor``) among them.  The last two lines are a JSON object of
+(``runtime_actor``) and the Serve replicas (``serve_run_gpt2``,
+``serve_run_llama``) among them.  The last two lines are a JSON object of
 per-kernel numbers and the result line ``{"ok": true, "device":
 {...}}``.  ``--profile`` adds ``torch.profiler`` tables of device time
 by kernel for a forward at S=1024, a train step, a Llama forward at
@@ -286,7 +308,8 @@ from ray_tpu_torch.rllib import models as rl_models
 from ray_tpu_torch.rllib.sample_batch import (ACTIONS, ADVANTAGES, DONES,
                                               LOGPS, NEXT_OBS, OBS, REWARDS,
                                               TARGETS, VALUES)
-from ray_tpu_torch.serve import Replica
+from ray_tpu_torch._vendor import cloudpickle
+from ray_tpu_torch.serve.replica import Replica
 
 # H100 SXM, dense, at the full 700 W limit (NVIDIA data sheet)
 PEAK_BF16_FLOPS = 989e12
@@ -396,16 +419,36 @@ class Generator:
         return int(logits[0, -1].argmax())
 
     def __call__(self, request):
+        if (request or {}).get("stream"):
+            return self.stream(request)  # what HTTP's ?stream=1 calls
         tokens = list((request or {}).get("prompt", [1]))
         for _ in range(int((request or {}).get("max_tokens", 8))):
             tokens.append(self._next_token(tokens))
         return {"tokens": tokens}
+
+    @torch.inference_mode()
+    def logits(self, request):
+        """The logits of one forward over ``request["prompt"]``, on the
+        device (the runtime takes them to the host)."""
+        x = torch.tensor([request["prompt"]], dtype=torch.long,
+                         device=self.device)
+        self.forwards += 1
+        return gpt2.forward(self.params, x, self.cfg)
 
     def stream(self, request):
         tokens = list((request or {}).get("prompt", [1]))
         for _ in range(int((request or {}).get("max_tokens", 8))):
             tokens.append(self._next_token(tokens))
             yield {"token": tokens[-1]}
+
+    def launches(self, reset=False):
+        """(the forward kernel's launches in this process, forwards); with
+        ``reset``, the launch count is set to 0 after it is read.  A Serve
+        replica reports its own process's count through this method."""
+        out = (fa.KERNEL_LAUNCHES, self.forwards)
+        if reset:
+            fa.KERNEL_LAUNCHES = 0
+        return out
 
 
 class LlamaServer:
@@ -441,6 +484,43 @@ class LlamaServer:
             max_new_tokens=int(request.get("max_new_tokens", 4)),
             temperature=temperature, generator=gen)
         return {"tokens": toks[0].tolist()}
+
+    @torch.inference_mode()
+    def last_logits(self, request):
+        """The uncached forward (the flash kernel in every layer) over
+        ``request["tokens"]``: the last position's logits and every
+        position's argmax, on the device."""
+        x = torch.tensor([request["tokens"]], dtype=torch.long,
+                         device=self.device)
+        logits, _ = llama.forward(self.params, x, self.cfg)
+        return {"last": logits[0, -1], "argmax": logits[0].argmax(-1)}
+
+    def launches(self, reset=False):
+        """The forward kernel's launches in this process; with ``reset``,
+        the count is set to 0 after it is read."""
+        out = fa.KERNEL_LAUNCHES
+        if reset:
+            fa.KERNEL_LAUNCHES = 0
+        return out
+
+
+def script_class(name):
+    """The class ``name`` of this script's module ``chip_smoke``, which the
+    vendored cloudpickle ships by reference (a replica's process imports
+    the module).  By value it would have to pickle the
+    ``torch.backends.cudnn`` module object that ``set_precision`` touches,
+    and it cannot."""
+    import chip_smoke
+
+    return getattr(chip_smoke, name)
+
+
+def script_replica(name, init_args, init_kwargs=None):
+    """A ``Replica`` in this process hosting this script's class ``name``,
+    given as the runtime gives it: cloudpickle bytes and positional
+    ``init_args, init_kwargs``."""
+    return Replica(cloudpickle.dumps(script_class(name)), init_args,
+                   init_kwargs or {})
 
 
 # ---------------------------------------------------------------------------
@@ -931,7 +1011,7 @@ def greedy(params, cfg, prompt, n):
 
 def phase_serve(seed, profile):
     t0 = time.perf_counter()
-    replica = Replica(Generator, ("small", "cuda", seed), {})
+    replica = script_replica("Generator", ("small", "cuda", seed))
     gen_obj = replica._callable
     cfg = gen_obj.cfg
     torch.cuda.synchronize()
@@ -1301,11 +1381,14 @@ def free_memory(tag):
 def phase_llama(seed, profile):
     """Llama-2 7B in Replica; returns the forward kernel's launches in the
     phase's main path (the kernel check's uncached forward, the cached
-    forward and the requests)."""
+    forward and the requests) and what phase 16 is held to: the S=2048
+    tokens with the uncached forward's last logits and argmax, and the
+    greedy request at prompt 128 (prompt, tokens, prefill and per-token
+    ms)."""
     free_memory("llama")
     cfg = llama.LLAMA_7B
     t0 = time.perf_counter()
-    replica = Replica(LlamaServer, ("7b", "cuda", seed), {})
+    replica = script_replica("LlamaServer", ("7b", "cuda", seed))
     srv = replica._callable
     params = srv.params
     torch.cuda.synchronize()
@@ -1341,6 +1424,8 @@ def phase_llama(seed, profile):
     if (lk.shape != (1, S, V) or not torch.isfinite(lk).all()
             or not torch.isfinite(ld).all()):
         fail(f"llama logits malformed: {tuple(lk.shape)}")
+    ref = {"tokens": tokens[0].tolist(), "last": lk[0, -1].cpu(),
+           "argmax": lk[0].argmax(-1).cpu(), "prompt": prompts[128]}
     err, rel, agree = logits_distance(lk, ld)
     p_err, p_rel, p_agree = logits_distance(lp, ld)
     print(f"[llama] forward S={S}: the kernel's output in each of the "
@@ -1395,6 +1480,9 @@ def phase_llama(seed, profile):
               f"token (memory bound {bound:.2f} ms; {bound_f32:.2f} ms with "
               f"the reference's f32 copy of the cache); new tokens "
               f"{toks[L:L + 8]}...", flush=True)
+        if label == "greedy" and L == 128:
+            ref.update(generated=toks, prefill_ms=prefill * 1e3,
+                       per_token_ms=per_token * 1e3)
         if extra:
             again, _ = request(L, 32, extra)
             print(f"[llama] temperature 0.8, seed {seed}: the same tokens "
@@ -1442,7 +1530,7 @@ def phase_llama(seed, profile):
         del caches
     print(f"[llama] peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f}"
           f" GB; card {card_line()}", flush=True)
-    return launches
+    return launches, ref
 
 
 @contextlib.contextmanager
@@ -1490,7 +1578,8 @@ def phase_moe(seed, profile):
     """GPT-2 124M widths with 8 experts: served in Replica, then trained;
     returns the launches of the requests and of the 10 timed steps."""
     free_memory("moe")
-    replica = Replica(Generator, ("small", "cuda", seed), {"moe_experts": 8})
+    replica = script_replica("Generator", ("small", "cuda", seed),
+                             {"moe_experts": 8})
     gen_obj = replica._callable
     cfg = gen_obj.cfg
     print(f"[moe] GPT2_SMALL with {cfg.moe_experts} experts, top-"
@@ -2590,11 +2679,13 @@ def mesh_train_rank(seed, axes, M, model, steps, batch_shape, n_layer):
 
 def mesh_train(pool, seed, axes, M=1, model="gpt2", phase="tp",
                batch_shape=TP_TRAIN_BATCH, steps=TP_STEPS, depth=None):
-    """Phases 10's to 13's training in one layout, at ``depth`` layers (the
-    model's own by default); returns the launches of the timed steps summed
-    over the ranks."""
+    """Phases 10's to 13's training in one layout, at ``depth`` layers (by
+    default the model's own, and the MoE's FOUR_RANK_DEPTH on any number of
+    ranks); returns the launches of the timed steps summed over the
+    ranks."""
     cfg, _, tag, single_phase = MESH_MODELS[model]
-    (B, S), L = batch_shape, depth or cfg.n_layer
+    (B, S) = batch_shape
+    L = depth or (FOUR_RANK_DEPTH if model == "moe" else cfg.n_layer)
     res = pool.run(mesh_train_rank, seed, axes, M, model, steps, batch_shape,
                    L)
     r0 = res[0]
@@ -3536,11 +3627,7 @@ class RuntimeGenerator:
     def first_forward(self, prompt):
         """Logits of one forward over ``prompt``, on the card: the runtime
         takes them to the host."""
-        x = torch.tensor([prompt], dtype=torch.long, device="cuda")
-        with torch.inference_mode():
-            logits = gpt2.forward(self.gen.params, x, self.gen.cfg)
-        self.gen.forwards += 1
-        return logits
+        return self.gen.logits({"prompt": prompt})
 
     def generate(self, prompt, max_tokens=8):
         """(tokens, ms inside the actor) of one request."""
@@ -3551,7 +3638,7 @@ class RuntimeGenerator:
 
     def launches(self):
         """(forward kernel launches, forwards) in this process."""
-        return fa.KERNEL_LAUNCHES, self.gen.forwards
+        return self.gen.launches()
 
 
 def phase_runtime(seed, serve_ref, profile):
@@ -3691,6 +3778,191 @@ def runtime_checks(rt, seed, serve_ref, profile, init_s):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 16: Serve on the port's runtime
+# ---------------------------------------------------------------------------
+
+def http_json(port, path, body, stream=False):
+    """POST ``body`` to the Serve HTTP proxy: (status, the JSON reply, or
+    the streamed NDJSON items in order)."""
+    import urllib.request
+
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}{'?stream=1' if stream else ''}",
+        data=json.dumps(body).encode(), method="POST",
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=300) as resp:
+        if stream:
+            return resp.status, [json.loads(line) for line in resp]
+        return resp.status, json.loads(resp.read())
+
+
+def phase_serve_run(seed, serve_ref, llama_ref):
+    """Phase 16: GPT-2 124M and then Llama-2 7B deployed by
+    ``serve.run`` on the port's runtime, each replica on the card, held to
+    phases 3 and 5; returns the forward kernel's launches by path, read in
+    the replicas' processes."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.session_root import new_session_root
+    from ray_tpu_torch.util import chaos
+
+    free_memory("serve run")
+    root = new_session_root()
+    rt.config.temp_dir = root
+    baseline = chaos.snapshot_host()
+    rt.init()
+    try:
+        serve.start()
+        launches = {"serve_run_gpt2": serve_run_gpt2(
+            rt, serve, seed, serve_ref)}
+        launches["serve_run_llama"] = serve_run_llama(
+            rt, serve, seed, llama_ref)
+    finally:
+        serve.shutdown()
+        rt.shutdown()
+    try:
+        chaos.assert_clean_host(baseline)
+    except chaos.HostLeakError as e:
+        fail(f"serve shutdown left {e}")
+    shutil.rmtree(root, ignore_errors=True)
+    print("[serve run] serve.shutdown() and shutdown(): no "
+          "ray_tpu_torch.core.*_main process and no rtt_store segment left",
+          flush=True)
+    return launches
+
+
+def deploy_on_card(serve, name, cls, args, route):
+    """``serve.run`` of this script's class ``cls`` (by reference) on the
+    card: Serve's controller asks a replica's chip with ``num_tpus`` (the
+    key ``"TPU"``, one card; as in the reference it reads no
+    ``num_gpus``).  Returns (handle, seconds until ready)."""
+    dep = serve.deployment(name=name, ray_actor_options={"num_tpus": 1})(
+        script_class(cls))
+    t = time.perf_counter()
+    try:
+        handle = serve.run(dep.bind(*args), name=name, route_prefix=route,
+                           timeout=600)
+    except (RuntimeError, TimeoutError) as e:  # unhealthy, or not ready
+        fail(f"serve.run of {name} failed: {e}")
+    return handle, time.perf_counter() - t
+
+
+def serve_run_gpt2(rt, serve, seed, ref):
+    port = serve.http_port()
+    h, up_s = deploy_on_card(serve, "gpt2", "Generator",
+                             ("small", "cuda", seed), "/gpt2")
+    t = time.perf_counter()
+    logits = rt.get(h.method.logits.remote({"prompt": ref["prompts"][500]}),
+                    timeout=300)
+    first_ms = (time.perf_counter() - t) * 1e3
+    same = torch.equal(logits, ref["logits"])
+    err = (logits.float() - ref["logits"].float()).abs().max().item()
+    print(f"[serve run] gpt2 up through serve.run in {up_s:.2f} s (HTTP "
+          f"port {port}); first request, logits S=500: a "
+          f"{logits.device.type} {logits.dtype} tensor "
+          f"{tuple(logits.shape)} in {first_ms:.1f} ms, max abs diff from "
+          f"phase 3's {err:.4e}, bit-equal {same}", flush=True)
+    if not same:
+        fail("the served first logits are not bit-equal to phase 3's")
+    # phase 3's warm-up request, then the counts are set to 0
+    rt.get(h.remote({"prompt": ref["prompts"][16], "max_tokens": 2}),
+           timeout=300)
+    _, f0 = rt.get(h.method.launches.remote(True), timeout=60)
+    for L in (16, 127, 500, 1000):
+        request = {"prompt": ref["prompts"][L], "max_tokens": 8}
+        t = time.perf_counter()
+        tokens = rt.get(h.remote(request), timeout=300)["tokens"]
+        handle_ms = (time.perf_counter() - t) * 1e3
+        t = time.perf_counter()
+        status, reply = http_json(port, "/gpt2", request)
+        http_ms = (time.perf_counter() - t) * 1e3
+        print(f"[serve run] gpt2 prompt {L}: 8 tokens in {handle_ms:.1f} ms "
+              f"through the handle, {http_ms:.1f} ms over HTTP (status "
+              f"{status}); phase 3's replica {ref['ms'][L]:.1f} ms (host "
+              f"clock); tokens equal phase 3's: handle "
+              f"{tokens == ref['tokens'][L]}, HTTP "
+              f"{reply['tokens'] == ref['tokens'][L]}", flush=True)
+        if (tokens != ref["tokens"][L] or status != 200
+                or reply["tokens"] != ref["tokens"][L]):
+            fail(f"served tokens for prompt {L} differ from phase 3's")
+    prompt = ref["prompts"][127]
+    want = ref["tokens"][127][len(prompt):]
+    t = time.perf_counter()
+    status, items = http_json(port, "/gpt2", {
+        "prompt": prompt, "max_tokens": 8, "stream": True}, stream=True)
+    stream_ms = (time.perf_counter() - t) * 1e3
+    streamed = [i.get("token") for i in items]
+    print(f"[serve run] gpt2 HTTP stream, prompt 127: {len(items)} items in "
+          f"{stream_ms:.1f} ms (status {status}), tokens in order equal "
+          f"phase 3's new tokens: {streamed == want}", flush=True)
+    if status != 200 or streamed != want:
+        fail(f"the HTTP stream yielded {items}")
+    launches, forwards = rt.get(h.method.launches.remote(False), timeout=60)
+    n_layer = gpt2.GPT2_SMALL.n_layer
+    print(f"[serve run] gpt2 replica's flash_fwd launches, read in its "
+          f"process: {launches} = n_layer {n_layer} x forwards "
+          f"{forwards - f0}: {launches == n_layer * (forwards - f0)}",
+          flush=True)
+    if forwards - f0 != 9 * 8 or launches != n_layer * (forwards - f0):
+        fail("the gpt2 replica did not run the forward kernel once per "
+             "layer per forward")
+    serve.delete("gpt2")
+    return launches
+
+
+def serve_run_llama(rt, serve, seed, ref):
+    port = serve.http_port()
+    h, up_s = deploy_on_card(serve, "llama", "LlamaServer",
+                             ("7b", "cuda", seed), "/llama")
+    print(f"[serve run] llama up through serve.run in {up_s:.2f} s (the "
+          f"gpt2 replica gone, its card taken)", flush=True)
+    prompt, want = ref["prompt"], ref["generated"]
+    request = {"prompt_tokens": prompt, "max_new_tokens": 32}
+    # phase 5's warm-up request, then the counts are set to 0
+    rt.get(h.remote({"prompt_tokens": prompt[:16], "max_new_tokens": 2}),
+           timeout=300)
+    rt.get(h.method.launches.remote(True), timeout=60)
+    t = time.perf_counter()
+    out = rt.get(h.method.last_logits.remote({"tokens": ref["tokens"]}),
+                 timeout=300)
+    logits_ms = (time.perf_counter() - t) * 1e3
+    same = (torch.equal(out["last"], ref["last"])
+            and torch.equal(out["argmax"], ref["argmax"]))
+    print(f"[serve run] llama uncached forward S={len(ref['tokens'])} "
+          f"(the kernel) in the replica: {logits_ms:.1f} ms as the driver "
+          f"waits; last logits and every argmax bit-equal to phase 5's: "
+          f"{same}", flush=True)
+    if not same:
+        fail("the served llama logits differ from phase 5's")
+    t = time.perf_counter()
+    rt.get(h.remote(dict(request, max_new_tokens=1)), timeout=300)
+    prefill = time.perf_counter() - t
+    t = time.perf_counter()
+    tokens = rt.get(h.remote(request), timeout=300)["tokens"]
+    dt = time.perf_counter() - t
+    status, reply = http_json(port, "/llama", request)
+    per_token = (dt - prefill) / 31
+    print(f"[serve run] llama greedy, prompt {len(prompt)}: prefill "
+          f"{prefill * 1e3:.1f} ms (phase 5 {ref['prefill_ms']:.1f}), 32 "
+          f"tokens in {dt * 1e3:.1f} ms, {per_token * 1e3:.2f} ms per "
+          f"decoded token (phase 5 {ref['per_token_ms']:.2f}); tokens equal "
+          f"phase 5's: handle {tokens == want}, HTTP "
+          f"{reply['tokens'] == want} (status {status})", flush=True)
+    if tokens != want or status != 200 or reply["tokens"] != want:
+        fail("served llama tokens differ from phase 5's")
+    launches = rt.get(h.method.launches.remote(False), timeout=60)
+    n_layer = llama.LLAMA_7B.n_layer
+    print(f"[serve run] llama replica's flash_fwd launches, read in its "
+          f"process: {launches} (n_layer {n_layer}: the uncached forward; "
+          f"generate's cached attention launches none)", flush=True)
+    if launches != n_layer:
+        fail("the llama replica did not launch the forward kernel once per "
+             "layer")
+    serve.delete("llama")
+    return launches
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3719,7 +3991,8 @@ def main():
     serve_launches, serve_ref = run("3 serve", phase_serve, args.seed,
                                     args.profile)
     train = run("4 train", phase_train, args.seed, args.profile)
-    llama_launches = run("5 llama", phase_llama, args.seed, args.profile)
+    llama_launches, llama_ref = run("5 llama", phase_llama, args.seed,
+                                    args.profile)
     moe_serve, moe_train = run("6 moe", phase_moe, args.seed, args.profile)
     xl_train = run("7 xl", phase_xl, args.seed, args.profile)
     with tempfile.TemporaryDirectory() as tmp:
@@ -3737,6 +4010,8 @@ def main():
     run("14 rl", phase_rl, args.seed)
     runtime_launches = run("15 runtime", phase_runtime, args.seed, serve_ref,
                            args.profile)
+    serve_run_launches = run("16 serve run", phase_serve_run, args.seed,
+                             serve_ref, llama_ref)
     print(f"[time] phases: {seconds}; all {sum(seconds.values()):.1f} s",
           flush=True)
     print(card_line())
@@ -3747,7 +4022,8 @@ def main():
     paths = {
         "flash_fwd": {"serve": serve_launches, "llama": llama_launches,
                       "moe_serve": moe_serve,
-                      "runtime_actor": runtime_launches},
+                      "runtime_actor": runtime_launches,
+                      **serve_run_launches},
         "flash_bwd_dq": {}, "flash_bwd_dkv": {}}
     for name, by_path in paths.items():
         by_path.update({path: run[name] for path, run in trained.items()})

@@ -18,11 +18,13 @@ Sub-packages: ``core`` (the runtime: ids, protocol, GCS, raylet, object
 store, workers, actors, placement groups), ``util`` (locks, metrics,
 tracing, profiling, the state API, chaos), ``native`` (the nvcc build of
 ``csrc`` and the g++ build of the runtime's host libraries), ``ops`` (flash
-attention), ``models`` (GPT-2, Llama, the MNIST CNN), ``serve`` (the
-replica, batching, multiplexing), ``parallel`` (mesh, sharding rules, ring
-and Ulysses attention, the pipeline, spawned ranks), ``collective``
-(named-axis collectives over process groups) and ``rllib`` (policy nets,
-optax's optimizer steps, the PPO, IMPALA, DQN, SAC and BC updates).
+attention), ``models`` (GPT-2, Llama, the MNIST CNN), ``serve`` (deployments
+on replica actors: the controller, the router and its handles, the HTTP
+proxy, batching, multiplexing, telemetry), ``parallel`` (mesh, sharding
+rules, ring and Ulysses attention, the pipeline, spawned ranks),
+``collective`` (named-axis collectives over process groups) and ``rllib``
+(policy nets, optax's optimizer steps, the PPO, IMPALA, DQN, SAC and BC
+updates).
 No runtime is started on import: ``init()`` starts one.
 """
 

@@ -1146,25 +1146,67 @@ class DirectCallClient:
         # Serial reuse by default: a fan-out must spread over the pool,
         # not serialize onto one leased worker — the lease accelerates
         # call→result→call loops, the raylet keeps everything parallel.
-        # Burst mode pipelines PROVEN fast-turnover channels (EWMA below
-        # direct_lease_turnover_ms, stamped by the callee per dresult):
-        # sub-ms tasks gain more from pipelined submission than from
-        # per-task raylet dispatch, while unknown or slow channels keep
-        # the spread.
+        # Burst mode pipelines a call onto a busy channel only where
+        # _fast_turnover finds the channel fast in the past AND now, and
+        # the call's function proven fast: sub-ms tasks gain more from
+        # pipelined submission than from per-task raylet dispatch, while
+        # unknown or slow work keeps the spread — a short call never
+        # queues behind a long one on the leased worker.
+        st = self._actors.get(key)  # unguarded-ok: GIL-atomic probe; _maybe_lease made the entry before the channel, and nothing removes it
+        fn = spec.function_id or spec.name
         if not ch.idle():
-            if not (config.direct_burst and self._fast_turnover(ch)):
+            if not (config.direct_burst and self._fast_turnover(ch, st, fn)):
                 ch.poll()  # gather turnover evidence without blocking
                 return False
         self._pin_inner_refs(spec)
         if ch.submit(spec, _trace_ctx(spec)):
+            if st is not None:
+                # the function's first direct call on this lease shape is
+                # its probe: once it has left the channel's pending table
+                # (resolved), the function has turned over here (None)
+                st.setdefault("probes", {}).setdefault(fn, spec.task_id)
             return True
         self._release_inner_refs(spec)
         return False
 
-    def _fast_turnover(self, ch: _Channel) -> bool:
+    def _fast_turnover(self, ch: _Channel, st: Optional[dict], fn) -> bool:
+        """May a call of ``fn`` be pipelined behind the calls in flight on
+        the busy lease channel ``ch``?  Three probes, each against
+        direct_lease_turnover_ms:
+
+        - the past: the channel's turnover EWMA (callee-stamped) is under
+          it;
+        - the present: the oldest call in flight has been out for less
+          than it, beyond the time the calls in flight take at that
+          EWMA (the callee returns a pipelined train's results together)
+          — a call that has run longer may run much longer, and whatever
+          queues behind it waits as long;
+        - the function: a direct call of ``fn`` on this lease shape has
+          completed before (its probe left ``ch.pending``); the EWMA is
+          the channel's, and a function never seen here may sleep.
+
+        GIL-atomic reads, no lock on the burst's hot path: staleness costs
+        at most one relayed or one pipelined call."""
+        limit = config.direct_lease_turnover_ms / 1000.0
         ew = ch.turnover_ewma  # unguarded-ok: GIL-atomic read; staleness costs at most one relayed call
-        return (ew is not None
-                and ew * 1000.0 <= config.direct_lease_turnover_ms)
+        if ew is None or ew > limit or st is None:
+            return False
+        try:
+            oldest = next(iter(ch.pending.values()))  # unguarded-ok: GIL-atomic probe; a concurrent mutation raises and relays this call
+        except (StopIteration, RuntimeError):
+            return False
+        depth = len(ch.pending)  # unguarded-ok: GIL-atomic read
+        if time.time() - oldest.t_sent > limit + depth * ew:
+            return False
+        probes = st.get("probes")
+        if probes is None or fn not in probes:
+            return False
+        probe = probes[fn]
+        if probe is not None:
+            if probe in ch.pending:  # unguarded-ok: GIL-atomic membership probe
+                return False
+            probes[fn] = None
+        return True
 
     def _maybe_lease(self, key, spec: TaskSpec) -> Optional[_Channel]:
         now = time.monotonic()

@@ -1,13 +1,11 @@
 """``@serve.batch`` — transparent request batching inside a replica.
 
-Port of ``ray_tpu/serve/batching.py`` (reference analogue:
-`python/ray/serve/batching.py:337`: ``@serve.batch`` wraps a method taking
-``List[request]``; concurrent callers are grouped up to ``max_batch_size``
-or ``batch_wait_timeout_s``).  Callers (the threads a replica serves
-requests on) enqueue (request, future) pairs; one flusher thread per
-wrapped function forms batches and distributes results.  The JAX module's
-batch-size telemetry is not ported yet: it waits for the replica's
-telemetry hooks (ROADMAP).
+Reference analogue: `python/ray/serve/batching.py:337` (``@serve.batch``
+wraps a method taking ``List[request]``; concurrent callers are grouped up
+to ``max_batch_size`` or ``batch_wait_timeout_s``).  Implementation:
+callers (replica actor threads — ``max_ongoing_requests`` gives the
+concurrency) enqueue (request, future) pairs; one flusher thread per
+wrapped function forms batches and distributes results.
 """
 
 from __future__ import annotations
@@ -15,10 +13,7 @@ from __future__ import annotations
 import functools
 import queue
 import threading
-import time
 from typing import Any, Callable, List, Optional
-
-__all__ = ["batch", "batch_sizes_of"]
 
 
 class _Batcher:
@@ -40,6 +35,8 @@ class _Batcher:
                 self._thread.start()
 
     def _loop(self):
+        import time
+
         while True:
             item = self.queue.get()  # block for the first element
             batch = [item]
@@ -53,6 +50,18 @@ class _Batcher:
                 except queue.Empty:
                     break
             self.batch_sizes.append(len(batch))
+            try:
+                from ray_tpu_torch.serve.telemetry import (
+                    replica_identity,
+                    serve_metrics,
+                )
+
+                dep = replica_identity()["deployment"]
+                if dep:
+                    serve_metrics()["batch"].observe(
+                        float(len(batch)), tags={"deployment": dep})
+            except Exception:  # noqa: BLE001 — telemetry never fails a batch
+                pass
             owner = batch[0][0]
             requests = [req for _, req, _ in batch]
             try:
@@ -65,7 +74,7 @@ class _Batcher:
                 for (_, _, fut), res in zip(batch, results):
                     fut["result"] = res
                     fut["event"].set()
-            except Exception as e:  # noqa: BLE001 - handed to every caller
+            except Exception as e:  # noqa: BLE001
                 for _, _, fut in batch:
                     fut["error"] = e
                     fut["event"].set()
@@ -86,8 +95,9 @@ def batch(_fn=None, *, max_batch_size: int = 8,
     """Decorate a method/function taking a LIST of requests; single-request
     calls are grouped transparently::
 
+        @serve.deployment(max_ongoing_requests=32)
         class Model:
-            @batch(max_batch_size=16, batch_wait_timeout_s=0.005)
+            @serve.batch(max_batch_size=16, batch_wait_timeout_s=0.005)
             def __call__(self, inputs):      # inputs: List[request]
                 return model_forward(inputs)  # List[response]
     """
@@ -114,8 +124,8 @@ def batch(_fn=None, *, max_batch_size: int = 8,
 
 
 # The batcher holds threads/queues — never picklable, so it lives in a
-# process-local registry rather than the (pickled) closure.  Keyed by the
-# wrapper's id: fresh per process after unpickling, shared across all
+# process-local registry rather than the (cloudpickled) closure.  Keyed by
+# the wrapper's id: fresh per process after unpickling, shared across all
 # instances of the deployment class in one replica.
 _registry: dict = {}
 _registry_lock = threading.Lock()

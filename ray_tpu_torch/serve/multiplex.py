@@ -1,14 +1,13 @@
 """Model multiplexing: many models share one deployment's replicas.
 
-Port of ``ray_tpu/serve/multiplex.py`` (reference analogue:
-`python/ray/serve/multiplex.py`, ``@serve.multiplexed`` LRU model loading,
-and `serve/api.py get_multiplexed_model_id`).  A deployment method
-decorated with ``@multiplexed(max_num_models_per_replica=N)`` is a model
-loader; each replica keeps an LRU of loaded models and calls a model's
-``unload()`` when it is evicted.  The port's ``Replica`` sets the model id
-of each request (``handle_request(..., multiplexed_model_id=...)``) for
-the length of the request; ``Replica.multiplexed_model_ids`` lists the
-loaded ids.  The router's replica affinity is not ported yet (ROADMAP).
+Reference analogue: `python/ray/serve/multiplex.py` (`@serve.multiplexed`
+LRU model loading) + `serve/api.py get_multiplexed_model_id`.  A
+deployment method decorated with ``@multiplexed(max_num_models_per_replica
+=N)`` is an async-free model loader; each replica keeps an LRU of loaded
+models, and requests carry the target model id (HTTP header
+``serve_multiplexed_model_id`` or the handle option), which the router
+uses for replica affinity — repeat requests for a model land on the
+replica that already has it in memory.
 """
 
 from __future__ import annotations
@@ -84,8 +83,8 @@ def multiplexed(max_num_models_per_replica: int = 3):
 
     def deco(func):
         # The cache lives on the replica INSTANCE (created lazily at call
-        # time), not in this closure: a deployment class may be pickled
-        # to its replica, and a closure-held Lock would break that.
+        # time), not in this closure: the deployment class is cloudpickled
+        # to replica actors, and a closure-held Lock would break that.
         attr = f"_serve_mux_cache_{func.__name__}"
 
         def cache_for(self_obj) -> _ModelCache:

@@ -1,49 +1,53 @@
-"""Replica — hosts one copy of a deployment's callable.
+"""Replica — the actor hosting one copy of a deployment's callable.
 
-Port of ``ray_tpu/serve/replica.py``: admission against
-``max_ongoing_requests``, ``handle_request`` and its streaming variant,
-``stats``, ``multiplexed_model_ids``, ``reconfigure`` and
-``check_health``.  The deployment definition is the class or function
-itself, or bytes made by the stdlib ``pickle`` (not cloudpickle).  The
-telemetry, tracing and chaos hooks of the JAX replica are not ported yet
-(ROADMAP).
+Reference analogue: `python/ray/serve/_private/replica.py:447`
+(``RayServeReplica.handle_request``) — minus the Cython/asyncio plumbing:
+requests dispatch through the core actor transport with
+``max_concurrency``, and the replica self-reports its in-flight count for
+the router's power-of-two probes and the controller's autoscaler.
 """
 
 from __future__ import annotations
 
-import pickle
 import threading
 import time
 from typing import Any, Optional
 
 from ray_tpu_torch.core.config import config
-from ray_tpu_torch.core.exceptions import BackPressureError
-from ray_tpu_torch.serve.multiplex import _model_id_ctx, _set_model_id
 
 config.define("serve_backpressure", bool, True,
               "Serve overload protection: replicas REJECT requests beyond "
               "max_ongoing_requests with a typed BackPressureError "
-              "instead of queueing without bound.  0 restores silent "
-              "queueing.")
+              "(router retries another replica, proxy sheds 503) instead "
+              "of queueing without bound.  0 restores silent queueing.")
 
 
 class Replica:
-    def __init__(self, deployment_def, init_args=(), init_kwargs=None,
+    def __init__(self, deployment_def, init_args, init_kwargs,
                  user_config: Optional[dict] = None,
-                 max_ongoing_requests: int = 0):
-        if isinstance(deployment_def, bytes):
-            deployment_def = pickle.loads(deployment_def)
+                 max_ongoing_requests: int = 0,
+                 deployment_name: str = "", replica_name: str = ""):
+        from ray_tpu_torch._vendor import cloudpickle
+
+        fn_or_class = cloudpickle.loads(deployment_def)
         self._ongoing = 0
         self._total = 0
         self._rejected = 0
-        # 0 = unenforced
+        # 0 = unenforced (legacy replicas / tests constructing directly)
         self._max_ongoing = int(max_ongoing_requests or 0)
         self._lock = threading.Lock()
         self._start_time = time.time()
-        if isinstance(deployment_def, type):
-            self._callable = deployment_def(*init_args, **(init_kwargs or {}))
+        self._deployment = deployment_name
+        self._tags = {"deployment": deployment_name,
+                      "replica": replica_name}
+        if deployment_name:
+            from ray_tpu_torch.serve.telemetry import set_replica_identity
+
+            set_replica_identity(deployment_name, replica_name)
+        if isinstance(fn_or_class, type):
+            self._callable = fn_or_class(*init_args, **(init_kwargs or {}))
         else:
-            self._callable = deployment_def
+            self._callable = fn_or_class
         if user_config is not None:
             self.reconfigure(user_config)
 
@@ -51,7 +55,11 @@ class Replica:
 
     def _admit(self):
         """max_ongoing_requests admission: REJECT (typed, retryable by the
-        caller) instead of silently queueing."""
+        router) instead of silently queueing — bounded work is what keeps
+        p99 finite under overload (reference: Serve max_ongoing_requests
+        backpressure)."""
+        from ray_tpu_torch.core.exceptions import BackPressureError
+
         with self._lock:
             if (self._max_ongoing > 0 and config.serve_backpressure
                     and self._ongoing >= self._max_ongoing):
@@ -61,43 +69,102 @@ class Replica:
                     f"{self._max_ongoing} ({self._ongoing} in flight)")
             self._ongoing += 1
             self._total += 1
+        self._observe_load()
 
-    def _release(self):
-        with self._lock:
-            self._ongoing -= 1
+    def _observe_load(self):
+        """Per-replica load gauges: admitted in-flight count plus the
+        depth of any @serve.batch queues in this process (the only place
+        admitted-but-not-executing requests can park)."""
+        if not self._deployment:
+            return
+        from ray_tpu_torch.serve import batching
+        from ray_tpu_torch.serve.telemetry import serve_metrics
 
-    def _method(self, method: str):
-        if method == "__call__" and callable(self._callable):
-            return self._callable  # plain function or __call__ instance
-        return getattr(self._callable, method)
+        m = serve_metrics()
+        m["inflight"].set(float(self._ongoing), tags=self._tags)
+        depth = sum(b.queue.qsize() for b in batching._registry.values())
+        m["queue"].set(float(depth), tags=self._tags)
+
+    def _chaos_user_call(self):
+        """Slow-executor chaos seam INSIDE the admission-counted window
+        (the worker-level pre-exec seam sleeps before ``_admit`` runs, so
+        it can't pile up ``_ongoing``): matches
+        ``RAY_TPU_CHAOS_EXEC_DELAY_NAMES`` substring 'Replica.user' or the
+        user callable's own name."""
+        from ray_tpu_torch.util import chaos
+
+        name = getattr(self._callable, "__name__",
+                       type(self._callable).__name__)
+        chaos.exec_delay(f"Replica.user:{name}")
 
     def handle_request(self, request: Any, method: str = "__call__",
                        multiplexed_model_id: str = ""):
+        from ray_tpu_torch.serve.multiplex import _set_model_id
+
         self._admit()
         token = _set_model_id(multiplexed_model_id)
         try:
-            return self._method(method)(request)
+            if method == "__call__" and callable(self._callable):
+                fn = self._callable  # plain function or __call__ instance
+            else:
+                fn = getattr(self._callable, method)
+            self._chaos_user_call()
+            return fn(request)
         finally:
+            from ray_tpu_torch.serve.multiplex import _model_id_ctx
+
             _model_id_ctx.reset(token)
-            self._release()
+            with self._lock:
+                self._ongoing -= 1
+            self._observe_load()
 
     def handle_request_stream(self, request: Any, method: str = "__call__",
                               multiplexed_model_id: str = ""):
-        """Generator variant: the user callable returns an iterator whose
-        items are yielded to the caller as they are produced.  The request
-        is admitted when the first item is asked for."""
+        """Generator variant (invoked with num_returns="streaming"): the
+        user callable returns an iterator whose items stream to the caller
+        as they are produced (reference: Serve streaming responses over
+        streaming generator returns)."""
+        from ray_tpu_torch.serve.multiplex import _model_id_ctx, _set_model_id
+        from ray_tpu_torch.util import tracing
+
         self._admit()
         token = _set_model_id(multiplexed_model_id)
         try:
-            yield from self._method(method)(request)
+            if method == "__call__" and callable(self._callable):
+                fn = self._callable
+            else:
+                fn = getattr(self._callable, method)
+            self._chaos_user_call()
+            # time-to-first-token: the interval from request entry to the
+            # first streamed item, emitted as a sub-span of this call's
+            # task.run (the generator body runs inside its context)
+            t0 = time.time()
+            ttft_ctx = tracing.current_trace_ctx() \
+                if tracing.tracing_enabled() else None
+            first = True
+            for item in fn(request):
+                if first:
+                    first = False
+                    if ttft_ctx is not None:
+                        tracing.hop("serve.ttft", ttft_ctx, t0, time.time(),
+                                    proc="worker", method=method)
+                    if self._deployment:
+                        from ray_tpu_torch.serve.telemetry import serve_metrics
+
+                        serve_metrics()["ttft"].observe(
+                            time.time() - t0,
+                            tags={"deployment": self._deployment})
+                yield item
         finally:
             _model_id_ctx.reset(token)
-            self._release()
+            with self._lock:
+                self._ongoing -= 1
+            self._observe_load()
 
     def multiplexed_model_ids(self) -> list:
         """Model ids currently loaded by any @multiplexed method on this
-        replica (the reference broadcasts these to the router for
-        affinity)."""
+        replica (for tests/state; the reference broadcasts these to the
+        router for affinity)."""
         out = []
         cal = self._callable
         for name in dir(type(cal)):

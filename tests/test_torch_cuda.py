@@ -10,7 +10,8 @@ fsdp train step; the MoE at pp = 2 x dp = 2 on four ranks, each routing its
 block of every global microbatch; one update of each RL learner (IMPALA
 with the Nature-CNN on a short rollout, PPO, DQN, SAC, BC) and an MNIST
 step against the port's CPU path; the runtime's serializer on card tensors,
-alone and nested in a GPU task's result that a CPU task reads.
+alone and nested in a GPU task's result that a CPU task reads; and a GPU
+Serve deployment of GPT-2 at ``GPT2_TINY`` widths.
 
 Marked ``cuda``: every test skips where there is no CUDA device.  On a
 machine with one (no JAX needed, hence ``--noconftest``):
@@ -1119,3 +1120,54 @@ def test_runtime_nested_card_tensors_load_in_a_cpu_worker(cuda, tmp_path):
     assert out["same"]
     assert out["seen"]["cuda"] is False and out["seen"]["devices"] == ["cpu"]
     assert out["seen"]["sums"] == out["want"]["sums"]
+
+
+SERVE_ON_CARD = """
+import json
+import torch
+import chip_smoke
+import ray_tpu_torch as rt
+from ray_tpu_torch import serve
+
+PROMPT = [5, 17, 301, 42, 7]
+rt.init(num_cpus=2)
+serve.start()
+dep = serve.deployment(name="gpt2_tiny", ray_actor_options={"num_tpus": 1})(
+    chip_smoke.Generator)
+h = serve.run(dep.bind("tiny", "cuda", 0), route_prefix="/gpt2")
+before = rt.get(h.method.launches.remote(True), timeout=300)
+served = rt.get(h.remote({"prompt": PROMPT, "max_tokens": 6}), timeout=300)
+launches, forwards = rt.get(h.method.launches.remote(False), timeout=60)
+local = chip_smoke.Generator("tiny", "cuda", 0)(
+    {"prompt": PROMPT, "max_tokens": 6})
+serve.shutdown()
+rt.shutdown()
+print("RESULT " + json.dumps({
+    "served": served["tokens"], "local": local["tokens"],
+    "before": list(before), "launches": launches, "forwards": forwards,
+    "n_layer": chip_smoke.gpt2.GPT2_TINY.n_layer}))
+"""
+
+
+def test_serve_gpu_deployment_of_gpt2_tiny(cuda, tmp_path):
+    """``chip_smoke.Generator`` at ``GPT2_TINY`` widths deployed by
+    reference through ``serve.run`` with ``num_gpus=1``: the replica's
+    greedy tokens equal the driver's own on the card, and the replica's
+    process launched the forward kernel once per layer per forward."""
+    import json
+    import os
+    import sys
+
+    from test_torch_runtime_parity import ROOT, run_driver
+
+    main = tmp_path / "main.py"
+    main.write_text(SERVE_ON_CARD)
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc, stdout, stderr = run_driver([sys.executable, str(main)],
+                                      str(tmp_path), env, timeout=300)
+    assert proc.returncode == 0, stderr
+    line = [l for l in stdout.splitlines() if l.startswith("RESULT ")]
+    out = json.loads(line[-1][len("RESULT "):])
+    assert out["served"] == out["local"]
+    assert out["forwards"] - out["before"][1] == 6
+    assert out["launches"] == out["n_layer"] * 6 > 0

@@ -138,3 +138,60 @@ def test_cluster_runs_with_jax_and_ray_tpu_blocked(tmp_path):
     assert proc.returncode == 0, stderr
     assert stdout.splitlines() == [
         "task [42, []]", "actor [3, []]", "driver []"], stdout
+
+
+SERVE_APP = """
+import json, os, sys, urllib.request
+for m in FORBIDDEN:
+    sys.modules[m] = None
+import ray_tpu_torch as rt
+from ray_tpu_torch import serve
+
+rt.init(num_cpus=4)
+serve.start()
+
+
+def loaded():
+    return sorted(m for m in FORBIDDEN if sys.modules.get(m) is not None)
+
+
+@serve.deployment(name="doubler")
+class Doubler:
+    def __call__(self, req):
+        return {"y": 2 * req["x"], "loaded": loaded()}
+
+
+h = serve.run(Doubler.bind(), route_prefix="/double")
+print("handle", json.dumps(rt.get(h.remote({"x": 21}), timeout=60)))
+req = urllib.request.Request(
+    f"http://127.0.0.1:{serve.http_port()}/double",
+    data=json.dumps({"x": 4}).encode(), method="POST")
+with urllib.request.urlopen(req, timeout=60) as resp:
+    print("http", resp.status, resp.read().decode())
+print("driver", loaded(), sorted(m for m in sys.modules
+                                 if m.startswith("ray_tpu_torch.serve.")))
+serve.shutdown()
+rt.shutdown()
+"""
+
+
+def test_serve_app_runs_with_jax_and_ray_tpu_blocked(tmp_path):
+    """``ray_tpu_torch.serve`` starts its controller and HTTP proxy and
+    serves a deployment over a handle and over HTTP in a driver where jax,
+    jaxlib, ray_tpu and the installed cloudpickle cannot be imported;
+    neither the replica nor the driver loaded any of them."""
+    main = tmp_path / "main.py"
+    main.write_text(f"FORBIDDEN = {FORBIDDEN!r}\n" + SERVE_APP)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = ROOT
+    proc, stdout, stderr = run_driver([sys.executable, str(main)],
+                                      str(tmp_path), env)
+    assert proc.returncode == 0, stderr
+    lines = stdout.splitlines()
+    assert lines[:2] == ['handle {"y": 42, "loaded": []}',
+                         'http 200 {"y": 8, "loaded": []}'], stdout
+    mods = ("ray_tpu_torch.serve.batching", "ray_tpu_torch.serve.controller",
+            "ray_tpu_torch.serve.http_proxy",
+            "ray_tpu_torch.serve.multiplex", "ray_tpu_torch.serve.router")
+    assert lines[2].startswith("driver [] ") and all(
+        repr(m) in lines[2] for m in mods), stdout

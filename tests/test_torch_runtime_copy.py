@@ -21,7 +21,24 @@ there.  The hunks:
     alias), held by ``test_chip_resource_key``;
 (g) object-store segments named ``rtt_store_`` in place of ``rt_store_``, so
     that neither package's leak audits and sweeps count the other's;
-(h) the host libraries built into ``ray_tpu_torch/_build/``.
+(h) the host libraries built into ``ray_tpu_torch/_build/``;
+(i) burst mode's gate for lease-reused tasks (``core/direct.py``,
+    ``DirectCallClient._submit_task`` and ``_fast_turnover``): the
+    reference pipelines every task of one resource shape onto the leased
+    worker once the channel's turnover EWMA is under
+    ``direct_lease_turnover_ms``, so a short task can wait behind a long
+    one and tasks that sleep run one after another.  The port pipelines a
+    task onto a busy lease channel only where, besides that EWMA, the
+    channel's oldest call in flight has been out for less than the
+    threshold plus the calls in flight's turnover at the EWMA, and a
+    direct call of the task's function on that lease shape has completed
+    before (its first one, the probe); otherwise the task goes to the
+    raylet.  Held by ``tests/test_torch_runtime_burst.py`` and by
+    ``tests/test_torch_runtime_core.py``'s ``test_wait`` and
+    ``test_parallelism``.
+
+``serve/`` is the reference's ``serve/`` (controller, router, HTTP proxy,
+replica, batching, multiplexing, telemetry) with hunk (b) alone.
 
 ``ray_tpu_torch/__init__.py`` carries ``ray_tpu/__init__.py``'s API and
 ``ray_tpu_torch/native/build.py`` ``ray_tpu/native/build.py``'s host build
@@ -46,14 +63,17 @@ UTIL = [f"util/{m}.py" for m in (
     "__init__", "locks", "retry", "scheduling_strategies", "metrics",
     "metrics_query", "alerts", "tracing", "profiling", "state", "chaos",
     "trace_analysis")]
-COPIED = CORE + UTIL + ["runtime_context.py", "dag.py",
-                        "native/src/object_store.cc",
-                        "native/src/frame_codec.cc"]
+SERVE = sorted(f"serve/{f}" for f in os.listdir(os.path.join(REF, "serve"))
+               if f.endswith(".py"))
+COPIED = CORE + UTIL + SERVE + ["runtime_context.py", "dag.py",
+                                "native/src/object_store.cc",
+                                "native/src/frame_codec.cc"]
 
 # path -> [(hunk, first reference line, last reference line)]; an insertion
 # after reference line n is at (n, n)
 HUNKS = {
     "core/actor.py": [("b", 254, 254)],
+    "core/direct.py": [("i", 1149, 1167)],
     "core/object_store.py": [("g", 155, 155), ("g", 169, 169)],
     "core/raylet.py": [("e", 1084, 1093), ("b", 4139, 4139),
                        ("b", 5366, 5366)],
@@ -65,6 +85,8 @@ HUNKS = {
                        ("g", 715, 715)],
     "core/worker_main.py": [("b", 26, 26)],
     "util/chaos.py": [("g", 470, 470)],
+    "serve/__init__.py": [("b", 22, 22)],
+    "serve/replica.py": [("b", 30, 30)],
 }
 
 # hunks whose new lines are the reference's under one textual substitution
@@ -112,20 +134,21 @@ def _check_hunks(ref_lines, port_lines, hunks, first_line=1):
 @pytest.mark.parametrize("path", COPIED)
 def test_copy_differs_only_in_listed_hunks(path):
     hunks = HUNKS.get(path, [])
-    assert {h[0] for h in hunks} <= set("bcdegh")
+    assert {h[0] for h in hunks} <= set("bcdeghi")
     _check_hunks(_renamed(path).splitlines(), _read(path).splitlines(),
                  hunks)
 
 
 def test_copy_list_is_whole():
-    """Every module of the reference's core is copied, and the port's core
-    and util hold nothing that is not a copy."""
-    for sub in ("core", "util"):
+    """Every module of the reference's core and serve is copied, and the
+    port's core, util and serve hold nothing that is not a copy."""
+    for sub in ("core", "util", "serve"):
         port = {f"{sub}/{f}" for f in os.listdir(os.path.join(PORT, sub))
                 if f.endswith(".py")}
         assert port == {p for p in COPIED if p.startswith(sub + "/")}
     assert set(CORE) == {f"core/{f}" for f in os.listdir(
         os.path.join(REF, "core")) if f.endswith(".py")}
+    assert len(SERVE) == 8
     assert set(HUNKS) <= set(COPIED)
 
 

@@ -2,10 +2,12 @@
 held to its assertions, on one port cluster for the module.
 
 They include ``test_wait`` and ``test_parallelism``, which the JAX package's
-direct-transport burst mode (``ray_tpu/core/direct.py:1150-1167``, copied
-as it is) can fail depending on the tests that ran before them: once a lease
-channel turns tasks over fast, every task of one shape is pipelined onto
-one leased worker.  Nothing here turns burst mode off.
+direct-transport burst mode (``ray_tpu/core/direct.py:1150-1167``) can fail
+depending on the tests that ran before them: once a lease channel turns
+tasks over fast, every task of one shape is pipelined onto one leased
+worker.  The port's copy gates that pipelining (hunk (i) of
+``tests/test_torch_runtime_copy.py``; ``tests/test_torch_runtime_burst.py``).
+Nothing here turns burst mode off.
 
 The cluster runs under a session root of its own
 (``ray_tpu_torch.session_root``), not the shared default.  The module ends

@@ -139,8 +139,8 @@ def run_both(tmp_path, body, timeout=120):
     return out
 
 
-def check_same(tmp_path, body, want=None):
-    out = run_both(tmp_path, body)
+def check_same(tmp_path, body, want=None, timeout=120):
+    out = run_both(tmp_path, body, timeout)
     assert out["ray_tpu_torch"] == out["ray_tpu"]
     if want is not None:
         for key, value in want.items():
@@ -550,3 +550,207 @@ def test_placement_groups(tmp_path):
         "cpus_after_remove": 4.0, "bundle_count": 2,
         "too_big": ["ValueError",
                     "placement group [{'CPU': 64}] exceeds cluster capacity"]})
+
+
+SERVE = """
+import os
+import threading
+import urllib.error
+import urllib.request
+
+serve = importlib.import_module(sys.argv[1] + ".serve")
+rt.init(num_cpus=8)
+serve.start()
+PORT = serve.http_port()
+
+
+def http(path, body=None, headers=None):
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{PORT}{path}",
+        data=None if body is None else json.dumps(body).encode(),
+        method="GET" if body is None else "POST",
+        headers={"Content-Type": "application/json", **(headers or {})})
+    try:
+        with urllib.request.urlopen(req, timeout=60) as resp:
+            return [resp.status, [json.loads(line) for line in resp]]
+    except urllib.error.HTTPError as e:
+        return [e.code, e.read().decode()[:80]]
+
+
+@serve.deployment
+def echo(req):
+    return {"echo": req}
+
+
+h = serve.run(echo.bind(), route_prefix="/echo")
+OUT["function"] = rt.get(h.remote({"x": 1}), timeout=30)
+OUT["http_200"] = http("/echo", {"v": 2})
+OUT["http_404"] = http("/no-such-route", {"a": 1})
+OUT["healthz"] = http("/-/healthz")[0]
+serve.delete("echo")
+
+
+@serve.deployment(name="adder")
+class Adder:
+    def __init__(self, base):
+        self.base = base
+
+    def __call__(self, req):
+        return {"sum": self.base + req["v"]}
+
+    def peek(self, req):
+        return {"base": self.base, "req": req}
+
+
+h = serve.run(Adder.bind(10), route_prefix="/adder")
+OUT["class"] = [rt.get(h.remote({"v": 5}), timeout=30),
+                rt.get(h.method.peek.remote(None), timeout=30),
+                rt.get(h.options(method_name="peek").remote(3), timeout=30),
+                http("/adder", {"v": 32}), http("/-/routes")]
+serve.delete("adder")
+
+
+@serve.deployment(name="tokenizer")
+class Tokenizer:
+    def __call__(self, text):
+        return text.split()
+
+
+@serve.deployment(name="pipeline")
+class Pipeline:
+    def __init__(self, tok_handle):
+        self.tok = tok_handle
+
+    def __call__(self, req):
+        toks = rt.get(self.tok.remote(req["text"]), timeout=30)
+        return {"n_tokens": len(toks), "tokens": toks}
+
+
+h = serve.run(Pipeline.bind(Tokenizer.bind()), route_prefix="/pipe")
+OUT["nested"] = [rt.get(h.remote({"text": "a b c d"}), timeout=60),
+                 sorted(serve.status())]
+serve.delete("pipeline")
+serve.delete("tokenizer")
+
+
+@serve.deployment(name="pair", num_replicas=2)
+class Pair:
+    def __init__(self):
+        self.pid = os.getpid()
+
+    def __call__(self, req):
+        time.sleep(0.3)
+        return [self.pid, req * 3]
+
+
+h = serve.run(Pair.bind(), route_prefix="/pair")
+got = rt.get([h.remote(i) for i in range(4)], timeout=60)
+OUT["replicas"] = [len({pid for pid, _ in got}), [v for _, v in got],
+                   serve.status()["pair"]["running"]]
+serve.delete("pair")
+
+
+@serve.deployment(name="batched", max_ongoing_requests=32)
+class Batched:
+    @serve.batch(max_batch_size=4, batch_wait_timeout_s=1.0)
+    def __call__(self, reqs):
+        return [{"n": len(reqs), "v": r * 2} for r in reqs]
+
+    def sizes(self, _req):
+        return serve.batch_sizes_of(type(self).__call__)
+
+
+h = serve.run(Batched.bind(), route_prefix="/batched")
+outs = rt.get([h.remote(i) for i in range(8)], timeout=60)
+OUT["batch"] = [[o["v"] for o in outs], sorted(o["n"] for o in outs),
+                sorted(rt.get(h.options(method_name="sizes").remote(None),
+                              timeout=30))]
+serve.delete("batched")
+
+
+@serve.deployment(name="mux", num_replicas=1)
+class MultiModel:
+    @serve.multiplexed(max_num_models_per_replica=2)
+    def get_model(self, model_id):
+        return {"id": model_id, "scale": float(len(model_id))}
+
+    def __call__(self, request):
+        model = self.get_model()
+        return {"model": model["id"], "y": model["scale"] * request["x"]}
+
+
+serve.run(MultiModel.bind(), name="muxapp", route_prefix="/mux")
+posts = [http("/mux", {"x": x}, {"serve_multiplexed_model_id": mid})
+         for mid, x in (("aa", 3), ("bbb", 2), ("aa", 1), ("cccc", 1))]
+replica = serve.get_deployment_handle("mux")._pick_replica()
+OUT["mux_lru"] = [posts, sorted(rt.get(
+    replica.multiplexed_model_ids.remote(), timeout=30))]
+serve.delete("muxapp")
+
+
+@serve.deployment(name="mux2", num_replicas=2)
+class Affine:
+    @serve.multiplexed(max_num_models_per_replica=1)
+    def load(self, model_id):
+        return {"pid": os.getpid(), "id": model_id}
+
+    def __call__(self, request):
+        m = self.load()
+        return {"pid": m["pid"], "model": m["id"]}
+
+
+serve.run(Affine.bind(), name="mux2app", route_prefix="/mux2")
+h = serve.get_deployment_handle("mux2").options(multiplexed_model_id="mA")
+got = [rt.get(h.remote({}), timeout=60) for _ in range(7)]
+OUT["mux_affinity"] = [len({g["pid"] for g in got}),
+                       sorted({g["model"] for g in got}),
+                       serve.get_multiplexed_model_id()]
+serve.delete("mux2app")
+
+
+@serve.deployment(name="streamer")
+class Streamer:
+    def __call__(self, req):
+        for i in range(req["n"]):
+            yield {"i": i, "sq": i * i}
+
+
+h = serve.run(Streamer.bind(), route_prefix="/streamer")
+OUT["stream_http"] = http("/streamer?stream=1", {"n": 4})
+OUT["stream_handle"] = [rt.get(r, timeout=30) for r in
+                        h.options(stream=True).remote({"n": 3})]
+serve.delete("streamer")
+OUT["status_after"] = serve.status()
+serve.shutdown()
+"""
+
+
+def test_serve(tmp_path):
+    """Serve through both packages: a function and a class deployment
+    (methods by handle and by name, HTTP), a nested bind, two replicas,
+    ``@serve.batch``'s batch sizes, ``@serve.multiplexed``'s LRU and
+    affinity, HTTP 200, 404 and a streamed response, and a streamed
+    handle.  Pids and times are not compared: the count of distinct pids
+    is."""
+    check_same(tmp_path, SERVE, {
+        "function": {"echo": {"x": 1}},
+        "http_200": [200, [{"echo": {"v": 2}}]],
+        "http_404": [404, '{"error": "no route for /no-such-route"}'],
+        "healthz": 200,
+        "class": [{"sum": 15}, {"base": 10, "req": None},
+                  {"base": 10, "req": 3}, [200, [{"sum": 42}]],
+                  [200, [{"/adder": "adder"}]]],
+        "nested": [{"n_tokens": 4, "tokens": ["a", "b", "c", "d"]},
+                   ["pipeline", "tokenizer"]],
+        "replicas": [2, [0, 3, 6, 9], 2],
+        "batch": [[0, 2, 4, 6, 8, 10, 12, 14], [4] * 8, [4, 4]],
+        "mux_lru": [[[200, [{"model": "aa", "y": 6.0}]],
+                     [200, [{"model": "bbb", "y": 6.0}]],
+                     [200, [{"model": "aa", "y": 2.0}]],
+                     [200, [{"model": "cccc", "y": 4.0}]]],
+                    ["aa", "cccc"]],
+        "mux_affinity": [1, ["mA"], ""],
+        "stream_http": [200, [{"i": i, "sq": i * i} for i in range(4)]],
+        "stream_handle": [{"i": i, "sq": i * i} for i in range(3)],
+        "status_after": {},
+    }, timeout=300)

@@ -1,23 +1,25 @@
 """ray_tpu_torch.serve.Replica hosting chip_smoke's GPT-2 Generator at
-GPT2_TINY on the CPU: requests, streams, backpressure, stats."""
-
-import pickle
+GPT2_TINY on the CPU: requests, streams, backpressure, stats.  A replica
+takes its deployment as the vendored cloudpickle's bytes and positional
+``init_args, init_kwargs``, as the JAX package's does."""
 
 import pytest
 import torch
 
 from chip_smoke import Generator
+from ray_tpu_torch._vendor import cloudpickle
 from ray_tpu_torch.core.config import config
 from ray_tpu_torch.core.exceptions import BackPressureError, RayTpuError
 from ray_tpu_torch.models import gpt2
-from ray_tpu_torch.serve import Replica, get_multiplexed_model_id
+from ray_tpu_torch.serve import get_multiplexed_model_id
+from ray_tpu_torch.serve.replica import Replica
 
 PROMPT = [5, 17, 301, 42, 7]
 
 
 @pytest.fixture(scope="module")
 def replica():
-    return Replica(Generator, ("tiny", "cpu", 0), {})
+    return Replica(cloudpickle.dumps(Generator), ("tiny", "cpu", 0), {})
 
 
 def _greedy(gen, prompt, n):
@@ -52,7 +54,8 @@ def test_sequence_beyond_block_size_raises(replica):
 
 
 def test_backpressure_rejects_beyond_max_ongoing():
-    r = Replica(Generator, ("tiny", "cpu", 0), {}, max_ongoing_requests=1)
+    r = Replica(cloudpickle.dumps(Generator), ("tiny", "cpu", 0), {},
+                max_ongoing_requests=1)
     stream = r.handle_request_stream({"prompt": PROMPT, "max_tokens": 3},
                                      method="stream")
     first = next(stream)           # admitted: one request in flight
@@ -74,7 +77,7 @@ def test_backpressure_flag_off_queues(monkeypatch):
     monkeypatch.setenv("RAY_TPU_SERVE_BACKPRESSURE", "0")
     config.reload("serve_backpressure")
     try:
-        r = Replica(Generator, ("tiny", "cpu", 0), {},
+        r = Replica(cloudpickle.dumps(Generator), ("tiny", "cpu", 0), {},
                     max_ongoing_requests=1)
         stream = r.handle_request_stream({"prompt": PROMPT, "max_tokens": 2},
                                          method="stream")
@@ -104,14 +107,14 @@ class _Echo:
 
 
 def test_pickled_definition_user_config_and_health():
-    r = Replica(pickle.dumps(_Echo), ("a",), None, user_config={"x": 1})
+    r = Replica(cloudpickle.dumps(_Echo), ("a",), None, user_config={"x": 1})
     assert r._callable.cfg == {"x": 1}
     assert r.handle_request(3, multiplexed_model_id="m1") == ("a", 3, "m1")
     assert get_multiplexed_model_id() == ""  # reset after the request
     assert r.check_health()
     assert r.reconfigure({"healthy": False})
     assert not r.check_health()
-    fn = Replica(lambda req: req * 2)
+    fn = Replica(cloudpickle.dumps(lambda req: req * 2), (), None)
     assert fn.handle_request(21) == 42
     assert fn.get_queue_len() == 0
 
@@ -160,16 +163,16 @@ class _Side:
 
     def __init__(self, package):
         if package == "jax":
-            import cloudpickle
+            import cloudpickle as installed
 
             from ray_tpu.core.config import config as cfg
             from ray_tpu.serve.multiplex import get_multiplexed_model_id as mid
             from ray_tpu.serve.replica import Replica as cls
-            self.dumps = cloudpickle.dumps
+            self.dumps = installed.dumps
             _Side.model_ids["jax"] = mid
         else:
             cfg, mid, cls = config, get_multiplexed_model_id, Replica
-            self.dumps = pickle.dumps
+            self.dumps = cloudpickle.dumps
         self.package = package
         self.config, self.model_id, self.cls = cfg, mid, cls
 
@@ -308,7 +311,7 @@ def test_llama_server_returns_jax_generate_tokens():
     jcfg = jl.LlamaConfig(**{**jl.LLAMA_TINY.__dict__,
                              "compute_dtype": jnp.float32})
     jparams = jl.init_params(jax.random.PRNGKey(0), jcfg)
-    r = Replica(LlamaServer, ("tiny", "cpu", 0), {})
+    r = Replica(cloudpickle.dumps(LlamaServer), ("tiny", "cpu", 0), {})
     srv = r._callable
     assert srv.cfg == tl.LLAMA_TINY
     srv.cfg = tl.LlamaConfig(**{**jcfg.__dict__,
@@ -381,13 +384,13 @@ def _mux_deployment(multiplexed):
 
 def _mux_side(package):
     if package == "jax":
-        import cloudpickle
+        import cloudpickle as installed
 
         from ray_tpu.serve.multiplex import multiplexed as mux
         from ray_tpu.serve.replica import Replica as cls
-        return mux, lambda d: cls(cloudpickle.dumps(d), (), None)
+        return mux, lambda d: cls(installed.dumps(d), (), None)
     from ray_tpu_torch.serve import multiplexed as mux
-    return mux, Replica
+    return mux, lambda d: Replica(cloudpickle.dumps(d), (), None)
 
 
 def _mux_calls(package):
@@ -443,13 +446,13 @@ def _batch_deployment(batch, batch_sizes_of, max_batch_size, wait_s):
 
 def _batch_side(package):
     if package == "jax":
-        import cloudpickle
+        import cloudpickle as installed
 
         from ray_tpu.serve.batching import batch as b, batch_sizes_of as s
         from ray_tpu.serve.replica import Replica as cls
-        return b, s, lambda d: cls(cloudpickle.dumps(d), (), None)
+        return b, s, lambda d: cls(installed.dumps(d), (), None)
     from ray_tpu_torch.serve import batch as b, batch_sizes_of as s
-    return b, s, Replica
+    return b, s, lambda d: Replica(cloudpickle.dumps(d), (), None)
 
 
 def _feed(r, requests, timeout=30):
