@@ -234,7 +234,37 @@ Phases; any failure exits non-zero:
    128 (32 new tokens) through the handle and over HTTP with phase 5's
    tokens, prefill and per-token ms beside phase 5's; after
    ``serve.shutdown()`` and ``shutdown()`` nothing may remain, as in
-   phase 15.
+   phase 15;
+17. cluster — two nodes of the port's runtime
+   (``ray_tpu_torch.cluster_utils.Cluster``: a GCS and a raylet per node
+   as processes), under a session root of its own: a CPU head (2 CPUs)
+   and a node with the card (``num_tpus=1``, the cluster's ``env`` naming
+   the card; without it the cluster's processes keep it hidden); a GPU
+   task on that node makes phase 15's 67.1 MB bf16 tensor, a CPU task
+   pinned to the head (``NodeAffinitySchedulingStrategy``) pulls it across
+   the nodes and returns its checksum, twice (the second read from the
+   head's store): both checksums and the driver's ``get`` bit-equal to the
+   draw, the pull's ms printed beside phase 15's same-node ``get``; after
+   ``shutdown()`` nothing may remain, as in phase 15;
+18. train run — Train on the port's runtime: GPT-2 124M at full width and
+   depth trained by ``TorchTrainer`` with ``ScalingConfig(num_workers=1,
+   use_tpu=True)``; the worker (``train_run_loop``, taking phase 4's
+   ``train_setup``, seed and AdamW by reference from ``chip_smoke``) gets
+   each step's batch of phase 4's token rows (B=16, S=1024) through a
+   port ``Dataset`` (``from_numpy``), ``session.get_dataset_shard`` and
+   ``iter_torch_batches`` staged onto the card, and reports each of 10
+   steps (loss, the step's ms from CUDA events, the launches of each
+   kernel counted in the worker, peak memory), with a checkpoint of the
+   parameters and AdamW's state at step 5 (``Checkpoint.from_dict``: on
+   the host, no card tensor): losses bit-equal to phase 4's first 10,
+   finite and falling, ``n_layer`` launches of each kernel a step; a
+   second ``fit`` resumed from that checkpoint in a new worker gives steps
+   6-10's losses equal to the uninterrupted run's; two workers sharing the
+   card (``{"CPU": 1, "TPU": 0.5}`` each, gloo) train dp = 2 at B = 8 each
+   for 3 steps: the ranks' parameters bit-equal and the losses within
+   ``TRAIN_LOSS_TOL`` of one worker's at B = 16; the worker's ms a step
+   and peak memory printed beside phase 4's; after ``shutdown()`` nothing
+   may remain, no results outside the temp dir included.
 
 The timed runs of phases 8-12 on four ranks, and the MoE's in phases
 10-13 on two or four ranks, train ``FOUR_RANK_DEPTH`` (4) layers of GPT-2
@@ -251,7 +281,8 @@ every task.  Each phase's seconds are printed after it.
 
 The forward kernel's launches are listed by path, the runtime's actor
 (``runtime_actor``) and the Serve replicas (``serve_run_gpt2``,
-``serve_run_llama``) among them.  The last two lines are a JSON object of
+``serve_run_llama``) among them; each kernel's also the Train workers'
+(``train_run``, ``train_run_resumed``, ``train_run_dp2``).  The last two lines are a JSON object of
 per-kernel numbers and the result line ``{"ok": true, "device":
 {...}}``.  ``--profile`` adds ``torch.profiler`` tables of device time
 by kernel for a forward at S=1024, a train step, a Llama forward at
@@ -603,6 +634,9 @@ SP_LABELS |= set(TP_SP_SHAPES.values())
 #: ms per step and peak GB of the single-rank train steps (phases 4, 6 and
 #: 7's dense head), by model, printed beside phases 9-12's
 SINGLE_RANK_STEPS = {}
+#: what phases 17 and 18 are held to or printed beside: phase 4's losses
+#: ("train_losses"), phase 15's same-node get ("runtime_get_ms")
+PHASE_REF = {}
 
 
 def card_line() -> str:
@@ -1211,6 +1245,12 @@ def compare_grads(tag, what, names, a, b, loss_tol=None, rel_tol=None):
         fail(f"{tag}: {what} disagree")
 
 
+def train_tokens(seed, B, S):
+    """A (B, S+1) batch of tokens of GPT-2's vocabulary, on the host."""
+    rng = torch.Generator().manual_seed(seed + 1)
+    return torch.randint(0, 50257, (B, S + 1), generator=rng)
+
+
 def train_setup(cfg, seed, B, S):
     """f32 master parameters from ``seed`` (every leaf requiring grad) and
     a (B, S+1) batch of tokens of GPT-2's vocabulary."""
@@ -1218,9 +1258,7 @@ def train_setup(cfg, seed, B, S):
     params = gpt2.init_params(gen, cfg, device="cuda")
     for leaf in gpt2.param_leaves(params):
         leaf.requires_grad_(True)
-    rng = torch.Generator().manual_seed(seed + 1)
-    tokens = torch.randint(0, 50257, (B, S + 1), generator=rng).to("cuda")
-    return params, tokens
+    return params, train_tokens(seed, B, S).to("cuda")
 
 
 def adamw(params, lr=3e-4):
@@ -1279,6 +1317,7 @@ def phase_train(seed, profile):
           f"{mfu:.4f} of {PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s bf16, peak "
           f"memory {peak_gb:.2f} GB; card {card_line()}", flush=True)
     SINGLE_RANK_STEPS["gpt2"] = (ms, peak_gb)
+    PHASE_REF["train_losses"] = losses
     print(f"[train] launches in {steps} steps: {launches} (n_layer "
           f"{cfg.n_layer} x {steps} each)", flush=True)
     if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
@@ -3708,6 +3747,7 @@ def runtime_checks(rt, seed, serve_ref, profile, init_s):
               f"to the driver's draw: {same}", flush=True)
         if not same:
             fail("the GPU task's tensor did not come back bit-equal")
+        PHASE_REF["runtime_get_ms"] = (t_get - t_ready) * 1e3
     del got, want
 
     gen = torch.Generator(device="cuda").manual_seed(seed + 1)
@@ -3963,6 +4003,416 @@ def serve_run_llama(rt, serve, seed, ref):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 17: two nodes of the port's runtime (cluster_utils)
+# ---------------------------------------------------------------------------
+
+def tensor_checksum(t):
+    """(sha256 of a tensor's bytes, the node that read it, the device it
+    arrived on, whether that worker sees a card)."""
+    data = t.contiguous().view(torch.int16) if t.dtype == torch.bfloat16 \
+        else t.contiguous()
+    return [hashlib.sha256(data.numpy().tobytes()).hexdigest(),
+            os.environ.get("RAY_TPU_NODE_ID"), t.device.type,
+            torch.cuda.is_available()]
+
+
+def phase_cluster(seed):
+    """Phase 17: a port ``Cluster`` of a CPU head and a node with the card;
+    a GPU task on that node makes phase 15's tensor, a CPU task pinned to
+    the head pulls it across the nodes; nothing may remain after
+    ``shutdown()``."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.cluster_utils import Cluster
+    from ray_tpu_torch.session_root import new_session_root
+    from ray_tpu_torch.util import chaos
+
+    free_memory("cluster")
+    root = new_session_root()
+    rt.config.temp_dir = root
+    baseline = chaos.snapshot_host()
+    # the cluster's processes keep the card hidden unless env names it
+    env = {"RAY_TPU_TEMP_DIR": root,
+           "CUDA_VISIBLE_DEVICES": os.environ.get("CUDA_VISIBLE_DEVICES")
+           or "0"}
+    t = time.perf_counter()
+    c = Cluster(initialize_head=True, head_resources={"num_cpus": 2},
+                env=env)
+    try:
+        card_node = c.add_node(num_cpus=1, num_tpus=1)
+        c.wait_for_nodes(2)
+        c.connect()
+        cluster_checks(rt, c, card_node, seed, time.perf_counter() - t)
+    finally:
+        c.shutdown()
+    try:
+        chaos.assert_clean_host(baseline)
+    except chaos.HostLeakError as e:
+        fail(f"cluster shutdown left {e}")
+    shutil.rmtree(root, ignore_errors=True)
+    print("[cluster] shutdown: no ray_tpu_torch.core.*_main process and no "
+          "rtt_store segment left", flush=True)
+
+
+def cluster_checks(rt, c, card_node, seed, up_s):
+    from ray_tpu_torch.util.scheduling_strategies import (
+        NodeAffinitySchedulingStrategy)
+
+    head = c.head_node.node_id
+    resources = rt.cluster_resources()
+    alive = [n["NodeID"] for n in rt.nodes() if n["Alive"]]
+    print(f"[cluster] GCS and 2 raylets up in {up_s:.2f} s: nodes "
+          f"{sorted(alive)}; cluster_resources {resources}; card "
+          f"{card_line()}", flush=True)
+    if sorted(alive) != sorted([head, card_node.node_id]) \
+            or resources.get("TPU") != 1.0:
+        fail("the cluster does not hold a head and one node with the card")
+    want = runtime_draw(seed).cpu()
+    want_sum = tensor_checksum(want)[0]
+    mb = want.numel() * want.element_size() / 1e6
+    t = time.perf_counter()
+    ref = rt.remote(num_gpus=1)(runtime_draw).remote(seed)
+    ready, _ = rt.wait([ref], timeout=300)
+    if not ready:
+        fail("the GPU task on the card's node did not finish")
+    made_s = time.perf_counter() - t
+    on_head = NodeAffinitySchedulingStrategy(head, soft=False)
+    # a CPU worker on the head first, so that the reads time no start
+    t = time.perf_counter()
+    seen = rt.get(rt.remote(num_cpus=1)(card_seen).options(
+        scheduling_strategy=on_head).remote(), timeout=300)
+    warm_s = time.perf_counter() - t
+    read = rt.remote(num_cpus=1)(tensor_checksum).options(
+        scheduling_strategy=on_head)
+    reads = []
+    for _ in range(2):  # the first pulls across the nodes
+        t = time.perf_counter()
+        reads.append(rt.get(read.remote(ref), timeout=300)
+                     + [(time.perf_counter() - t) * 1e3])
+    t = time.perf_counter()
+    got = rt.get(ref, timeout=300)
+    get_ms = (time.perf_counter() - t) * 1e3
+    same = (type(got) is torch.Tensor and got.dtype == torch.bfloat16
+            and got.shape == want.shape
+            and torch.equal(got.view(torch.int16), want.view(torch.int16)))
+    (h1, n1, d1, cuda1, ms1), (h2, n2, d2, cuda2, ms2) = reads
+    print(f"[cluster] GPU task on the card's node -> {mb:.1f} MB bf16 CUDA "
+          f"tensor, ready in {made_s:.2f} s (a worker starts and opens the "
+          f"card); a CPU worker on the head up in {warm_s:.2f} s "
+          f"(torch.cuda.is_available() {seen[0]}, CUDA_VISIBLE_DEVICES="
+          f"{seen[1]!r}); a CPU task pinned to the head read it as a {d1} "
+          f"tensor: submit to checksum "
+          f"{ms1:.1f} ms with the pull across the nodes, {ms2:.1f} ms again "
+          f"from the head's store (the pull ~{ms1 - ms2:.1f} ms, "
+          f"{mb / max(ms1 - ms2, 1e-3):.2f} GB/s); checksums equal the "
+          f"driver's draw: {h1 == want_sum and h2 == want_sum}; the "
+          f"driver's get {get_ms:.3f} ms (phase 15's same-node get "
+          f"{PHASE_REF.get('runtime_get_ms', float('nan')):.3f} ms), a CPU "
+          f"bf16 tensor bit-equal to the draw: {same}", flush=True)
+    if n1 != head or n2 != head or d1 != "cpu" or cuda1 or cuda2 \
+            or seen != [False, ""]:
+        fail("the CPU task did not run on the head, or saw the card")
+    if h1 != want_sum or h2 != want_sum or not same:
+        fail("the tensor pulled across the nodes is not bit-equal")
+
+
+# ---------------------------------------------------------------------------
+# phase 18: Train on the port's runtime
+# ---------------------------------------------------------------------------
+
+# phase 18's worker runs phase 4's steps on phase 4's setup and batch in
+# another process: the kernels are deterministic and the GEMM shapes the
+# same, so its losses are held to phase 4's bit for bit
+TRAIN_RUN_LOSS_TOL = 0.0
+# the store of phase 18's runtime: the step-5 checkpoint (124M f32
+# parameters and AdamW's two moments, ~1.5 GB) travels through it
+TRAIN_RUN_STORE_BYTES = 4 << 30
+TRAIN_RUN_BATCH = (16, 1024)
+TRAIN_RUN_STEPS = 10
+TRAIN_RUN_CKPT_STEP = 5
+TRAIN_RUN_DP_STEPS = 3
+
+
+def train_run_loop(config):
+    """A ``TorchTrainer`` worker: GPT-2 124M from phase 4's setup and
+    AdamW, its batch from the dataset shard staged onto the card, one report
+    a step (loss, the step's ms from CUDA events, the launches of each
+    kernel in this process since the first step, peak memory), a checkpoint
+    of the parameters and the optimizer's state at ``ckpt_step``; resumes
+    from the session's checkpoint.  Everything comes by reference from
+    ``chip_smoke``, so cloudpickle ships this function by value alone."""
+    import time
+
+    loop_t0 = time.time()
+    import torch
+
+    import chip_smoke as cs
+    from ray_tpu_torch.air.checkpoint import Checkpoint
+    from ray_tpu_torch.train import session
+    from ray_tpu_torch.train.torch import get_device
+
+    cs.set_precision()
+    device = get_device()
+    params, _ = cs.train_setup(cs.gpt2.GPT2_SMALL, config["seed"], 1, 1)
+    opt = cs.adamw(params)
+    step_fn = cs.gpt2.make_train_step(cs.gpt2.GPT2_SMALL, opt)
+    start = 0
+    ckpt = session.get_checkpoint()
+    if ckpt is not None:
+        t = time.perf_counter()
+        state = ckpt.to_dict()
+        with torch.no_grad():
+            for leaf, saved in zip(cs.gpt2.param_leaves(params),
+                                   state["params"]):
+                leaf.copy_(saved)
+        opt.load_state_dict(state["opt"])
+        start = state["step"]
+        load_s = time.perf_counter() - t
+    shard = session.get_dataset_shard("train")
+    torch.cuda.reset_peak_memory_stats()
+    cs.reset_launches()
+    for step in range(start, config["steps"]):
+        t = time.perf_counter()
+        (batch,) = list(shard.iter_torch_batches(
+            batch_size=config["batch"]))
+        data_ms = (time.perf_counter() - t) * 1e3
+        begin = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        begin.record()
+        loss = step_fn(params, {"tokens": batch["value"]})["loss"]
+        end.record()
+        loss = loss.item()
+        report = {"step": step + 1, "loss": loss,
+                  "ms": begin.elapsed_time(end), "data_ms": data_ms,
+                  "batch_device": str(batch["value"].device),
+                  "device": str(device), "launches": cs.read_launches(),
+                  "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                  "loop_t0": loop_t0, "t": time.time()}
+        if ckpt is not None and step == start:
+            report["load_s"] = load_s
+        saved = None
+        if step + 1 == config.get("ckpt_step"):
+            t = time.perf_counter()
+            saved = Checkpoint.from_dict({
+                "params": cs.gpt2.param_leaves(params),
+                "opt": opt.state_dict(), "step": step + 1})
+            report["to_host_s"] = time.perf_counter() - t
+            report["ckpt_on_card"] = any(
+                x.is_cuda for x in saved.to_dict()["params"])
+        session.report(report, checkpoint=saved)
+
+
+def train_run_dp_loop(config):
+    """Two ``TorchTrainer`` workers sharing the card (gloo): each its half
+    of phase 4's batch on a dp = 2 mesh; one report a step (the loss, the
+    launches summed over both ranks), then whether the ranks' parameters
+    are bit-equal."""
+    import torch
+    import torch.distributed as dist
+
+    import chip_smoke as cs
+    from ray_tpu_torch.parallel.context import use_mesh
+    from ray_tpu_torch.parallel.sharding import ShardingConfig, batch_shard
+    from ray_tpu_torch.train import session
+
+    cs.set_precision()
+    params, tokens = cs.train_setup(cs.gpt2.GPT2_SMALL, config["seed"],
+                                    *config["batch"])
+    mesh = ShardingConfig(dp=2).build_mesh()
+    batch = {"tokens": batch_shard(tokens, mesh)}
+    step_fn = cs.gpt2.make_train_step(cs.gpt2.GPT2_SMALL, cs.adamw(params))
+    cs.reset_launches()
+    with use_mesh(mesh):
+        for step in range(config["steps"]):
+            loss = step_fn(params, batch)["loss"].item()
+            counts = torch.tensor(list(cs.read_launches().values()))
+            dist.all_reduce(counts)
+            session.report({"step": step + 1, "loss": loss,
+                            "rows": batch["tokens"].shape[0],
+                            "backend": dist.get_backend(),
+                            "launches": dict(zip(cs.read_launches(),
+                                                 counts.tolist())),
+                            "peak_gb": torch.cuda.max_memory_allocated()
+                            / 1e9})
+    digests = [None] * dist.get_world_size()
+    dist.all_gather_object(digests, cs.params_digest(params))
+    session.report({"step": config["steps"], "same": len(set(digests)) == 1,
+                    "launches": None})
+
+
+def phase_train_run(seed):
+    """Phase 18: GPT-2 124M trained through ``TorchTrainer`` on the port's
+    runtime, held to phase 4; returns the launches of each kernel counted
+    in the workers, by run."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.session_root import new_session_root
+    from ray_tpu_torch.util import chaos
+
+    free_memory("train run")
+    root = new_session_root()
+    rt.config.temp_dir = root
+    storage = tempfile.mkdtemp(prefix="rtt_train_run_")
+    home = os.path.expanduser("~/ray_tpu_torch_results")
+    home_before = os.path.exists(home)
+    baseline = chaos.snapshot_host()
+    rt.init(object_store_memory=TRAIN_RUN_STORE_BYTES)
+    try:
+        launches = train_run_checks(rt, seed, storage)
+    finally:
+        rt.shutdown()
+    try:
+        chaos.assert_clean_host(baseline)
+    except chaos.HostLeakError as e:
+        fail(f"train run shutdown left {e}")
+    shutil.rmtree(storage)
+    shutil.rmtree(root, ignore_errors=True)
+    if os.path.exists(home) != home_before:
+        fail(f"the runs left {home}")
+    print(f"[train run] shutdown: no ray_tpu_torch.core.*_main process, no "
+          f"rtt_store segment, and no results outside the temp dir "
+          f"({home} exists: {os.path.exists(home)}, as before)", flush=True)
+    return launches
+
+
+def train_run_fit(name, storage, loop, config, scaling, datasets=None,
+                  resume=None):
+    """``TorchTrainer(...).fit()``: (result, seconds, the wall clock at
+    its start)."""
+    from ray_tpu_torch.train import RunConfig, TorchTrainer
+
+    began = time.time()
+    t = time.perf_counter()
+    result = TorchTrainer(
+        loop, train_loop_config=config, scaling_config=scaling,
+        run_config=RunConfig(name=name, storage_path=storage),
+        datasets=datasets, resume_from_checkpoint=resume).fit()
+    secs = time.perf_counter() - t
+    if result.error is not None:
+        fail(f"train run {name}: {result.error!r}")
+    return result, secs, began
+
+
+def train_run_timeline(tag, hist, secs, began):
+    """Where a fit's seconds went, from its reports' wall clocks."""
+    print(f"[train run] {tag}: fit {secs:.2f} s; the worker's loop began "
+          f"{hist[0]['loop_t0'] - began:.2f} s in (the worker group and "
+          f"its process group up); reports at "
+          f"{' '.join(f'{m['t'] - began:.2f}' for m in hist)} s; the step "
+          f"(ms, CUDA events) "
+          f"{' '.join(f'{m['ms']:.1f}' for m in hist)}; the batch from "
+          f"the shard (ms) {' '.join(f'{m['data_ms']:.1f}' for m in hist)}"
+          f"; peak GB after each step "
+          f"{' '.join(f'{m['peak_gb']:.2f}' for m in hist)}", flush=True)
+
+
+def train_run_checks(rt, seed, storage):
+    from ray_tpu_torch import data
+    from ray_tpu_torch.train import ScalingConfig
+
+    B, S = TRAIN_RUN_BATCH
+    ref = PHASE_REF["train_losses"][:TRAIN_RUN_STEPS]
+    ref_ms, ref_peak = SINGLE_RANK_STEPS["gpt2"]
+    n_layer = gpt2.GPT2_SMALL.n_layer
+    ds = data.from_numpy(train_tokens(seed, B, S).numpy(), parallelism=1)
+    one = ScalingConfig(num_workers=1, use_tpu=True)
+    config = {"seed": seed, "steps": TRAIN_RUN_STEPS, "batch": B,
+              "ckpt_step": TRAIN_RUN_CKPT_STEP}
+
+    result, secs, began = train_run_fit("gpt2", storage, train_run_loop,
+                                        config, one, {"train": ds})
+    hist = result.metrics_history
+    train_run_timeline("uninterrupted", hist, secs, began)
+    losses = [m["loss"] for m in hist]
+    last = hist[-1]
+    ms = sorted(m["ms"] for m in hist[1:])
+    print(f"[train run] TorchTrainer, 1 worker with the card "
+          f"(ScalingConfig(use_tpu=True)), GPT2_SMALL B={B} S={S}: fit "
+          f"{secs:.2f} s for {len(hist)} steps (a worker starts, imports "
+          f"chip_smoke, draws the weights); worker device "
+          f"{last['device']}, batches staged onto {last['batch_device']} "
+          f"from the dataset shard in {hist[1]['data_ms']:.1f}-"
+          f"{max(m['data_ms'] for m in hist[1:]):.1f} ms a step",
+          flush=True)
+    print(f"[train run] losses {' '.join(f'{x:.4f}' for x in losses)}; "
+          f"phase 4's {' '.join(f'{x:.4f}' for x in ref)}; bit-equal "
+          f"{losses == ref}, largest |diff| "
+          f"{max(abs(a - b) for a, b in zip(losses, ref)):.3e} (tol "
+          f"{TRAIN_RUN_LOSS_TOL})", flush=True)
+    print(f"[train run] the worker's step: first {hist[0]['ms']:.3f} ms, "
+          f"then median {ms[len(ms) // 2]:.3f} ms (range {ms[0]:.3f}-"
+          f"{ms[-1]:.3f}; CUDA events around each step, synced by the "
+          f"report's loss) against phase 4's {ref_ms:.3f} ms (10 steps "
+          f"between two events); peak memory {last['peak_gb']:.2f} GB "
+          f"(phase 4 {ref_peak:.2f}); launches in the worker "
+          f"{last['launches']} (want {n_layer * TRAIN_RUN_STEPS} of each); "
+          f"checkpoint at step {TRAIN_RUN_CKPT_STEP}: to the host in "
+          f"{hist[TRAIN_RUN_CKPT_STEP - 1]['to_host_s']:.2f} s, holds no "
+          f"card tensor: {not hist[TRAIN_RUN_CKPT_STEP - 1]['ckpt_on_card']}"
+          f"; card {card_line()}", flush=True)
+    if last["device"] != "cuda:0" or last["batch_device"] != "cuda:0":
+        fail("the Train worker did not train on the card")
+    if any(abs(a - b) > TRAIN_RUN_LOSS_TOL for a, b in zip(losses, ref)) \
+            or len(losses) != len(ref):
+        fail("the Train worker's losses disagree with phase 4's")
+    if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
+        fail(f"train run losses not finite or not falling: {losses}")
+    if any(n != n_layer * TRAIN_RUN_STEPS for n in last["launches"].values()):
+        fail("the Train worker did not launch each kernel once per layer "
+             "per step")
+    if hist[TRAIN_RUN_CKPT_STEP - 1]["ckpt_on_card"]:
+        fail("the checkpoint holds tensors on the card")
+    launches = {"train_run": last["launches"]}
+
+    resumed, secs, began = train_run_fit(
+        "gpt2_resumed", storage, train_run_loop, config, one, {"train": ds},
+        resume=result.checkpoint)
+    train_run_timeline("resumed", resumed.metrics_history, secs, began)
+    r_losses = [m["loss"] for m in resumed.metrics_history]
+    r_last = resumed.metrics_history[-1]
+    want = losses[TRAIN_RUN_CKPT_STEP:]
+    print(f"[train run] resumed from the step-{TRAIN_RUN_CKPT_STEP} "
+          f"checkpoint ({result.checkpoint!r}) in a new worker: fit "
+          f"{secs:.2f} s, the checkpoint loaded in "
+          f"{resumed.metrics_history[0]['load_s']:.2f} s; steps "
+          f"{[m['step'] for m in resumed.metrics_history]} losses "
+          f"{' '.join(f'{x:.4f}' for x in r_losses)} equal the "
+          f"uninterrupted run's: {r_losses == want}; launches "
+          f"{r_last['launches']}", flush=True)
+    if r_losses != want:
+        fail("the resumed run's losses differ from the uninterrupted run's")
+    steps_left = TRAIN_RUN_STEPS - TRAIN_RUN_CKPT_STEP
+    if any(n != n_layer * steps_left for n in r_last["launches"].values()):
+        fail("the resumed worker's launches are off")
+    launches["train_run_resumed"] = r_last["launches"]
+
+    shared = ScalingConfig(num_workers=2,
+                           resources_per_worker={"CPU": 1, "TPU": 0.5})
+    dp, secs, _ = train_run_fit(
+        "gpt2_dp2", storage, train_run_dp_loop,
+        {"seed": seed, "steps": TRAIN_RUN_DP_STEPS, "batch": (B, S)}, shared)
+    hist = dp.metrics_history
+    dp_losses = [m["loss"] for m in hist[:TRAIN_RUN_DP_STEPS]]
+    d = max(abs(a - b) for a, b in zip(dp_losses, losses))
+    dp_launches = hist[TRAIN_RUN_DP_STEPS - 1]["launches"]
+    want_dp = 2 * n_layer * TRAIN_RUN_DP_STEPS
+    print(f"[train run] 2 workers sharing the card ({{'CPU': 1, 'TPU': "
+          f"0.5}} each, backend {hist[0]['backend']}), dp=2 at B="
+          f"{hist[0]['rows']} each: fit {secs:.2f} s; losses "
+          f"{' '.join(f'{x:.4f}' for x in dp_losses)} against one worker at "
+          f"B={B}: |diff| {d:.3e} (tol {TRAIN_LOSS_TOL}); parameters "
+          f"bit-equal across the ranks: {hist[-1]['same']}; launches over "
+          f"the ranks {dp_launches} (want {want_dp} of each); rank 0's peak "
+          f"{hist[TRAIN_RUN_DP_STEPS - 1]['peak_gb']:.2f} GB", flush=True)
+    if hist[0]["backend"] != "gloo" or hist[0]["rows"] != B // 2:
+        fail("the shared-card workers did not run dp=2 over gloo")
+    if d > TRAIN_LOSS_TOL or not hist[-1]["same"]:
+        fail("the shared-card dp=2 run disagrees with one worker")
+    if any(n != want_dp for n in dp_launches.values()):
+        fail("the shared-card workers' launches are off")
+    launches["train_run_dp2"] = dp_launches
+    return launches
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -4012,13 +4462,15 @@ def main():
                            args.profile)
     serve_run_launches = run("16 serve run", phase_serve_run, args.seed,
                              serve_ref, llama_ref)
+    run("17 cluster", phase_cluster, args.seed)
+    train_run = run("18 train run", phase_train_run, args.seed)
     print(f"[time] phases: {seconds}; all {sum(seconds.values()):.1f} s",
           flush=True)
     print(card_line())
     src = "ray_tpu/ops/flash_attention.py"
     trained = {"train": train, "moe_train": moe_train, "xl_train": xl_train,
                **sp_runs, **pp_runs, **tp_runs, **ep_runs, **fsdp_runs,
-               **moe_pp_runs}
+               **moe_pp_runs, **train_run}
     paths = {
         "flash_fwd": {"serve": serve_launches, "llama": llama_launches,
                       "moe_serve": moe_serve,

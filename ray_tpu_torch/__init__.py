@@ -75,8 +75,8 @@ __all__ = [
     "TaskCancelledError", "BackPressureError", "OutOfMemoryError",
     "__version__",
     # sub-packages
-    "collective", "core", "models", "native", "ops", "parallel", "rllib",
-    "serve", "util",
+    "air", "collective", "core", "data", "models", "native", "ops",
+    "parallel", "rllib", "serve", "train", "util",
 ]
 
 
@@ -313,8 +313,8 @@ def timeline(filename: Optional[str] = None):
 
 # Convenience namespaced access (lazy imports to keep `import ray_tpu_torch` light).
 def __getattr__(name):
-    if name in ("collective", "core", "models", "native", "ops", "parallel",
-                "rllib", "serve", "util"):
+    if name in ("air", "collective", "core", "data", "models", "native",
+                "ops", "parallel", "rllib", "serve", "train", "util"):
         import importlib
 
         return importlib.import_module(f"ray_tpu_torch.{name}")

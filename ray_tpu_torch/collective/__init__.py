@@ -36,17 +36,22 @@ is "g", a sum in the forward whose backward is the identity, and
 cotangents over the axis: the input of work cut over the axis, which
 every rank holds whole.
 
-The KV-store host group of the JAX module (``init_collective_group``,
-``_HostGroup``, ...) needs the runtime and is not ported yet
-(ROADMAP.md §A).
+The host group (``init_collective_group``, ``_HostGroup``, ``allreduce``,
+``allgather``, ``broadcast``, ``barrier``, ``send``, ``recv``) is the
+reference's "host" backend: cross-process collectives outside the tensor
+plane over the runtime's KV store, for small host-side sync.  Its
+``allreduce`` of a tensor takes it to the host and returns a CPU tensor;
+``backend="c10d"`` names the in-program class, as ``"xla"`` does there.
 """
 
 from __future__ import annotations
 
 import contextlib
+import pickle
 import time
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 from torch.autograd.function import once_differentiable
@@ -475,5 +480,174 @@ class c10d:
                                concat_axis)
 
 
+# --------------------------------------------------------------------------
+# Host-level (cross-process) collectives over the driver KV store: the
+# reference's, definition by definition (``tests/test_torch_runtime_copy.py``).
+
+
+def _reduce_tensors(stack: torch.Tensor, op: str) -> torch.Tensor:
+    """``_HostGroup.allreduce``'s reduction over dim 0 of stacked CPU
+    tensors, numpy's semantics (an integer mean is a float64 one)."""
+    if op == "sum":
+        return stack.sum(0)
+    if op == "mean":
+        return (stack if stack.is_floating_point() else stack.double()
+                ).mean(0)
+    if op == "max":
+        return stack.amax(0)
+    if op == "min":
+        return stack.amin(0)
+    raise ValueError(f"unknown op {op}")
+
+
+class _HostGroup:
+    def __init__(self, name: str, world_size: int, rank: int):
+        self.name = name
+        self.world_size = world_size
+        self.rank = rank
+        self._seq = 0
+
+    # -- kv helpers ---------------------------------------------------------
+
+    def _kv(self):
+        from ray_tpu_torch.core.worker import global_worker
+
+        return global_worker()
+
+    def _put(self, key: str, value: Any):
+        self._kv().kv_put(key.encode(), pickle.dumps(value),
+                          namespace="collective")
+
+    def _del(self, key: str):
+        try:
+            self._kv().kv_del(key.encode(), namespace="collective")
+        except Exception:  # noqa: BLE001 — cleanup is best-effort
+            pass
+
+    def _gc_round(self, kind: str):
+        """Delete THIS rank's key from two rounds ago: every rank has
+        finished reading round seq-1 before any rank can enter seq+1 (the
+        gather blocks on all ranks' seq keys), so seq-2 keys are dead.
+        Without this, hot-path collectives (gradient allreduce per update)
+        accumulate world_size x payload in the KV forever."""
+        if self._seq > 2:
+            self._del(f"{self.name}/{kind}{self._seq - 2}/{self.rank}")
+
+    def _get(self, key: str, timeout: float = 120.0):
+        w = self._kv()
+        deadline = time.monotonic() + timeout
+        while True:
+            blob = w.kv_get(key.encode(), namespace="collective")
+            if blob is not None:
+                return pickle.loads(blob)
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"collective key {key} not posted")
+            time.sleep(0.002)
+
+    # -- ops ----------------------------------------------------------------
+
+    def barrier(self, timeout: float = 120.0):
+        self._seq += 1
+        self._gc_round("bar")
+        self._put(f"{self.name}/bar{self._seq}/{self.rank}", True)
+        for r in range(self.world_size):
+            self._get(f"{self.name}/bar{self._seq}/{r}", timeout)
+
+    def allgather_obj(self, obj: Any, timeout: float = 120.0) -> List[Any]:
+        self._seq += 1
+        self._gc_round("ag")
+        self._put(f"{self.name}/ag{self._seq}/{self.rank}", obj)
+        return [self._get(f"{self.name}/ag{self._seq}/{r}", timeout)
+                for r in range(self.world_size)]
+
+    def allreduce(self, arr, op: str = "sum", timeout: float = 120.0):
+        if isinstance(arr, torch.Tensor):
+            # a tensor on the card goes to the host, as np.asarray of a
+            # device array does in the reference: a CPU tensor comes back
+            parts = self.allgather_obj(arr.detach().cpu(), timeout)
+            return _reduce_tensors(torch.stack(parts), op)
+        parts = self.allgather_obj(np.asarray(arr), timeout)
+        stack = np.stack(parts)
+        if op == "sum":
+            return stack.sum(0)
+        if op == "mean":
+            return stack.mean(0)
+        if op == "max":
+            return stack.max(0)
+        if op == "min":
+            return stack.min(0)
+        raise ValueError(f"unknown op {op}")
+
+    def broadcast(self, arr, root: int = 0, timeout: float = 120.0):
+        # NOTE: no _gc_round here — broadcast doesn't block the root on
+        # readers, so an old key may still be in flight; bc keys are
+        # typically few (bootstrap-time) and small.
+        self._seq += 1
+        if self.rank == root:
+            self._put(f"{self.name}/bc{self._seq}", np.asarray(arr))
+            return np.asarray(arr)
+        return self._get(f"{self.name}/bc{self._seq}", timeout)
+
+    def send_obj(self, obj: Any, dst: int):
+        self._seq += 1
+        self._put(f"{self.name}/p2p{self._seq}/{self.rank}->{dst}", obj)
+
+    def recv_obj(self, src: int, timeout: float = 120.0):
+        self._seq += 1
+        return self._get(f"{self.name}/p2p{self._seq}/{src}->{self.rank}",
+                         timeout)
+
+
+_groups: Dict[str, _HostGroup] = {}
+
+
+def init_collective_group(world_size: int, rank: int,
+                          backend: str = "host",
+                          group_name: str = "default") -> _HostGroup:
+    """Create/join a named collective group (reference:
+    `collective.py:120` `init_collective_group`)."""
+    if backend not in ("host", "c10d"):
+        raise ValueError("backend must be 'host' or 'c10d'")
+    g = _HostGroup(group_name, world_size, rank)
+    _groups[group_name] = g
+    return g
+
+
+def get_group(group_name: str = "default") -> _HostGroup:
+    if group_name not in _groups:
+        raise ValueError(f"collective group {group_name!r} not initialized")
+    return _groups[group_name]
+
+
+def destroy_collective_group(group_name: str = "default"):
+    _groups.pop(group_name, None)
+
+
+def allreduce(tensor, group_name: str = "default", op: str = "sum"):
+    return get_group(group_name).allreduce(tensor, op)
+
+
+def allgather(obj, group_name: str = "default"):
+    return get_group(group_name).allgather_obj(obj)
+
+
+def broadcast(tensor, root: int = 0, group_name: str = "default"):
+    return get_group(group_name).broadcast(tensor, root)
+
+
+def barrier(group_name: str = "default"):
+    get_group(group_name).barrier()
+
+
+def send(obj, dst_rank: int, group_name: str = "default"):
+    get_group(group_name).send_obj(obj, dst_rank)
+
+
+def recv(src_rank: int, group_name: str = "default"):
+    return get_group(group_name).recv_obj(src_rank)
+
+
 __all__ = ["c10d", "exchange", "Hop", "axis_group", "timing", "CommTimes",
-           "SENT_BYTES"]
+           "SENT_BYTES", "init_collective_group", "get_group",
+           "destroy_collective_group", "allreduce", "allgather", "broadcast",
+           "barrier", "send", "recv"]

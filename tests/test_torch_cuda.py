@@ -10,8 +10,13 @@ fsdp train step; the MoE at pp = 2 x dp = 2 on four ranks, each routing its
 block of every global microbatch; one update of each RL learner (IMPALA
 with the Nature-CNN on a short rollout, PPO, DQN, SAC, BC) and an MNIST
 step against the port's CPU path; the runtime's serializer on card tensors,
-alone and nested in a GPU task's result that a CPU task reads; and a GPU
-Serve deployment of GPT-2 at ``GPT2_TINY`` widths.
+alone and nested in a GPU task's result that a CPU task reads; a GPU
+Serve deployment of GPT-2 at ``GPT2_TINY`` widths; a checkpoint of a
+``state_dict`` on the card, batches staged onto the card by
+``iter_torch_batches`` (and its default raising where the card is hidden),
+a ``TorchTrainer`` training GPT-2 at ``GPT2_TINY`` widths on the card, and
+a ``Cluster`` node given the card running a GPU task (and one that hides
+it failing).
 
 Marked ``cuda``: every test skips where there is no CUDA device.  On a
 machine with one (no JAX needed, hence ``--noconftest``):
@@ -1171,3 +1176,225 @@ def test_serve_gpu_deployment_of_gpt2_tiny(cuda, tmp_path):
     assert out["served"] == out["local"]
     assert out["forwards"] - out["before"][1] == 6
     assert out["launches"] == out["n_layer"] * 6 > 0
+
+
+def _run_card_driver(tmp_path, program, args=(), env=None, timeout=300):
+    """Run ``program`` as a driver under a session root of its own; its
+    ``RESULT`` line's JSON."""
+    import json
+    import os
+    import sys
+
+    from test_torch_runtime_parity import ROOT, run_driver
+
+    main = tmp_path / "main.py"
+    main.write_text(program)
+    env = dict(os.environ if env is None else env, PYTHONPATH=ROOT)
+    proc, stdout, stderr = run_driver([sys.executable, str(main), *args],
+                                      str(tmp_path), env, timeout=timeout)
+    assert proc.returncode == 0, stderr
+    line = [l for l in stdout.splitlines() if l.startswith("RESULT ")]
+    assert line, stdout + stderr
+    return json.loads(line[-1][len("RESULT "):])
+
+
+def test_air_checkpoint_takes_a_card_state_dict_to_host(cuda, tmp_path):
+    """(j): ``Checkpoint.from_dict`` of a ``state_dict`` on the card holds
+    CPU tensors of the same dtype (bf16 kept) and values; once the module
+    goes, the checkpoint keeps nothing on the card; the directory form
+    loads back into a CPU module."""
+    from ray_tpu_torch.air.checkpoint import Checkpoint
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    model = torch.nn.Linear(64, 32).to("cuda", torch.bfloat16)
+    sd = model.state_dict()
+    want = {k: v.cpu() for k, v in sd.items()}
+    ckpt = Checkpoint.from_dict({"model": sd, "step": 3,
+                                 "extra": [torch.ones(4, device="cuda")]})
+    state = ckpt.to_dict()
+    for k, v in state["model"].items():
+        assert v.device.type == "cpu" and v.dtype == torch.bfloat16
+        assert torch.equal(v.view(torch.int16), want[k].view(torch.int16))
+    assert state["extra"][0].device.type == "cpu" and state["step"] == 3
+    del model, sd
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() == before
+    back = Checkpoint.from_directory(ckpt.to_directory(str(tmp_path / "c")))
+    cpu = torch.nn.Linear(64, 32).to(torch.bfloat16)
+    cpu.load_state_dict(back.to_dict()["model"])
+    assert torch.equal(cpu.weight, want["weight"])
+
+
+DATA_ON_CARD = """
+import json
+import numpy as np
+import torch
+import ray_tpu_torch as rt
+from ray_tpu_torch import data
+from ray_tpu_torch.data import DataIterator
+
+rt.init(num_cpus=2)
+values = np.arange(40, dtype=np.float32).reshape(10, 4)
+ds = data.from_numpy(values, parallelism=2)
+it = list(DataIterator(ds).iter_torch_batches(batch_size=4, drop_last=False))
+default = list(ds.iter_torch_batches(batch_size=4))
+rt.shutdown()
+print("RESULT " + json.dumps({
+    "iterator": [str(b["value"].device) for b in it],
+    "dataset": [str(b["value"].device) for b in default],
+    "same": torch.equal(torch.cat([b["value"] for b in it]).cpu(),
+                        torch.from_numpy(values))
+    and torch.equal(torch.cat([b["value"] for b in default]).cpu(),
+                    torch.from_numpy(values))}))
+"""
+
+HIDDEN_CARD = """
+import json
+from ray_tpu_torch.data import DataIterator, Dataset
+
+errors = []
+for gen in (DataIterator(None).iter_torch_batches(),
+            Dataset.iter_torch_batches(None)):
+    try:
+        next(gen)
+        errors.append(None)
+    except RuntimeError as e:
+        errors.append(str(e))
+print("RESULT " + json.dumps(errors))
+"""
+
+
+def test_data_iter_torch_batches_on_card(cuda, tmp_path):
+    """(k): ``DataIterator.iter_torch_batches`` and
+    ``Dataset.iter_torch_batches`` stage batches onto the card by default,
+    with the dataset's values; where the card is hidden
+    (``CUDA_VISIBLE_DEVICES=""``) both defaults raise rather than fall back
+    to the CPU."""
+    import os
+
+    out = _run_card_driver(tmp_path, DATA_ON_CARD)
+    assert out["iterator"] == ["cuda:0"] * 3
+    assert out["dataset"] == ["cuda:0"] * 3
+    assert out["same"]
+    hidden = tmp_path / "hidden"
+    hidden.mkdir()
+    errors = _run_card_driver(hidden, HIDDEN_CARD, env=dict(
+        os.environ, CUDA_VISIBLE_DEVICES=""))
+    assert len(errors) == 2
+    assert all(e and "no CUDA device" in e for e in errors), errors
+
+
+TRAIN_ON_CARD = """
+import json
+import sys
+import torch  # init() counts the cards once torch is loaded
+import ray_tpu_torch as rt
+from ray_tpu_torch.train import RunConfig, ScalingConfig, TorchTrainer
+
+
+def steps(n):
+    from dataclasses import replace
+
+    import torch
+
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.train.torch import get_device
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = get_device() if rt.is_initialized() else torch.device("cuda")
+    cfg = gpt2.GPT2_TINY
+    params = gpt2.init_params(torch.Generator(device="cuda").manual_seed(0),
+                              cfg, device=device)
+    for leaf in gpt2.param_leaves(params):
+        leaf.requires_grad_(True)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 129),
+                           generator=torch.Generator().manual_seed(1))
+    step = gpt2.make_train_step(cfg, torch.optim.AdamW(
+        gpt2.param_leaves(params), lr=1e-3))
+    fa.KERNEL_LAUNCHES = fa.BWD_DQ_LAUNCHES = fa.BWD_DKV_LAUNCHES = 0
+    losses = [step(params, {"tokens": tokens.to(device)})["loss"].item()
+              for _ in range(n)]
+    return {"device": str(device), "losses": losses,
+            "launches": [fa.KERNEL_LAUNCHES, fa.BWD_DQ_LAUNCHES,
+                         fa.BWD_DKV_LAUNCHES]}
+
+
+def loop(config):
+    from ray_tpu_torch.train import session
+
+    session.report(steps(config["steps"]))
+
+
+rt.init(num_cpus=2)
+result = TorchTrainer(
+    loop, train_loop_config={"steps": 3},
+    scaling_config=ScalingConfig(num_workers=1, use_tpu=True),
+    run_config=RunConfig(name="card", storage_path=sys.argv[1])).fit()
+rt.shutdown()
+print("RESULT " + json.dumps({"worker": result.metrics, "driver": steps(3)}))
+"""
+
+
+def test_train_torch_trainer_gpt2_tiny_on_card(cuda, tmp_path):
+    """A one-worker ``TorchTrainer`` with ``use_tpu=True`` trains GPT-2 at
+    ``GPT2_TINY`` widths on the card (``get_device()``: the worker's card)
+    through the kernels, once per layer a step of each, and its losses
+    equal the driver's own run of the same steps on the card."""
+    out = _run_card_driver(tmp_path, TRAIN_ON_CARD,
+                           [str(tmp_path / "results")])
+    worker, driver = out["worker"], out["driver"]
+    assert worker["device"] == "cuda:0"
+    assert worker["launches"] == [2 * 3] * 3  # n_layer x steps
+    assert all(math.isfinite(x) for x in worker["losses"])
+    assert worker["losses"] == driver["losses"]
+
+
+CLUSTER_ON_CARD = """
+import json
+import os
+import ray_tpu_torch as rt
+from ray_tpu_torch.cluster_utils import Cluster
+
+
+def on_card():
+    import torch
+
+    x = torch.arange(1 << 20, device="cuda", dtype=torch.float32)
+    return [torch.cuda.get_device_name(0), float(x.sum()),
+            os.environ.get("CUDA_VISIBLE_DEVICES")]
+
+
+out = {}
+for label, env in (("named", {"CUDA_VISIBLE_DEVICES": "0"}), ("hidden", {})):
+    c = Cluster(initialize_head=True, head_resources={"num_cpus": 1},
+                env=env)
+    try:
+        c.add_node(num_cpus=1, num_tpus=1)
+        c.wait_for_nodes(2)
+        c.connect()
+        try:
+            out[label] = rt.get(rt.remote(num_gpus=1)(on_card).remote(),
+                                timeout=120)
+        except Exception as e:  # noqa: BLE001
+            out[label] = ["raised", type(e).__name__, str(e)[:300]]
+        out[label + "_resources"] = rt.cluster_resources().get("TPU")
+    finally:
+        c.shutdown()
+print("RESULT " + json.dumps(out))
+"""
+
+
+def test_cluster_node_with_the_card_runs_a_gpu_task(cuda, tmp_path):
+    """A ``Cluster`` node added with ``num_tpus=1`` runs a GPU task on the
+    card where the cluster's ``env`` names it; where it does not, the
+    cluster's processes keep ``CUDA_VISIBLE_DEVICES=""`` (hunk (e)) and the
+    same task fails loudly instead of running on the CPU."""
+    out = _run_card_driver(tmp_path, CLUSTER_ON_CARD)
+    name, total, visible = out["named"]
+    assert name == torch.cuda.get_device_name(0) and visible == "0"
+    assert total == float(sum(range(1 << 20)))
+    assert out["named_resources"] == out["hidden_resources"] == 1.0
+    assert out["hidden"][0] == "raised", out["hidden"]
+

@@ -53,7 +53,8 @@ def test_all_names_every_subpackage():
     """``ray_tpu_torch.__all__`` lists each public sub-package beside the
     runtime's API, and the walk that the blocked import takes reaches every
     module (the RL learners, the MNIST model, the runtime, the vendored
-    cloudpickle and the native build included)."""
+    cloudpickle, the native build, ``cluster_utils``, ``air``, ``data``
+    and ``train`` included)."""
     import ray_tpu_torch
 
     pkg = os.path.join(ROOT, "ray_tpu_torch")
@@ -69,7 +70,10 @@ def test_all_names_every_subpackage():
             "ray_tpu_torch.core.raylet", "ray_tpu_torch.core.worker_main",
             "ray_tpu_torch.util.chaos", "ray_tpu_torch.native.build",
             "ray_tpu_torch._vendor.cloudpickle",
-            "ray_tpu_torch._vendor.cloudpickle.cloudpickle"} <= set(
+            "ray_tpu_torch._vendor.cloudpickle.cloudpickle",
+            "ray_tpu_torch.cluster_utils", "ray_tpu_torch.air.checkpoint",
+            "ray_tpu_torch.data.iterator", "ray_tpu_torch.train.torch",
+            "ray_tpu_torch.train.sklearn"} <= set(
                 _port_modules())
 
 
@@ -195,3 +199,67 @@ def test_serve_app_runs_with_jax_and_ray_tpu_blocked(tmp_path):
             "ray_tpu_torch.serve.multiplex", "ray_tpu_torch.serve.router")
     assert lines[2].startswith("driver [] ") and all(
         repr(m) in lines[2] for m in mods), stdout
+
+
+CLUSTER_TRAIN = """
+import os, sys
+for m in FORBIDDEN:
+    sys.modules[m] = None
+import ray_tpu_torch as rt
+from ray_tpu_torch.cluster_utils import Cluster
+from ray_tpu_torch.train import RunConfig, ScalingConfig, TorchTrainer
+
+
+def loaded():
+    return sorted(m for m in FORBIDDEN if sys.modules.get(m) is not None)
+
+
+c = Cluster(initialize_head=True, head_resources={"num_cpus": 2})
+try:
+    c.add_node(num_cpus=1, resources={"other": 1})
+    c.wait_for_nodes(2)
+    c.connect()
+
+    @rt.remote(resources={"other": 1})
+    def there():
+        return [os.environ["RAY_TPU_NODE_ID"], loaded()]
+
+    node, mods = rt.get(there.remote(), timeout=60)
+    print("node", node == c.nodes[1].node_id, mods)
+
+    def loop(config):
+        from ray_tpu_torch.train import session
+        from ray_tpu_torch.train.torch import get_device
+
+        session.report({"x": config["x"] * 2, "device": get_device().type,
+                        "loaded": loaded()})
+
+    result = TorchTrainer(
+        loop, train_loop_config={"x": 21},
+        scaling_config=ScalingConfig(num_workers=1),
+        run_config=RunConfig(name="iso", storage_path=sys.argv[1])).fit()
+    print("fit", result.metrics)
+    print("driver", loaded())
+finally:
+    c.shutdown()
+"""
+
+
+def test_cluster_and_trainer_run_with_jax_and_ray_tpu_blocked(tmp_path):
+    """A two-node port ``Cluster`` (a GCS and two raylets as processes)
+    runs a task on its second node, and a one-worker ``TorchTrainer.fit``
+    on the CPU reports through it, in a driver where jax, jaxlib, ray_tpu
+    and the installed cloudpickle cannot be imported; neither the workers
+    nor the driver loaded any of them."""
+    main = tmp_path / "main.py"
+    main.write_text(f"FORBIDDEN = {FORBIDDEN!r}\n" + CLUSTER_TRAIN)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = ROOT
+    proc, stdout, stderr = run_driver(
+        [sys.executable, str(main), str(tmp_path / "results")],
+        str(tmp_path), env)
+    assert proc.returncode == 0, stderr
+    assert stdout.splitlines() == [
+        "node True []",
+        "fit {'x': 42, 'device': 'cpu', 'loaded': []}",
+        "driver []"], stdout

@@ -6,8 +6,11 @@ turnover EWMA is under ``direct_lease_turnover_ms``, its oldest call in
 flight has been out for less than that, and the call's function has
 completed a direct call on that lease shape before.  Otherwise it goes to
 the raylet, which spreads it over the pool.  The unit tests drive the gate
-with a stub channel; the cluster test shows that a fan-out of no-op tasks
-is still pipelined, read from the channels' own pending tables.
+with a stub channel under a held clock (``frozen_clock``: ``direct`` and
+the stub read one instant, so a call's age is exactly the one a test
+gives it, however long the host takes between two statements); the
+cluster test shows that a fan-out of no-op tasks is still pipelined, read
+from the channels' own pending tables, on the real clock.
 """
 
 import os
@@ -32,7 +35,7 @@ class _StubChannel:
     of it."""
 
     def __init__(self, ewma, ages, task_ids=None):
-        now = time.time()
+        now = direct.time.time()
         self.key = KEY
         self.alive = True
         self.turnover_ewma = ewma
@@ -53,7 +56,7 @@ class _StubChannel:
     def submit(self, spec, ctx):
         self.submitted.append(spec.task_id)
         self.pending[spec.task_id] = direct._Pending(spec, ctx)
-        self.pending[spec.task_id].t_sent = time.time()
+        self.pending[spec.task_id].t_sent = direct.time.time()
         return True
 
 
@@ -84,6 +87,31 @@ def _state(fast=()):
 
 
 LIMIT_S = config.direct_lease_turnover_ms / 1000.0
+
+
+class _FrozenClock:
+    """The ``time`` module as ``direct`` sees it, with ``time()`` held at
+    one instant."""
+
+    def __init__(self):
+        self.now = time.time()
+
+    def time(self):
+        return self.now
+
+    def __getattr__(self, name):
+        return getattr(time, name)
+
+
+@pytest.fixture(autouse=True)
+def frozen_clock(request, monkeypatch):
+    """Every stub-channel test runs on a held clock; the cluster test
+    (``port_cluster``) on the real one."""
+    if "port_cluster" in request.fixturenames:
+        return None
+    clock = _FrozenClock()
+    monkeypatch.setattr(direct, "time", clock)
+    return clock
 
 
 def test_threshold_is_the_config_default():
@@ -139,7 +167,7 @@ def test_unproven_function_is_relayed_until_its_probe_completes():
     assert ch.polls == 1
     ch.pending.pop(first.task_id)              # the probe resolved
     ch.pending[TaskID.from_random()] = direct._Pending(_spec(), None)
-    next(iter(ch.pending.values())).t_sent = time.time()
+    next(iter(ch.pending.values())).t_sent = direct.time.time()
     assert client._submit_task(_spec())        # pipelined behind others
     assert st["probes"] == {FN: None}          # proven
 

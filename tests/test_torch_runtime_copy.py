@@ -37,8 +37,53 @@ there.  The hunks:
     ``tests/test_torch_runtime_core.py``'s ``test_wait`` and
     ``test_parallelism``.
 
+(j) ``air/checkpoint.py``'s ``_to_host``: the reference maps JAX arrays to
+    numpy through ``jax.tree.map``; the port walks dicts (a ``state_dict``
+    too, its ``_metadata`` kept), lists and tuples and copies every tensor
+    to a CPU tensor of the same dtype (bf16 stays bf16, as hunk (c) keeps
+    it in the serializer), so a checkpoint never pins card memory and is
+    the state when it was made: a CPU tensor is copied too, since a loop
+    updates its own in place (AdamW's step counters) while the reported
+    checkpoint ships (ROADMAP §C, C4); numpy arrays pass unchanged;
+(k) ``data/``: ``DataIterator.iter_jax_batches`` becomes
+    ``iter_torch_batches(..., device="cuda")``, which stages each batch
+    onto the card from pinned host memory with ``non_blocking``, onto the
+    CPU only where the caller passes ``device="cpu"``, and raises where no
+    card is present; ``Dataset.iter_torch_batches``'s default device
+    becomes the card the same way;
+(l) Train: ``TorchTrainer`` takes ``JaxTrainer``'s role.  ``train/torch.py``'s
+    ``TorchConfig`` backend joins the workers to one process group through
+    ``parallel.mesh.init_process_group``, over nccl where every worker holds
+    a card of its own and gloo where workers share one card
+    (``{"TPU": 0.5}``) or hold none (a backend given explicitly is
+    honoured), at the node's address (``RAY_TPU_NODE_IP``) or loopback;
+    ``get_device()`` is the worker's card where it holds a chip (the
+    runtime's chip profile; a chip without a visible card raises) and the
+    CPU where it holds none; ``prepare_model`` wraps DDP on that device.
+    ``backend.py``, ``trainer.py`` and ``__init__.py`` keep
+    ``DataParallelTrainer``, ``Backend``, ``BackendConfig`` and
+    ``_find_free_port`` and drop ``JaxTrainer``, ``JaxConfig`` and
+    ``JaxBackend`` (nothing is exported under a JAX name);
+    ``backend_executor.py`` asks any backend config for its
+    ``worker_env``; ``fit`` raises ``ValueError`` on
+    ``ScalingConfig.devices_per_worker`` (XLA's virtual devices have no
+    counterpart: a rank is one process), whose docstring says so;
+(m) the host collectives (``collective/__init__.py``, held definition by
+    definition): ``_HostGroup.allreduce`` of a tensor takes it to the host,
+    as ``np.asarray`` of a device array does in the reference, and returns
+    a CPU tensor; ``init_collective_group`` accepts ``"c10d"``, the port's
+    in-program class, where the reference accepts ``"xla"``.
+
+Hunk (a) is also listed where a name of the reference begins with
+``ray_tpu_`` and so escapes the rename's word boundary: ``RunConfig``'s
+default storage ``~/ray_tpu_results`` becomes ``~/ray_tpu_torch_results``.
+
 ``serve/`` is the reference's ``serve/`` (controller, router, HTTP proxy,
 replica, batching, multiplexing, telemetry) with hunk (b) alone.
+``cluster_utils.py`` is the reference's with hunks (e), the cluster's
+processes kept off the card by ``CUDA_VISIBLE_DEVICES=""`` unless the
+caller's environment names it, and (g).  ``air/``, ``data/`` and ``train/``
+are the reference's with hunks (j), (k), (l) and (b) (``train/sklearn.py``).
 
 ``ray_tpu_torch/__init__.py`` carries ``ray_tpu/__init__.py``'s API and
 ``ray_tpu_torch/native/build.py`` ``ray_tpu/native/build.py``'s host build
@@ -65,9 +110,13 @@ UTIL = [f"util/{m}.py" for m in (
     "trace_analysis")]
 SERVE = sorted(f"serve/{f}" for f in os.listdir(os.path.join(REF, "serve"))
                if f.endswith(".py"))
-COPIED = CORE + UTIL + SERVE + ["runtime_context.py", "dag.py",
-                                "native/src/object_store.cc",
-                                "native/src/frame_codec.cc"]
+TRAIN = [f"{sub}/{f}" for sub in ("air", "data", "train")
+         for f in sorted(os.listdir(os.path.join(REF, sub)))
+         if f.endswith(".py")]
+COPIED = CORE + UTIL + SERVE + TRAIN + ["runtime_context.py", "dag.py",
+                                        "cluster_utils.py",
+                                        "native/src/object_store.cc",
+                                        "native/src/frame_codec.cc"]
 
 # path -> [(hunk, first reference line, last reference line)]; an insertion
 # after reference line n is at (n, n)
@@ -87,10 +136,25 @@ HUNKS = {
     "util/chaos.py": [("g", 470, 470)],
     "serve/__init__.py": [("b", 22, 22)],
     "serve/replica.py": [("b", 30, 30)],
+    "cluster_utils.py": [("e", 54, 54), ("e", 68, 70), ("g", 234, 234)],
+    "air/checkpoint.py": [("j", 4, 7), ("j", 21, 32)],
+    "air/config.py": [("l", 22, 26), ("l", 35, 35), ("a", 81, 81),
+                      ("a", 86, 86)],
+    "data/dataset.py": [("k", 673, 681), ("k", 695, 695)],
+    "data/iterator.py": [("k", 5, 7), ("k", 12, 12), ("k", 32, 47)],
+    "train/__init__.py": [("l", 6, 10), ("l", 21, 21), ("l", 34, 34),
+                          ("l", 43, 44)],
+    "train/backend.py": [("l", 8, 17), ("l", 23, 24), ("l", 51, 175)],
+    "train/backend_executor.py": [("l", 22, 22), ("l", 60, 61)],
+    "train/sklearn.py": [("b", 41, 41), ("b", 82, 82)],
+    "train/torch.py": [("l", 9, 123)],
+    "train/trainer.py": [("l", 1, 1), ("l", 22, 22), ("l", 36, 39),
+                         ("l", 117, 120), ("l", 218, 228)],
 }
 
 # hunks whose new lines are the reference's under one textual substitution
 SUBSTITUTE = {
+    "a": ("ray_tpu_results", "ray_tpu_torch_results"),
     "b": ("import cloudpickle", "from ray_tpu_torch._vendor import cloudpickle"),
     "g": ("rt_store", "rtt_store"),
 }
@@ -134,21 +198,23 @@ def _check_hunks(ref_lines, port_lines, hunks, first_line=1):
 @pytest.mark.parametrize("path", COPIED)
 def test_copy_differs_only_in_listed_hunks(path):
     hunks = HUNKS.get(path, [])
-    assert {h[0] for h in hunks} <= set("bcdeghi")
+    assert {h[0] for h in hunks} <= set("abcdeghijkl")
     _check_hunks(_renamed(path).splitlines(), _read(path).splitlines(),
                  hunks)
 
 
 def test_copy_list_is_whole():
-    """Every module of the reference's core and serve is copied, and the
-    port's core, util and serve hold nothing that is not a copy."""
-    for sub in ("core", "util", "serve"):
+    """Every module of the reference's core, serve, air, data and train is
+    copied, and the port's core, util, serve, air, data and train hold
+    nothing that is not a copy."""
+    for sub in ("core", "util", "serve", "air", "data", "train"):
         port = {f"{sub}/{f}" for f in os.listdir(os.path.join(PORT, sub))
                 if f.endswith(".py")}
         assert port == {p for p in COPIED if p.startswith(sub + "/")}
     assert set(CORE) == {f"core/{f}" for f in os.listdir(
         os.path.join(REF, "core")) if f.endswith(".py")}
     assert len(SERVE) == 8
+    assert len(TRAIN) == 5 + 6 + 8
     assert set(HUNKS) <= set(COPIED)
 
 
@@ -186,6 +252,50 @@ def test_host_build_is_the_reference(name):
     first, ref_lines = ref[name]
     _check_hunks(ref_lines, port[name][1], HOST_BUILD_HUNKS.get(name, []),
                  first_line=first)
+
+
+HOST_COLLECTIVES = ("_HostGroup", "_groups", "init_collective_group",
+                    "get_group", "destroy_collective_group", "allreduce",
+                    "allgather", "broadcast", "barrier", "send", "recv")
+# (m): a tensor's allreduce on the host; the in-program backend's name
+HOST_COLLECTIVE_HUNKS = {"_HostGroup": [("m", 152, 152)],
+                         "init_collective_group": [("m", 193, 194)]}
+
+
+@pytest.mark.parametrize("name", HOST_COLLECTIVES)
+def test_host_collectives_are_the_reference(name):
+    """``ray_tpu_torch/collective/__init__.py`` holds the reference's host
+    group beside ``c10d``, each definition as it stands there but for
+    hunk (m)."""
+    ref = _definitions(_renamed("collective/__init__.py"))
+    port = _definitions(_read("collective/__init__.py"))
+    first, ref_lines = ref[name]
+    _check_hunks(ref_lines, port[name][1],
+                 HOST_COLLECTIVE_HUNKS.get(name, []), first_line=first)
+
+
+def test_host_allreduce_of_a_tensor():
+    """(m): a tensor's allreduce returns a CPU tensor of the reduction, a
+    numpy array's a numpy array, as in the reference; ``"xla"`` is not a
+    backend of the port."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch import collective as col
+
+    group = col._HostGroup("solo", 1, 0)
+    group.allgather_obj = lambda obj, timeout=120.0: [obj, obj + 1]
+    x = torch.arange(3, dtype=torch.bfloat16)
+    out = group.allreduce(x)
+    assert out.dtype == torch.bfloat16 and out.device.type == "cpu"
+    assert out.tolist() == [1.0, 3.0, 5.0]
+    assert group.allreduce(torch.arange(3), op="mean").tolist() == [
+        0.5, 1.5, 2.5]
+    assert group.allreduce(x, op="max").tolist() == [1.0, 2.0, 3.0]
+    assert group.allreduce(x, op="min").tolist() == [0.0, 1.0, 2.0]
+    assert isinstance(group.allreduce(np.arange(3.0)), np.ndarray)
+    with pytest.raises(ValueError):
+        col.init_collective_group(1, 0, backend="xla")
 
 
 def test_api_is_the_reference():

@@ -30,6 +30,8 @@ import subprocess
 import sys
 import time
 
+import numpy as np
+
 from ray_tpu_torch.session_root import new_session_root
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -56,37 +58,71 @@ print("RESULT " + json.dumps(OUT, sort_keys=True))
 """
 
 
-def port_leftovers(driver_pids):
+def _pid_alive(pid):
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return False
+    except PermissionError:
+        return True
+    return True
+
+
+def port_leftovers(driver_pids, roots=(), since=None):
     """The port's runtime processes and store segments of the drivers with
-    these pids.  A worker names its driver in its session directory
-    (``session_<time>_<pid>_<hex>``, in ``RAY_TPU_SESSION_DIR``), a segment
-    in its name (``rtt_store_<pid>_<hex>``)."""
+    these pids, and of the clusters started under these session roots.
+    A worker of a driver's own node names its driver in its session
+    directory (``session_<time>_<pid>_<hex>``, in ``RAY_TPU_SESSION_DIR``),
+    a segment its owner in its name (``rtt_store_<pid>_<hex>``).  The GCS,
+    raylets and workers of a ``Cluster`` carry the root they were started
+    under in ``RAY_TPU_TEMP_DIR`` (a worker's session directory lies under
+    it too); a killed raylet's segment names a pid that no longer runs,
+    so with ``since`` (a ``time.time()``) a segment made since then whose
+    owner is gone counts as well.  Only the port's modules and ``rtt_store``
+    segments are looked at: the JAX package's never count."""
     from ray_tpu_torch.util import chaos
 
     mine = {str(p) for p in driver_pids}
+    roots = tuple(os.path.realpath(r) for r in roots)
     procs = []
     for pid, module in chaos._runtime_pids().items():
         try:
             with open(f"/proc/{pid}/environ", "rb") as f:
-                env = f.read().split(b"\0")
+                env = dict(var.decode(errors="replace").split("=", 1)
+                           for var in f.read().split(b"\0") if b"=" in var)
         except OSError:  # exited since
             continue
-        for var in env:
-            if var.startswith(b"RAY_TPU_SESSION_DIR="):
-                parts = os.path.basename(var.decode()).split("_")
-                if parts[2:3] and parts[2] in mine:
-                    procs.append(f"pid {pid} ({module})")
-    segments = [s for s in chaos._shm_segments()
-                if s.split("_")[2:3] and s.split("_")[2] in mine]
+        session = env.get("RAY_TPU_SESSION_DIR", "")
+        parts = os.path.basename(session).split("_")
+        under = [os.path.realpath(p) for p in (
+            env.get("RAY_TPU_TEMP_DIR"), os.path.dirname(session)) if p]
+        if (parts[0] == "session" and parts[2:3] and parts[2] in mine) or \
+                any(u in roots for u in under):
+            procs.append(f"pid {pid} ({module})")
+    segments = []
+    for seg in chaos._shm_segments():
+        owner = seg.split("_")[2:3]
+        if not owner or not owner[0].isdigit():
+            continue
+        if owner[0] in mine:
+            segments.append(seg)
+        elif since is not None and not _pid_alive(int(owner[0])):
+            try:
+                made = os.stat(os.path.join("/dev/shm", seg)).st_ctime
+            except OSError:  # reaped since
+                continue
+            if made >= since:
+                segments.append(seg)
     return procs + segments
 
 
-def assert_port_left_nothing(driver_pids, grace_s=15.0):
+def assert_port_left_nothing(driver_pids, grace_s=15.0, roots=(),
+                             since=None):
     """Teardown is asynchronous: poll up to ``grace_s`` for the drivers'
-    processes and segments to go."""
+    and the roots' processes and segments to go."""
     deadline = time.monotonic() + grace_s
     while True:
-        left = port_leftovers(driver_pids)
+        left = port_leftovers(driver_pids, roots, since)
         if not left:
             return
         assert time.monotonic() < deadline, f"left after shutdown: {left}"
@@ -98,6 +134,7 @@ def run_driver(args, cwd, env, timeout=120):
     it exits: (proc, stdout, stderr), its port processes and segments held
     to the leak audit."""
     root = new_session_root()
+    since = time.time()
     try:
         proc = subprocess.Popen(
             args, cwd=cwd, env=dict(env, RAY_TPU_TEMP_DIR=root),
@@ -107,7 +144,7 @@ def run_driver(args, cwd, env, timeout=120):
         except subprocess.TimeoutExpired:
             proc.kill()
             stdout, stderr = proc.communicate()
-        assert_port_left_nothing([proc.pid])
+        assert_port_left_nothing([proc.pid], roots=(root,), since=since)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return proc, stdout, stderr
@@ -754,3 +791,154 @@ def test_serve(tmp_path):
         "stream_handle": [{"i": i, "sq": i * i} for i in range(3)],
         "status_after": {},
     }, timeout=300)
+
+
+TRAIN_MNIST = """
+import numpy as np
+
+PKG = sys.argv[1]
+train = importlib.import_module(PKG + ".train")
+rt.init(num_cpus=4)
+STEPS, WORKERS, B = 3, 2, 16
+
+
+def he(rng, shape, fan_in):
+    return (rng.standard_normal(shape) * (2.0 / fan_in) ** 0.5).astype(
+        np.float32)
+
+
+rng = np.random.default_rng(0)
+# JAX's layout (HWIO conv kernels); the port carries it across with
+# models/mnist.py's params_from_numpy
+PARAMS = {
+    "conv1": {"kernel": he(rng, (3, 3, 1, 32), 9),
+              "bias": np.zeros(32, np.float32)},
+    "conv2": {"kernel": he(rng, (3, 3, 32, 64), 9 * 32),
+              "bias": np.zeros(64, np.float32)},
+    "fc1": {"kernel": he(rng, (7 * 7 * 64, 128), 7 * 7 * 64),
+            "bias": np.zeros(128, np.float32)},
+    "fc2": {"kernel": he(rng, (128, 10), 128),
+            "bias": np.zeros(10, np.float32)},
+}
+
+
+def batch_of(step, rank):
+    r = np.random.default_rng(1000 * step + rank)
+    labels = r.integers(0, 10, B).astype(np.int32)
+    ramp = np.linspace(0, 1, 784, dtype=np.float32).reshape(28, 28, 1)
+    image = (r.standard_normal((B, 28, 28, 1)).astype(np.float32) * 0.1
+             + (labels[:, None, None, None] / 10.0).astype(np.float32)
+             * ramp[None])
+    return {"image": image.astype(np.float32), "label": labels}
+
+
+def loop(config):
+    import importlib
+
+    pkg = config["pkg"]
+    session = importlib.import_module(pkg + ".train.session")
+    col = importlib.import_module(pkg + ".collective")
+    ctx = session.get_context()
+    col.init_collective_group(ctx.world_size, ctx.world_rank,
+                              group_name="mnist")
+
+    def mean(x):
+        return col.allreduce(x, group_name="mnist", op="mean")
+
+    if pkg == "ray_tpu_torch":
+        import torch
+
+        from ray_tpu_torch.models import mnist
+        from ray_tpu_torch.rllib import optim
+
+        params = mnist.params_from_numpy(config["params"], device="cpu")
+        opt = optim.adam(params, 1e-3)
+        for step in range(config["steps"]):
+            batch = {k: torch.from_numpy(v) for k, v in
+                     batch_of(step, ctx.world_rank).items()}
+            loss, _ = mnist.loss_fn(params, batch)
+            grads = optim.tree_map(mean, optim.grads_of(loss, params))
+            optim.apply_gradients(opt, params, grads)
+            session.report({"step": step + 1,
+                            "loss": float(mean(loss.detach()))})
+    else:
+        import jax
+        import jax.numpy as jnp
+        import optax
+
+        from ray_tpu.models import mnist
+
+        params = jax.tree.map(jnp.asarray, config["params"])
+        opt = optax.adam(1e-3)
+        state = opt.init(params)
+        for step in range(config["steps"]):
+            batch = batch_of(step, ctx.world_rank)
+            (loss, _), grads = jax.value_and_grad(
+                mnist.loss_fn, has_aux=True)(params, batch)
+            grads = jax.tree.map(lambda g: jnp.asarray(mean(np.asarray(g))),
+                                 grads)
+            updates, state = opt.update(grads, state, params)
+            params = optax.apply_updates(params, updates)
+            session.report({"step": step + 1,
+                            "loss": float(mean(np.asarray(loss)))})
+
+
+result = train.DataParallelTrainer(
+    loop, train_loop_config={"pkg": PKG, "params": PARAMS, "steps": STEPS},
+    scaling_config=train.ScalingConfig(num_workers=WORKERS),
+    run_config=train.RunConfig(name="mnist", storage_path=os.path.join(
+        os.environ["RAY_TPU_TEMP_DIR"], "results"))).fit()
+OUT["error"] = result.error
+OUT["steps"] = [m["step"] for m in result.metrics_history]
+# exact, as hex floats (13 hex digits: not taken for an id by _normalize)
+OUT["losses"] = [float(m["loss"]).hex() for m in result.metrics_history]
+"""
+
+# f32 on both sides: XLA's and torch's CPU convolutions and reductions sum
+# in other orders; after 3 Adam steps the losses differ by up to ~6e-6
+MNIST_LOSS_ATOL = 1e-4
+
+
+def test_train_mnist(tmp_path):
+    """One Train program through both packages: ``DataParallelTrainer``
+    over 2 CPU workers runs the MNIST loop (JAX with optax's Adam in the
+    reference, ``models/mnist.py`` with the port's Adam here) from the same
+    numpy parameters on the same per-rank batches for 3 steps, its
+    gradients averaged over the workers with the host collectives
+    (``collective.allreduce``, op mean, both packages).  Each step's loss,
+    averaged over the workers, is held to JAX's within
+    ``MNIST_LOSS_ATOL``."""
+    out = run_both(tmp_path, "import os\n" + TRAIN_MNIST, timeout=300)
+    ref, port = out["ray_tpu"], out["ray_tpu_torch"]
+    assert ref["error"] is None and port["error"] is None
+    assert ref["steps"] == port["steps"] == [1, 2, 3]
+    ref_losses = [float.fromhex(x) for x in ref["losses"]]
+    np.testing.assert_allclose([float.fromhex(x) for x in port["losses"]],
+                               ref_losses, rtol=0, atol=MNIST_LOSS_ATOL)
+    assert ref_losses[-1] < ref_losses[0]
+
+
+DATA = """
+import numpy as np
+
+data = importlib.import_module(sys.argv[1] + ".data")
+rt.init(num_cpus=4)
+ds = data.range(64, parallelism=4).map_batches(
+    lambda b: {"id": b["id"], "x": (b["id"] * 0.5).astype(np.float64)})
+scaled = data.StandardScaler(["x"]).fit_transform(ds)
+shards = scaled.streaming_split(2)
+rows = [(int(r["id"]), float(r["x"]).hex()) for sh in shards
+        for r in sh.iter_rows()]
+OUT["rows"] = sorted(rows)
+OUT["count"] = len(rows)
+"""
+
+
+def test_data_pipeline(tmp_path):
+    """One ``Dataset`` pipeline through both packages — ``map_batches``,
+    a fitted ``StandardScaler`` and a streaming split into 2 shards — gives
+    the same rows (the shards' union; which shard takes a block depends on
+    timing), each value bit for bit (hex floats)."""
+    out = check_same(tmp_path, DATA, {"count": 64})
+    ids = [r[0] for r in out["rows"]]
+    assert ids == list(range(64))
