@@ -264,17 +264,49 @@ Phases; any failure exits non-zero:
    for 3 steps: the ranks' parameters bit-equal and the losses within
    ``TRAIN_LOSS_TOL`` of one worker's at B = 16; the worker's ms a step
    and peak memory printed beside phase 4's; after ``shutdown()`` nothing
-   may remain, no results outside the temp dir included.
+   may remain, no results outside the temp dir included;
+19. tune — Tune on the port's runtime (``ray_tpu_torch.tune``), in one
+   ``init()`` with phase 20 under a session root of its own: a ``Tuner``
+   sweeps a function trainable (``tune_trial``: phase 4's GPT-2 124M setup,
+   seed and batch, B=16, S=1024, bf16 flash, AdamW) over a
+   ``grid_search`` of 3 learning rates, phase 4's among them, each trial in an
+   actor holding the card (``resources_per_trial={"CPU": 1, "TPU": 1}``,
+   so one at a time) under ``ASHAScheduler(metric="loss", mode="min",
+   max_t=4, grace_period=2, reduction_factor=2)``: the trial at phase 4's
+   rate reports phase 4's losses bit for bit, each trial launched
+   ``n_layer`` x its steps of each kernel, ASHA stopped at least one trial
+   at its grace rung, ``get_best_result()`` is the lowest final loss of
+   the trials that ran to ``max_t``, no trial errored; each trial's
+   seconds to its first report and median ms a step (CUDA events) beside
+   phase 4's; then ``Tuner(TorchTrainer(train_run_loop, ...))`` through
+   ``as_trainable``, one worker on the card, one trial of 2 steps: its
+   loss phase 4's step-2 loss bit for bit, 2 x ``n_layer`` launches of
+   each kernel in the worker;
+20. rllib — IMPALA's ``Algorithm`` in a Tune trial (``SmokeImpala``, a
+   subclass of the port's ``Impala``, ``resources_per_trial={"CPU": 1,
+   "TPU": 1}``, ``stop={"training_iteration": 3}``), its Nature-CNN
+   learner on the card at phase 14's widths (T=64 x B=32 frames of
+   84x84x4, 6 actions, RMSprop at eps 0.1), one rollout actor
+   (``SmokeRunner``: ``EnvRunner.sample()``'s dict drawn from a numpy
+   generator by call index, since the card's machine has no
+   ``gymnasium``): every metric finite, ``num_env_steps_sampled`` = 3 x T
+   x B, the trial's final weights from its checkpoint against the port's
+   CPU learner replayed from the same initial weights over the same
+   rollouts (phase 14's tolerances), the first update's metrics too, the
+   flash kernels' launch counts unmoved; ms per iteration, the update's
+   ms (CUDA events) and frames/s beside phase 14's update; after
+   ``shutdown()`` nothing may remain, as in phase 18.
 
-The timed runs of phases 8-12 on four ranks, and the MoE's in phases
-10-13 on two or four ranks, train ``FOUR_RANK_DEPTH`` (4) layers of GPT-2
-124M's widths (or its MoE's): ring sp = 4, pp = 4 and dp x pp, dp x tp,
-tp x sp and pp x tp, dp x fsdp, fsdp x tp and pp x fsdp; the MoE at tp =
-2, ep = 2, dp = 2, ring sp = 2, fsdp = 2, dp x ep, ep x tp, pp x ep, pp x
-dp and pp x fsdp.  Their batches, sequences, widths and timed steps are as
-written above, and every check keeps its depth (the 12-layer checks' first
-four layers drop few choices or none at ``--seed`` 0: at 4 layers the
-drop gates would hold little).  Phases 8-13
+Every timed run of phases 8-13 over two or four ranks trains
+``FOUR_RANK_DEPTH`` (4) layers of GPT-2 124M's widths (or its MoE's),
+GPT-2 XL at fsdp = 2 its 48 (its memory gate holds the whole model): ring
+and Ulysses sp = 2, ring sp = 4, pp = 2 and 4, dp x pp, tp = 2, dp x tp,
+tp x sp, pp x tp, fsdp = 2, dp x fsdp, fsdp x tp and pp x fsdp; the MoE
+at pp = 2, tp = 2, ep = 2, dp = 2, ring sp = 2, fsdp = 2, dp x ep, ep x
+tp, pp x ep, pp x dp and pp x fsdp.  Their batches, sequences, widths and
+timed steps are as written above, and every check keeps its depth (the
+12-layer checks' first four layers drop few choices or none at
+``--seed`` 0: at 4 layers the drop gates would hold little).  Phases 8-13
 share one pool of 2 ranks and one of 4 (``CardPool``), started once
 ("8-13 ranks up"); each rank releases its cached device memory after
 every task.  Each phase's seconds are printed after it.
@@ -282,7 +314,8 @@ every task.  Each phase's seconds are printed after it.
 The forward kernel's launches are listed by path, the runtime's actor
 (``runtime_actor``) and the Serve replicas (``serve_run_gpt2``,
 ``serve_run_llama``) among them; each kernel's also the Train workers'
-(``train_run``, ``train_run_resumed``, ``train_run_dp2``).  The last two lines are a JSON object of
+(``train_run``, ``train_run_resumed``, ``train_run_dp2``) and Tune's
+(``tune_trials``, summed over the trials, and ``tune_trainer``).  The last two lines are a JSON object of
 per-kernel numbers and the result line ``{"ok": true, "device":
 {...}}``.  ``--profile`` adds ``torch.profiler`` tables of device time
 by kernel for a forward at S=1024, a train step, a Llama forward at
@@ -1774,16 +1807,13 @@ def phase_xl(seed, profile):
 # phase 8: sequence parallelism
 # ---------------------------------------------------------------------------
 
-#: n_layer of phases 8-12's timed runs on four ranks (the two-rank runs,
-#: the checks and phase 13 keep GPT-2 124M's 12): the script's phases took
-#: 664-667 s of its 1200 s limit on an H100 80GB HBM3 (700.00 W) with
-#: every run at 12; width, batch, sequence and the 5 timed steps stay
+#: n_layer of every timed run of GPT-2 124M's widths (or its MoE's) over
+#: two or four ranks in phases 8-13; the checks keep GPT-2 124M's 12, and
+#: GPT-2 XL at fsdp = 2 its 48 for its memory gate.  The script's phases
+#: took 664-667 s of its 1200 s limit on an H100 80GB HBM3 (700.00 W) with
+#: every run at 12, and 572.8-670.5 s with the two-rank runs at 12 and the
+#: Train phases; width, batch, sequence and the 5 timed steps stay
 FOUR_RANK_DEPTH = 4
-
-
-def rank_depth(n_ranks):
-    """n_layer of a timed run over ``n_ranks`` ranks in phases 8-12."""
-    return gpt2.GPT2_SMALL.n_layer if n_ranks < 4 else FOUR_RANK_DEPTH
 
 
 def _then_free(fn, args):
@@ -2093,7 +2123,7 @@ def sp_train_rank(seed, variant, steps, n_layer):
 def sp_train(pool, n, seed, variant):
     """Phase 8's training in one configuration; returns the launches of
     the timed steps summed over the ranks."""
-    L = rank_depth(n)
+    L = FOUR_RANK_DEPTH
     res = pool.run(sp_train_rank, seed, variant, SP_STEPS, L)
     r0 = res[0]
     B, S = SP_TRAIN_BATCH
@@ -2398,7 +2428,7 @@ def pp_train(pool, seed, dp, M, moe=False):
     """Phase 9's training in one layout; returns the launches of the timed
     steps summed over the ranks."""
     n = pool.world_size
-    L = rank_depth(n)
+    L = FOUR_RANK_DEPTH
     res = pool.run(pp_train_rank, seed, dp, M, moe, PP_STEPS, L)
     r0 = res[0]
     pp = n // dp
@@ -2717,14 +2747,13 @@ def mesh_train_rank(seed, axes, M, model, steps, batch_shape, n_layer):
 
 
 def mesh_train(pool, seed, axes, M=1, model="gpt2", phase="tp",
-               batch_shape=TP_TRAIN_BATCH, steps=TP_STEPS, depth=None):
-    """Phases 10's to 13's training in one layout, at ``depth`` layers (by
-    default the model's own, and the MoE's FOUR_RANK_DEPTH on any number of
-    ranks); returns the launches of the timed steps summed over the
-    ranks."""
+               batch_shape=TP_TRAIN_BATCH, steps=TP_STEPS):
+    """Phases 10's to 13's training in one layout, at FOUR_RANK_DEPTH
+    layers (XL at its own 48); returns the launches of the timed steps
+    summed over the ranks."""
     cfg, _, tag, single_phase = MESH_MODELS[model]
     (B, S) = batch_shape
-    L = depth or (FOUR_RANK_DEPTH if model == "moe" else cfg.n_layer)
+    L = cfg.n_layer if model == "xl" else FOUR_RANK_DEPTH
     res = pool.run(mesh_train_rank, seed, axes, M, model, steps, batch_shape,
                    L)
     r0 = res[0]
@@ -2822,8 +2851,7 @@ def phase_tp(seed, pools):
     for key, axes, M in (("dp2_tp2", {"dp": 2, "tp": 2}, 1),
                          ("tp2_sp2_ring", {"sp": 2, "tp": 2}, 1),
                          ("pp2_tp2_m4", {"pp": 2, "tp": 2}, 4)):
-        launches[key] = mesh_train(pools[4], seed, axes, M,
-                                   depth=FOUR_RANK_DEPTH)
+        launches[key] = mesh_train(pools[4], seed, axes, M)
     return launches
 
 
@@ -3034,7 +3062,7 @@ def phase_ep(seed, pools):
             ("moe_pp2_ep2_m4", {"pp": 2, "ep": 2}, 4, EP_TRAIN_BATCH)):
         launches[key] = mesh_train(pool, seed, axes, M, model="moe",
                                    phase="ep", batch_shape=shape,
-                                   steps=EP_STEPS, depth=FOUR_RANK_DEPTH)
+                                   steps=EP_STEPS)
     return launches
 
 
@@ -3127,7 +3155,7 @@ def phase_fsdp(seed, pools):
                          ("pp2_fsdp2_m4", {"fsdp": 2, "pp": 2}, 4)):
         launches[key] = mesh_train(pools[4], seed, axes, M, phase="fsdp",
                                    batch_shape=FSDP_TRAIN_BATCH,
-                                   steps=FSDP_STEPS, depth=FOUR_RANK_DEPTH)
+                                   steps=FSDP_STEPS)
     return launches
 
 
@@ -3589,6 +3617,7 @@ def phase_rl(seed):
         size = RL_SIZES[name]
         extra = ""
         if name == "impala":
+            PHASE_REF["impala_ms"] = ms
             frames = size[0] * size[1]
             flops = nature_cnn_update_flops(frames)
             extra = (f"; {frames * 1e3 / ms:.1f} frames/s; {flops / 1e9:.1f} "
@@ -4413,6 +4442,398 @@ def train_run_checks(rt, seed, storage):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phases 19-20: Tune, and RLlib's Algorithm in a Tune trial
+# ---------------------------------------------------------------------------
+
+#: phase 19's grid of AdamW learning rates, phase 4's among them.  The
+#: trials run one at a time in this order, so the first reaches every rung
+#: unopposed; phase 4's rate spikes at step 4 (10.9812 after 10.4700 on an
+#: H100 80GB HBM3, 700.00 W), so a slower rate runs first and should end
+#: lowest, and 1e-7, which barely moves the loss, must stop at the rung
+TUNE_LRS = (1e-4, 3e-4, 1e-7)
+#: the entry of TUNE_LRS that is phase 4's (``adamw``'s default)
+TUNE_PHASE4_LR = 3e-4
+#: ASHA's max_t (reports of a trial) and grace period (its one rung)
+TUNE_MAX_T, TUNE_GRACE = 4, 2
+#: steps of the TorchTrainer trial
+TUNE_TRAINER_STEPS = 2
+#: phase 20's training iterations (one rollout and one update each)
+RLLIB_ITERS = 3
+
+
+def tune_trial(config):
+    """A Tune function trainable in an actor holding the card: GPT-2 124M
+    from phase 4's setup, seed and batch, AdamW at ``config["lr"]``, one
+    report a step with the history so far (losses, each step's ms from
+    CUDA events, wall clocks), the launches of each kernel in this process
+    and its peak memory.  Everything comes from ``chip_smoke`` by
+    reference, so cloudpickle ships this function by value alone."""
+    import time
+
+    loop_t0 = time.time()
+    import torch
+
+    import chip_smoke as cs
+    from ray_tpu_torch import tune
+
+    cs.set_precision()
+    params, tokens = cs.train_setup(cs.gpt2.GPT2_SMALL, config["seed"],
+                                    *config["batch"])
+    step_fn = cs.gpt2.make_train_step(cs.gpt2.GPT2_SMALL,
+                                      cs.adamw(params, config["lr"]))
+    torch.cuda.reset_peak_memory_stats()
+    cs.reset_launches()
+    hist = {"loss": [], "ms": [], "t": []}
+    for _ in range(config["steps"]):
+        begin = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        begin.record()
+        loss = step_fn(params, {"tokens": tokens})["loss"]
+        end.record()
+        hist["loss"].append(loss.item())
+        hist["ms"].append(begin.elapsed_time(end))
+        hist["t"].append(time.time())
+        tune.report({"loss": hist["loss"][-1], "history": hist,
+                     "launches": cs.read_launches(), "loop_t0": loop_t0,
+                     "device": str(tokens.device),
+                     "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
+
+
+class SmokeAtariEnv:
+    """What ``Impala.build_learner`` reads of an environment: phase 14's
+    Atari frame shape and action count (the card's machine has no
+    ``gymnasium``)."""
+
+    class _Box:
+        shape = ATARI_OBS
+
+    class _Discrete:
+        n = ATARI_ACTIONS
+
+    observation_space, action_space = _Box(), _Discrete()
+
+    def close(self):
+        pass
+
+
+def smoke_rollout(seed, index, T, B):
+    """The stub runner's rollout ``index``: ``EnvRunner.sample()``'s dict
+    (a ``SampleBatch`` of T x B uint8 frames, actions, behaviour logps,
+    values, rewards and dones; bootstrap values; one finished episode)
+    drawn from a numpy generator seeded with (seed, index)."""
+    import numpy as np
+
+    from ray_tpu_torch.rllib.sample_batch import SampleBatch
+
+    rng = np.random.default_rng([seed, index])
+    n = T * B
+    logits = rng.standard_normal((n, ATARI_ACTIONS))
+    logp = logits - np.log(np.exp(logits).sum(-1, keepdims=True))
+    actions = rng.integers(0, ATARI_ACTIONS, n)
+    batch = SampleBatch({
+        OBS: rng.integers(0, 256, (n, *ATARI_OBS), dtype=np.uint8),
+        ACTIONS: actions,
+        LOGPS: logp[np.arange(n), actions].astype(np.float32),
+        VALUES: rng.standard_normal(n).astype(np.float32),
+        REWARDS: rng.standard_normal(n).astype(np.float32),
+        DONES: (rng.random(n) < 0.01).astype(np.float32)})
+    return {"batch": batch, "t_shape": (T, B),
+            "last_values": rng.standard_normal(B).astype(np.float32),
+            "metrics": {"episodes": [(float(rng.normal(20.0, 5.0)), 100)],
+                        "env_steps": n}}
+
+
+class SmokeRunner:
+    """The rollout actor of phase 20: ``EnvRunner``'s interface, its
+    samples ``smoke_rollout``'s by call index, whatever weights it holds."""
+
+    def __init__(self, env_creator, num_envs, rollout_length, policy_init,
+                 seed=0, **kwargs):
+        self.B, self.T, self.seed, self.calls = (num_envs, rollout_length,
+                                                 seed, 0)
+
+    def set_weights(self, weights):
+        return True
+
+    def sample(self):
+        self.calls += 1
+        return smoke_rollout(self.seed, self.calls - 1, self.T, self.B)
+
+
+class SmokeImpala(impala.Impala):
+    """The port's ``Impala`` with ``SmokeRunner`` as its rollout actor, TF32
+    off in its process, and each iteration's ms, its update's ms (CUDA
+    events), the flash kernels' launches in its process and the device its
+    parameters are on added to its result."""
+
+    def setup(self, config):
+        set_precision()
+        reset_launches()
+        super().setup(config)
+
+    def runner_class(self):
+        return SmokeRunner
+
+    def build_learner(self):
+        super().build_learner()
+        update, self.update_ms = self._update, []
+
+        def timed(params, batch):
+            begin = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            begin.record()
+            metrics = update(params, batch)
+            end.record()
+            end.synchronize()
+            self.update_ms.append(begin.elapsed_time(end))
+            return metrics
+
+        self._update = timed
+
+    def training_step(self):
+        t = time.perf_counter()
+        out = super().training_step()
+        self.first_update = getattr(self, "first_update", None) or {
+            k: out[k] for k in ("pg_loss", "vf_loss", "entropy")}
+        out.update(iter_ms=(time.perf_counter() - t) * 1e3,
+                   update_ms=self.update_ms[-1], launches=read_launches(),
+                   device=str(optim.tree_leaves(self._params)[0].device),
+                   first_update=self.first_update)
+        return out
+
+
+def phase_tune_rllib(seed):
+    """Phases 19 and 20 in one ``init()`` under a session root of their
+    own; returns the launches of each kernel in the Tune trials and in
+    the trainer's worker."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.session_root import new_session_root
+    from ray_tpu_torch.util import chaos
+
+    free_memory("tune")
+    root = new_session_root()
+    rt.config.temp_dir = root
+    storage = tempfile.mkdtemp(prefix="rtt_tune_")
+    home = os.path.expanduser("~/ray_tpu_torch_results")
+    home_before = os.path.exists(home)
+    baseline = chaos.snapshot_host()
+    rt.init(object_store_memory=TRAIN_RUN_STORE_BYTES)
+    try:
+        t0 = time.perf_counter()
+        launches = tune_checks(seed, storage)
+        print(f"[tune] phase 19: {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        t0 = time.perf_counter()
+        rllib_checks(seed, storage)
+        print(f"[rllib] phase 20: {time.perf_counter() - t0:.1f} s",
+              flush=True)
+    finally:
+        rt.shutdown()
+    try:
+        chaos.assert_clean_host(baseline)
+    except chaos.HostLeakError as e:
+        fail(f"tune and rllib shutdown left {e}")
+    shutil.rmtree(storage)
+    shutil.rmtree(root, ignore_errors=True)
+    if os.path.exists(home) != home_before:
+        fail(f"the runs left {home}")
+    print(f"[rllib] shutdown: no ray_tpu_torch.core.*_main process, no "
+          f"rtt_store segment, and no results outside the temp dir "
+          f"({home} exists: {os.path.exists(home)}, as before)", flush=True)
+    return launches
+
+
+def tune_checks(seed, storage):
+    from ray_tpu_torch import data, tune
+    from ray_tpu_torch.train import RunConfig, ScalingConfig, TorchTrainer
+
+    B, S = TRAIN_RUN_BATCH
+    ref = PHASE_REF["train_losses"]
+    ref_ms, ref_peak = SINGLE_RANK_STEPS["gpt2"]
+    n_layer = gpt2.GPT2_SMALL.n_layer
+    sched = tune.ASHAScheduler(metric="loss", mode="min", max_t=TUNE_MAX_T,
+                               grace_period=TUNE_GRACE, reduction_factor=2)
+    began = time.time()
+    grid = tune.Tuner(
+        tune_trial,
+        param_space={"lr": tune.grid_search(list(TUNE_LRS)), "seed": seed,
+                     "batch": (B, S), "steps": TUNE_MAX_T},
+        tune_config=tune.TuneConfig(
+            metric="loss", mode="min", scheduler=sched,
+            resources_per_trial={"CPU": 1, "TPU": 1}),
+        run_config=tune.RunConfig(name="gpt2_asha",
+                                  storage_path=storage)).fit()
+    secs = time.time() - began
+    if grid.errors:
+        fail(f"tune: trials errored: {grid.errors}")
+    trials, stopped, launches = [], [], {}
+    prev_end = began
+    for r in sorted(grid, key=lambda r: r.metrics["history"]["t"][0]):
+        m, h = r.metrics, r.metrics["history"]
+        n = len(h["loss"])
+        ms = sorted(h["ms"][1:])
+        print(f"[tune] trial lr={r.config['lr']:g} on {m['device']}: "
+              f"{n} steps, losses {' '.join(f'{x:.4f}' for x in h['loss'])}"
+              f"; first report {h['t'][0] - prev_end:.2f} s after the "
+              f"previous trial's last ({h['t'][0] - m['loop_t0']:.2f} s "
+              f"after its loop began: import chip_smoke, the weights, the "
+              f"first step); step (ms, CUDA events) first {h['ms'][0]:.1f}, "
+              f"then median {ms[len(ms) // 2]:.3f} (range {ms[0]:.3f}-"
+              f"{ms[-1]:.3f}) against phase 4's {ref_ms:.3f}; peak "
+              f"{m['peak_gb']:.2f} GB (phase 4 {ref_peak:.2f}); launches "
+              f"{m['launches']}", flush=True)
+        prev_end = h["t"][-1]
+        if m["device"] != "cuda:0":
+            fail(f"tune: trial lr={r.config['lr']} did not train on the "
+                 f"card")
+        if any(v != n_layer * n for v in m["launches"].values()):
+            fail(f"tune: trial lr={r.config['lr']} launched "
+                 f"{m['launches']}, want {n_layer * n} of each")
+        if not all(math.isfinite(x) for x in h["loss"]):
+            fail(f"tune: trial lr={r.config['lr']}'s losses not finite")
+        for k, v in m["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        (stopped if n < TUNE_MAX_T else trials).append(r)
+    mine = [r for r in grid if r.config["lr"] == TUNE_PHASE4_LR]
+    got = mine[0].metrics["history"]["loss"]
+    print(f"[tune] the trial at phase 4's lr {TUNE_PHASE4_LR:g}: losses bit-"
+          f"equal to phase 4's first {len(got)}: {got == ref[:len(got)]} "
+          f"(tol {TRAIN_RUN_LOSS_TOL})", flush=True)
+    if any(abs(a - b) > TRAIN_RUN_LOSS_TOL for a, b in zip(got, ref)):
+        fail("tune: the trial at phase 4's lr disagrees with phase 4")
+    best = grid.get_best_result()
+    want = min(trials, key=lambda r: r.metrics["loss"]) if trials else None
+    print(f"[tune] ASHA (max_t {TUNE_MAX_T}, grace {TUNE_GRACE}, "
+          f"reduction 2) stopped {len(stopped)} of {len(TUNE_LRS)} trials "
+          f"at their grace rung: lr "
+          f"{[r.config['lr'] for r in stopped]}; best lr "
+          f"{best.config['lr']:g} at loss {best.metrics['loss']:.4f}; "
+          f"the sweep {secs:.2f} s; card {card_line()}", flush=True)
+    if not stopped or any(len(r.metrics["history"]["loss"]) != TUNE_GRACE
+                          for r in stopped):
+        fail("tune: ASHA stopped no trial at its grace rung")
+    if want is None or best.config["lr"] != want.config["lr"]:
+        fail("tune: the best result is not the lowest final loss of the "
+             "trials that ran to max_t")
+
+    ds = data.from_numpy(train_tokens(seed, B, S).numpy(), parallelism=1)
+    trainer = TorchTrainer(
+        train_run_loop,
+        train_loop_config={"seed": seed, "steps": TUNE_TRAINER_STEPS,
+                           "batch": B},
+        scaling_config=ScalingConfig(num_workers=1, use_tpu=True),
+        run_config=RunConfig(name="gpt2_trainer", storage_path=storage),
+        datasets={"train": ds})
+    t = time.perf_counter()
+    grid = tune.Tuner(trainer, tune_config=tune.TuneConfig(
+        metric="loss", mode="min"), run_config=tune.RunConfig(
+        name="tune_trainer", storage_path=storage)).fit()
+    secs = time.perf_counter() - t
+    m = grid[0].metrics
+    print(f"[tune] Tuner(TorchTrainer(train_run_loop)) through as_trainable, "
+          f"1 trial, 1 worker on {m and m.get('device')}: {secs:.2f} s; step "
+          f"{m and m.get('step')} loss {m and m.get('loss')} against phase "
+          f"4's step {TUNE_TRAINER_STEPS} {ref[TUNE_TRAINER_STEPS - 1]} "
+          f"(tol {TRAIN_RUN_LOSS_TOL}); launches in the worker "
+          f"{m and m.get('launches')} (want "
+          f"{n_layer * TUNE_TRAINER_STEPS} of each); errors {grid.errors}",
+          flush=True)
+    if grid.errors or not m or m["device"] != "cuda:0":
+        fail("tune: the TorchTrainer trial failed or left the card")
+    if m["step"] != TUNE_TRAINER_STEPS or abs(
+            m["loss"] - ref[TUNE_TRAINER_STEPS - 1]) > TRAIN_RUN_LOSS_TOL:
+        fail("tune: the TorchTrainer trial's loss disagrees with phase 4")
+    if any(v != n_layer * TUNE_TRAINER_STEPS
+           for v in m["launches"].values()):
+        fail("tune: the TorchTrainer trial's launches are off")
+    return {"tune_trials": launches, "tune_trainer": m["launches"]}
+
+
+def rllib_checks(seed, storage):
+    import numpy as np
+
+    from ray_tpu_torch import tune
+    from ray_tpu_torch.rllib.algorithm import to_learner
+
+    T, B = RL_SIZES["impala"]
+    before = read_launches()
+    grid = tune.Tuner(
+        script_class("SmokeImpala"),
+        param_space={"env_creator": script_class("SmokeAtariEnv"),
+                     "cnn": True, "num_env_runners": 1,
+                     "num_envs_per_runner": B, "rollout_length": T,
+                     "seed": seed},
+        tune_config=tune.TuneConfig(
+            resources_per_trial={"CPU": 1, "TPU": 1},
+            stop={"training_iteration": RLLIB_ITERS}),
+        run_config=tune.RunConfig(name="impala", storage_path=storage)).fit()
+    if grid.errors:
+        fail(f"rllib: the trial errored: {grid.errors}")
+    m = grid[0].metrics
+    ckpt = grid[0].checkpoint.to_dict()
+    numeric = {k: v for k, v in m.items()
+               if isinstance(v, (int, float)) and not isinstance(v, bool)}
+    frames = T * B
+    print(f"[rllib] IMPALA's Algorithm in a Tune trial, learner on "
+          f"{m['device']}, 1 rollout actor, T={T} x B={B} frames of "
+          f"{ATARI_OBS}: {m['training_iteration']} iterations, "
+          f"{m['num_env_steps_sampled']} env steps; last iteration "
+          f"{m['iter_ms']:.1f} ms ({frames * 1e3 / m['iter_ms']:.1f} "
+          f"frames/s, the rollout's transfer and conversion included), its "
+          f"update {m['update_ms']:.3f} ms ({frames * 1e3 / m['update_ms']:.1f}"
+          f" frames/s; phase 14's update "
+          f"{PHASE_REF.get('impala_ms', float('nan')):.3f} ms); "
+          f"env_steps_per_sec {m['env_steps_per_sec']:.1f}; metrics "
+          f"{ {k: round(v, 6) for k, v in numeric.items()} }; flash "
+          f"launches in the trial {m['launches']}; card {card_line()}",
+          flush=True)
+    if m["device"] != "cuda:0":
+        fail("rllib: the learner was not on the card")
+    if not all(math.isfinite(v) for v in numeric.values()):
+        fail(f"rllib: a metric is not finite: {numeric}")
+    if m["num_env_steps_sampled"] != RLLIB_ITERS * frames or \
+            ckpt["total_env_steps"] != RLLIB_ITERS * frames:
+        fail("rllib: env steps sampled are off")
+    if any(m["launches"].values()) or read_launches() != before:
+        fail("rllib: the RL path launched a flash kernel")
+
+    # the CPU learner from the card's initial weights over the same rollouts
+    cfg = impala.ImpalaConfig()
+    cfg.cnn, cfg.seed = True, seed
+    params, _ = impala._init_params_and_opt(cfg, ATARI_OBS, ATARI_ACTIONS,
+                                            device="cuda")
+    params = to_device(params, "cpu")
+    p0 = rl_models.params_to_numpy(params)
+    update = impala._make_update_fn(cfg, impala.make_optimizer(cfg, params))
+    t = time.perf_counter()
+    first = None
+    for i in range(RLLIB_ITERS):
+        out = update(params, to_learner(
+            impala.time_major(smoke_rollout(seed, i, T, B)), "cpu"))
+        first = first or {k: float(v) for k, v in out.items()}
+    replay_s = time.perf_counter() - t
+    cpu = rl_models.params_to_numpy(params)
+    leaf_err = 0.0
+    for a, b, w0 in zip(optim.tree_leaves(ckpt["weights"]),
+                        optim.tree_leaves(cpu), optim.tree_leaves(p0)):
+        apart = float(np.linalg.norm(a - b))
+        tol = float(RL_MOVE_RTOL * np.linalg.norm(b - w0)
+                    + RL_ULP * np.linalg.norm(b))
+        leaf_err = max(leaf_err, apart / tol if apart else 0.0)
+    m_err = max(abs(m["first_update"][k] - v) / (RL_RTOL * abs(v) + RL_ATOL)
+                for k, v in first.items())
+    print(f"[rllib] the CPU learner replayed {RLLIB_ITERS} updates from the "
+          f"same initial weights over the same rollouts in {replay_s:.2f} s:"
+          f" the trial's final weights (its checkpoint) {leaf_err:.3f} of "
+          f"their tolerance (||p - p_cpu|| <= {RL_MOVE_RTOL} ||p_cpu - p_0|| "
+          f"+ {RL_ULP} ||p_cpu||); the first update's metrics, card "
+          f"{m['first_update']} against CPU {first}: {m_err:.3f} of their "
+          f"tolerance (|a - b| <= {RL_RTOL} |b| + {RL_ATOL})", flush=True)
+    if leaf_err > 1 or m_err > 1:
+        fail("rllib: the card's learner disagrees with the CPU replay")
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -4464,13 +4885,14 @@ def main():
                              serve_ref, llama_ref)
     run("17 cluster", phase_cluster, args.seed)
     train_run = run("18 train run", phase_train_run, args.seed)
+    tune_runs = run("19-20 tune, rllib", phase_tune_rllib, args.seed)
     print(f"[time] phases: {seconds}; all {sum(seconds.values()):.1f} s",
           flush=True)
     print(card_line())
     src = "ray_tpu/ops/flash_attention.py"
     trained = {"train": train, "moe_train": moe_train, "xl_train": xl_train,
                **sp_runs, **pp_runs, **tp_runs, **ep_runs, **fsdp_runs,
-               **moe_pp_runs, **train_run}
+               **moe_pp_runs, **train_run, **tune_runs}
     paths = {
         "flash_fwd": {"serve": serve_launches, "llama": llama_launches,
                       "moe_serve": moe_serve,

@@ -22,9 +22,11 @@ attention), ``models`` (GPT-2, Llama, the MNIST CNN), ``serve`` (deployments
 on replica actors: the controller, the router and its handles, the HTTP
 proxy, batching, multiplexing, telemetry), ``parallel`` (mesh, sharding
 rules, ring and Ulysses attention, the pipeline, spawned ranks),
-``collective`` (named-axis collectives over process groups) and ``rllib``
-(policy nets, optax's optimizer steps, the PPO, IMPALA, DQN, SAC and BC
-updates).
+``collective`` (named-axis collectives over process groups), ``train``
+(``TorchTrainer`` and its workers), ``tune`` (trials in actors, searchers and
+schedulers) and ``rllib`` (``Algorithm``, a Tune ``Trainable``, with its
+rollout actors and learners: PPO, IMPALA, DQN, SAC, BC and multi-agent
+PPO).
 No runtime is started on import: ``init()`` starts one.
 """
 
@@ -76,7 +78,7 @@ __all__ = [
     "__version__",
     # sub-packages
     "air", "collective", "core", "data", "models", "native", "ops",
-    "parallel", "rllib", "serve", "train", "util",
+    "parallel", "rllib", "serve", "train", "tune", "util",
 ]
 
 
@@ -314,7 +316,8 @@ def timeline(filename: Optional[str] = None):
 # Convenience namespaced access (lazy imports to keep `import ray_tpu_torch` light).
 def __getattr__(name):
     if name in ("air", "collective", "core", "data", "models", "native",
-                "ops", "parallel", "rllib", "serve", "train", "util"):
+                "ops", "parallel", "rllib", "serve", "train", "tune",
+                "util"):
         import importlib
 
         return importlib.import_module(f"ray_tpu_torch.{name}")

@@ -3,24 +3,29 @@
 ``dqn_action_fn`` (epsilon-greedy over Q-values) and ``dqn_update``, the
 update JAX defines inside ``DQN.build_learner`` (``dqn.py:105-133``):
 the double-Q target, the Huber TD loss under importance weights, one
-Adam step; it returns |td| for the prioritized replay.
-``DQNConfig.build()`` raises: the ``DQN`` Algorithm, its replay buffers
-and runners need the runtime (ROADMAP.md §A7).
+Adam step; it returns |td| for the prioritized replay.  ``DQN`` is the
+Algorithm around it (``dqn.py:70-210``): epsilon-greedy runners, the
+copied replay buffers (``replay_buffers.py``, host-side numpy) and the
+target network.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
-from ray_tpu_torch.rllib.algorithm import AlgorithmConfig
-from ray_tpu_torch.rllib.models import policy_forward
-from ray_tpu_torch.rllib.optim import apply_gradients, grads_of
+from ray_tpu_torch.rllib.algorithm import (Algorithm, AlgorithmConfig,
+                                           to_learner)
+from ray_tpu_torch.rllib.models import (init_mlp_policy, load_params,
+                                        params_to_numpy, policy_forward)
+from ray_tpu_torch.rllib.optim import (adam, apply_gradients, grads_of,
+                                       tree_map)
 from ray_tpu_torch.rllib.sample_batch import (ACTIONS, DONES, NEXT_OBS, OBS,
                                               REWARDS)
 
-__all__ = ["DQNConfig", "dqn_action_fn", "dqn_update"]
+__all__ = ["DQNConfig", "DQN", "dqn_action_fn", "dqn_update"]
 
 
 @torch.no_grad()
@@ -63,6 +68,9 @@ class DQNConfig(AlgorithmConfig):
         self.epsilon_anneal_steps = 10_000
         self.hidden = (64, 64)
 
+    def build(self) -> "DQN":
+        return DQN(self)
+
 
 def dqn_update(cfg: DQNConfig, params, target_params,
                optimizer: torch.optim.Optimizer, batch):
@@ -88,3 +96,111 @@ def dqn_update(cfg: DQNConfig, params, target_params,
     loss = torch.mean(batch["weights"] * huber)
     apply_gradients(optimizer, params, grads_of(loss, params))
     return loss.detach(), torch.abs(td).detach()
+
+
+def _copy(params):
+    """A detached copy of a parameter tree (the target network)."""
+    return tree_map(lambda p: p.detach().clone(), params)
+
+
+class DQN(Algorithm):
+    _config_cls = DQNConfig
+
+    def runner_kwargs(self) -> Dict[str, Any]:
+        return {"action_fn": dqn_action_fn, "store_next_obs": True}
+
+    # ------------------------------------------------------------- learner
+
+    def build_learner(self):
+        from ray_tpu_torch.rllib.replay_buffers import (
+            PrioritizedReplayBuffer, ReplayBuffer,
+        )
+
+        cfg = self.algo_config
+        device = self.learner_device()
+        env = cfg.env_creator()
+        obs_dim = int(np.prod(env.observation_space.shape))
+        num_actions = int(env.action_space.n)
+        env.close()
+
+        self.params = init_mlp_policy(
+            torch.Generator(device=device).manual_seed(cfg.seed), obs_dim,
+            num_actions, cfg.hidden, device=device)
+        self.target_params = _copy(self.params)
+        self._opt = adam(self.params, cfg.lr)
+        self.buffer = (
+            PrioritizedReplayBuffer(cfg.buffer_size, cfg.per_alpha,
+                                    cfg.per_beta, seed=cfg.seed)
+            if cfg.prioritized_replay
+            else ReplayBuffer(cfg.buffer_size, seed=cfg.seed))
+        self._steps_since_target_sync = 0
+        self._device = device
+
+    # ---------------------------------------------------------------- step
+
+    def epsilon(self) -> float:
+        cfg = self.algo_config
+        frac = min(1.0, self._total_env_steps
+                   / max(1, cfg.epsilon_anneal_steps))
+        return cfg.epsilon_initial + frac * (cfg.epsilon_final
+                                             - cfg.epsilon_initial)
+
+    def get_weights(self):
+        return {"params": params_to_numpy(self.params),
+                "epsilon": np.float32(self.epsilon())}
+
+    def set_weights(self, weights):
+        load_params(self.params, weights["params"])
+        load_params(self.target_params,
+                    weights.get("target_params", weights["params"]))
+        # a fresh optimizer state, as the reference's ``_opt.init``
+        self._opt = adam(self.params, self.algo_config.lr)
+
+    def training_step(self) -> Dict[str, Any]:
+        cfg = self.algo_config
+        rollouts = self.synchronous_parallel_sample()
+        steps_this_iter = 0
+        for ro in rollouts:
+            b = ro["batch"]
+            n = len(b[REWARDS])
+            steps_this_iter += n
+            self.buffer.add({
+                OBS: b[OBS], ACTIONS: b[ACTIONS], REWARDS: b[REWARDS],
+                NEXT_OBS: b[NEXT_OBS], DONES: b[DONES],
+            })
+        self._steps_since_target_sync += steps_this_iter
+
+        losses = []
+        if len(self.buffer) >= cfg.learning_starts:
+            for _ in range(cfg.num_updates_per_iter):
+                sample = self.buffer.sample(cfg.train_batch_size)
+                if "weights" not in sample:
+                    sample["weights"] = np.ones(
+                        cfg.train_batch_size, np.float32)
+                idx = sample.pop("batch_indexes")
+                loss, td_abs = dqn_update(
+                    cfg, self.params, self.target_params, self._opt,
+                    to_learner(sample, self._device))
+                losses.append(float(loss))
+                if hasattr(self.buffer, "update_priorities"):
+                    self.buffer.update_priorities(idx, td_abs.cpu().numpy())
+            if self._steps_since_target_sync \
+                    >= cfg.target_network_update_freq:
+                self.target_params = _copy(self.params)
+                self._steps_since_target_sync = 0
+        self.sync_weights()
+        return {
+            "loss": float(np.mean(losses)) if losses else float("nan"),
+            "epsilon": self.epsilon(),
+            "buffer_size": len(self.buffer),
+            "_steps_this_iter": steps_this_iter,
+        }
+
+    def save_checkpoint(self):
+        return {
+            "weights": {
+                "params": params_to_numpy(self.params),
+                "target_params": params_to_numpy(self.target_params),
+            },
+            "total_env_steps": self._total_env_steps,
+        }

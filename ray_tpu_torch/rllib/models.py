@@ -166,3 +166,35 @@ def params_from_numpy(tree, device="cuda") -> Dict[str, Any]:
         return t.to(device).requires_grad_(True)
 
     return conv(tree)
+
+
+def params_to_numpy(params):
+    """The port's parameters -> the JAX package's host tree
+    (``jax.tree.map(np.asarray, params)``): f32 numpy arrays of the same
+    names, 4-d conv weights OIHW -> HWIO; the inverse of
+    ``params_from_numpy``.  Leaves that are not tensors pass unchanged."""
+    def conv(node):
+        if isinstance(node, dict):
+            return {k: conv(v) for k, v in node.items()}
+        if not isinstance(node, torch.Tensor):
+            return node
+        t = node.detach()
+        if t.ndim == 4:
+            t = t.permute(2, 3, 1, 0)
+        return t.to("cpu", copy=True).contiguous().numpy()
+
+    return conv(params)
+
+
+@torch.no_grad()
+def load_params(params, tree) -> None:
+    """Copy a host tree of ``params_to_numpy``'s form into the leaves of
+    ``params`` in place (an optimizer built over them keeps its state)."""
+    for name, node in tree.items():
+        if isinstance(node, dict):
+            load_params(params[name], node)
+        else:
+            src = torch.as_tensor(node, dtype=torch.float32)
+            if src.ndim == 4:
+                src = src.permute(3, 2, 0, 1)
+            params[name].copy_(src)

@@ -3,23 +3,27 @@
 ``compute_gae`` is a copy of the numpy function; ``_make_update_fn`` is
 the clipped-surrogate update with GAE advantages, run as a loop over
 ``num_epochs`` x ``num_mb`` shuffled minibatches where JAX scans them in
-one program.  ``PPOConfig.build()`` raises: the ``PPO`` Algorithm needs
-the runtime (ROADMAP.md §A7).
+one program.  ``PPO`` is the Algorithm around it (``ppo.py:119-194``): the
+minibatch order comes from the learner's generator, seeded with
+``seed + 1``.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
 
-from ray_tpu_torch.rllib.algorithm import AlgorithmConfig
-from ray_tpu_torch.rllib.models import mlp_forward
-from ray_tpu_torch.rllib.optim import (apply_gradients, clip_by_global_norm,
-                                       grads_of)
-from ray_tpu_torch.rllib.sample_batch import (ACTIONS, ADVANTAGES, LOGPS,
-                                              OBS, TARGETS, VALUES)
+from ray_tpu_torch.rllib.algorithm import (Algorithm, AlgorithmConfig,
+                                           to_learner)
+from ray_tpu_torch.rllib.models import (init_mlp_policy, load_params,
+                                        mlp_forward, params_to_numpy)
+from ray_tpu_torch.rllib.optim import (adam, apply_gradients,
+                                       clip_by_global_norm, grads_of)
+from ray_tpu_torch.rllib.sample_batch import (ACTIONS, ADVANTAGES, DONES,
+                                              LOGPS, OBS, REWARDS, TARGETS,
+                                              VALUES, SampleBatch)
 
 
 class PPOConfig(AlgorithmConfig):
@@ -34,6 +38,9 @@ class PPOConfig(AlgorithmConfig):
         self.minibatch_size = 512
         self.grad_clip = 0.5
         self.hidden = (64, 64)
+
+    def build(self) -> "PPO":
+        return PPO(self)
 
 
 def compute_gae(rewards, values, dones, last_values, gamma, lam):
@@ -113,3 +120,55 @@ def _make_update_fn(cfg: PPOConfig, optimizer: torch.optim.Optimizer):
         return {k: v.detach() for k, v in metrics.items()}
 
     return update
+
+
+class PPO(Algorithm):
+    _config_cls = PPOConfig
+
+    def build_learner(self):
+        cfg: PPOConfig = self.algo_config
+        device = self.learner_device()
+        probe_env = cfg.env_creator()
+        obs_dim = int(np.prod(probe_env.observation_space.shape))
+        num_actions = int(probe_env.action_space.n)
+        probe_env.close()
+        self._params = init_mlp_policy(
+            torch.Generator(device=device).manual_seed(cfg.seed), obs_dim,
+            num_actions, cfg.hidden, device=device)
+        self._optimizer = adam(self._params, cfg.lr)
+        self._update = _make_update_fn(cfg, self._optimizer)
+        self._generator = torch.Generator(device=device).manual_seed(
+            cfg.seed + 1)
+
+    def get_weights(self):
+        return params_to_numpy(self._params)
+
+    def set_weights(self, weights):
+        load_params(self._params, weights)
+
+    def training_step(self) -> Dict[str, Any]:
+        """sample -> GAE -> minibatch-epoch update -> broadcast
+        (reference `ppo.py:420`)."""
+        cfg: PPOConfig = self.algo_config
+        rollouts = self.synchronous_parallel_sample()
+        batches: List[SampleBatch] = []
+        for ro in rollouts:
+            b = ro["batch"]
+            T, B = ro["t_shape"]
+            adv, targets = compute_gae(
+                b[REWARDS].reshape(T, B), b[VALUES].reshape(T, B),
+                b[DONES].reshape(T, B), ro["last_values"],
+                cfg.gamma, cfg.gae_lambda)
+            b[ADVANTAGES] = adv.reshape(T * B).astype(np.float32)
+            b[TARGETS] = targets.reshape(T * B).astype(np.float32)
+            batches.append(b)
+        train_batch = SampleBatch.concat(batches)
+        learn_batch = {k: train_batch[k] for k in (
+            OBS, ACTIONS, LOGPS, VALUES, ADVANTAGES, TARGETS)}
+        metrics = self._update(
+            self._params, to_learner(learn_batch, self._generator.device),
+            self._generator)
+        self.sync_weights()
+        out = {k: float(v) for k, v in metrics.items()}
+        out["_steps_this_iter"] = train_batch.count
+        return out

@@ -6,8 +6,10 @@ temperature: the nets (``_mlp_init``, ``_mlp_apply``, ``init_sac_nets``),
 the update JAX defines inside ``SAC.build_learner`` (``sac.py:173-234``).
 Its two normal draws (the next action's for the critic target, the
 action's for the actor loss) are the caller's, drawn with
-``sac_noise`` from a generator or given.  ``SACConfig.build()`` raises:
-the ``SAC`` Algorithm needs the runtime (ROADMAP.md §A7).
+``sac_noise`` from a generator or given.  ``SAC`` is the Algorithm around
+it (``sac.py:130-304``): the update's draws come from the learner's
+generator, seeded with ``seed + 1``, and the replay buffer is the copied
+``ReplayBuffer``.
 """
 
 from __future__ import annotations
@@ -15,17 +17,22 @@ from __future__ import annotations
 import math
 from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ray_tpu_torch.rllib.algorithm import AlgorithmConfig
-from ray_tpu_torch.rllib.models import _normal, _zeros
-from ray_tpu_torch.rllib.optim import apply_gradients, grads_of, tree_map
+from ray_tpu_torch.air.checkpoint import _to_host
+from ray_tpu_torch.rllib.algorithm import (Algorithm, AlgorithmConfig,
+                                           to_learner)
+from ray_tpu_torch.rllib.models import (_normal, _zeros, load_params,
+                                        params_to_numpy)
+from ray_tpu_torch.rllib.optim import (adam, apply_gradients, grads_of,
+                                       tree_map)
 from ray_tpu_torch.rllib.sample_batch import (ACTIONS, DONES, NEXT_OBS, OBS,
                                               REWARDS)
 
-__all__ = ["SACConfig", "init_sac_nets", "sac_action_fn", "sac_noise",
-           "sac_update", "sample_squashed"]
+__all__ = ["SACConfig", "SAC", "init_sac_nets", "sac_action_fn",
+           "sac_noise", "sac_update", "sample_squashed"]
 
 _LOG_STD_MIN, _LOG_STD_MAX = -20.0, 2.0
 
@@ -122,6 +129,9 @@ class SACConfig(AlgorithmConfig):
         self.target_entropy = None       # default: -act_dim
         self.hidden = (256, 256)
 
+    def build(self) -> "SAC":
+        return SAC(self)
+
 
 def sac_noise(batch_size: int, act_dim: int, generator: torch.Generator):
     """The update's two standard normal draws, (B, act_dim) each: the next
@@ -188,3 +198,97 @@ def sac_update(cfg: SACConfig, params, target_params, log_alpha,
                  target_params, critics)
     return {"critic_loss": c_loss.detach(), "actor_loss": a_loss.detach(),
             "alpha": alpha}
+
+
+class SAC(Algorithm):
+    _config_cls = SACConfig
+
+    def runner_kwargs(self) -> Dict[str, Any]:
+        return {"action_fn": sac_action_fn, "store_next_obs": True}
+
+    def build_learner(self):
+        from ray_tpu_torch.rllib.replay_buffers import ReplayBuffer
+
+        cfg = self.algo_config
+        device = self.learner_device()
+        env = cfg.env_creator()
+        obs_dim = int(np.prod(env.observation_space.shape))
+        space = env.action_space
+        act_dim = int(np.prod(space.shape))
+        self._act_low = np.asarray(space.low, np.float32).reshape(act_dim)
+        self._act_high = np.asarray(space.high, np.float32).reshape(act_dim)
+        env.close()
+
+        self.params = init_sac_nets(
+            torch.Generator(device=device).manual_seed(cfg.seed), obs_dim,
+            act_dim, cfg.hidden, device=device)
+        self.target_params = tree_map(
+            lambda p: p.detach().clone(),
+            {"q1": self.params["q1"], "q2": self.params["q2"]})
+        self.log_alpha = torch.zeros((), device=device, requires_grad=True)
+        self._opt = adam(self.params, cfg.lr)
+        self._alpha_opt = adam(self.log_alpha, cfg.alpha_lr)
+        self.buffer = ReplayBuffer(cfg.buffer_size, seed=cfg.seed)
+        self._generator = torch.Generator(device=device).manual_seed(
+            cfg.seed + 1)
+        self._low = torch.as_tensor(self._act_low, device=device)
+        self._high = torch.as_tensor(self._act_high, device=device)
+        self._device = device
+
+    def get_weights(self):
+        return {"params": {"actor": params_to_numpy(self.params["actor"])},
+                "act_low": self._act_low, "act_high": self._act_high}
+
+    def set_weights(self, weights):
+        load_params(self.params["actor"], weights["params"]["actor"])
+
+    def training_step(self) -> Dict[str, Any]:
+        cfg = self.algo_config
+        rollouts = self.synchronous_parallel_sample()
+        steps_this_iter = 0
+        for ro in rollouts:
+            b = ro["batch"]
+            steps_this_iter += len(b[REWARDS])
+            self.buffer.add({
+                OBS: b[OBS], ACTIONS: b[ACTIONS], REWARDS: b[REWARDS],
+                NEXT_OBS: b[NEXT_OBS], DONES: b[DONES],
+            })
+
+        metrics = {}
+        if len(self.buffer) >= cfg.learning_starts:
+            for _ in range(cfg.num_updates_per_iter):
+                sample = self.buffer.sample(cfg.train_batch_size)
+                sample.pop("batch_indexes", None)
+                noise = sac_noise(cfg.train_batch_size, len(self._act_low),
+                                  self._generator)
+                metrics = sac_update(
+                    cfg, self.params, self.target_params, self.log_alpha,
+                    self._opt, self._alpha_opt,
+                    to_learner(sample, self._device), noise, self._low,
+                    self._high)
+        self.sync_weights()
+        out = {k: float(v) for k, v in metrics.items()}
+        out.update({"buffer_size": len(self.buffer),
+                    "_steps_this_iter": steps_this_iter})
+        return out
+
+    def save_checkpoint(self):
+        return {"params": params_to_numpy(self.params),
+                "target_params": params_to_numpy(self.target_params),
+                "log_alpha": np.asarray(float(self.log_alpha), np.float32),
+                "opt_state": _to_host(self._opt.state_dict()),
+                "alpha_opt_state": _to_host(self._alpha_opt.state_dict()),
+                "total_env_steps": self._total_env_steps}
+
+    def load_checkpoint(self, state):
+        load_params(self.params, state["params"])
+        load_params(self.target_params, state["target_params"])
+        with torch.no_grad():
+            self.log_alpha.copy_(torch.as_tensor(state["log_alpha"]))
+        if "opt_state" in state:
+            self._opt.load_state_dict(state["opt_state"])
+            self._alpha_opt.load_state_dict(state["alpha_opt_state"])
+        self._total_env_steps = state.get("total_env_steps", 0)
+        # the runners must roll out with the RESTORED actor, not whatever
+        # they had before (base-class contract)
+        self.sync_weights()

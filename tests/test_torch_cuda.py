@@ -14,9 +14,11 @@ alone and nested in a GPU task's result that a CPU task reads; a GPU
 Serve deployment of GPT-2 at ``GPT2_TINY`` widths; a checkpoint of a
 ``state_dict`` on the card, batches staged onto the card by
 ``iter_torch_batches`` (and its default raising where the card is hidden),
-a ``TorchTrainer`` training GPT-2 at ``GPT2_TINY`` widths on the card, and
-a ``Cluster`` node given the card running a GPU task (and one that hides
-it failing).
+a ``TorchTrainer`` training GPT-2 at ``GPT2_TINY`` widths on the card, a
+``Cluster`` node given the card running a GPU task (and one that hides
+it failing), a Tune sweep under ASHA whose trials train GPT-2 at
+``GPT2_TINY`` widths (2 layers) on the card, and IMPALA's ``Algorithm`` in
+a Tune trial with its learner on the card against the CPU learner.
 
 Marked ``cuda``: every test skips where there is no CUDA device.  On a
 machine with one (no JAX needed, hence ``--noconftest``):
@@ -1398,3 +1400,155 @@ def test_cluster_node_with_the_card_runs_a_gpu_task(cuda, tmp_path):
     assert out["named_resources"] == out["hidden_resources"] == 1.0
     assert out["hidden"][0] == "raised", out["hidden"]
 
+
+
+TUNE_ON_CARD = """
+import json
+import sys
+import torch  # init() counts the cards once torch is loaded
+import ray_tpu_torch as rt
+from ray_tpu_torch import tune
+
+LRS, MAX_T = (1e-3, 1e-7), 4
+
+
+def steps(lr, n, report=None):
+    import torch
+
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = gpt2.GPT2_TINY
+    params = gpt2.init_params(torch.Generator(device="cuda").manual_seed(0),
+                              cfg, device="cuda")
+    for leaf in gpt2.param_leaves(params):
+        leaf.requires_grad_(True)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 129),
+                           generator=torch.Generator().manual_seed(1))
+    step = gpt2.make_train_step(cfg, torch.optim.AdamW(
+        gpt2.param_leaves(params), lr=lr))
+    fa.KERNEL_LAUNCHES = fa.BWD_DQ_LAUNCHES = fa.BWD_DKV_LAUNCHES = 0
+    losses = []
+    for _ in range(n):
+        losses.append(step(params, {"tokens": tokens.to("cuda")})[
+            "loss"].item())
+        out = {"loss": losses[-1], "losses": list(losses),
+               "device": str(tokens.to("cuda").device),
+               "launches": [fa.KERNEL_LAUNCHES, fa.BWD_DQ_LAUNCHES,
+                            fa.BWD_DKV_LAUNCHES]}
+        if report is not None:
+            report(out)
+    return losses
+
+
+def trial(config):
+    steps(config["lr"], MAX_T, tune.report)
+
+
+rt.init(num_cpus=2)
+grid = tune.Tuner(
+    trial, param_space={"lr": tune.grid_search(list(LRS))},
+    tune_config=tune.TuneConfig(
+        metric="loss", mode="min", resources_per_trial={"CPU": 1, "TPU": 1},
+        scheduler=tune.ASHAScheduler(metric="loss", mode="min", max_t=MAX_T,
+                                     grace_period=2, reduction_factor=2)),
+    run_config=tune.RunConfig(name="card", storage_path=sys.argv[1])).fit()
+out = {"trials": [[r.config["lr"], r.metrics] for r in grid],
+       "errors": [str(e) for e in grid.errors],
+       "best": grid.get_best_result().config["lr"]}
+rt.shutdown()
+out["driver"] = steps(LRS[0], MAX_T)
+print("RESULT " + json.dumps(out))
+"""
+
+
+def test_tune_asha_gpt2_tiny_trials_on_card(cuda, tmp_path):
+    """Phase 19 (a) at ``GPT2_TINY`` (2 layers): a ``Tuner`` under ASHA
+    (max_t 4, one rung at 2) runs two trials one at a time, each in an
+    actor holding the card (``{"CPU": 1, "TPU": 1}``); each trial launches
+    ``n_layer`` x its steps of each kernel, the trial at lr 1e-7 stops at
+    the rung, and the other's losses equal the driver's own run on the
+    card bit for bit."""
+    out = _run_card_driver(tmp_path, TUNE_ON_CARD,
+                           [str(tmp_path / "results")])
+    assert out["errors"] == []
+    trials = dict((lr, m) for lr, m in out["trials"])
+    for lr, m in trials.items():
+        n = len(m["losses"])
+        assert m["device"] == "cuda:0"
+        assert m["launches"] == [2 * n] * 3, (lr, m["launches"])
+    assert len(trials[1e-7]["losses"]) == 2
+    assert trials[1e-3]["losses"] == out["driver"]
+    assert out["best"] == 1e-3
+
+
+RLLIB_ON_CARD = """
+import json
+import sys
+import numpy as np
+import torch  # init() counts the cards once torch is loaded
+import ray_tpu_torch as rt
+from ray_tpu_torch import tune
+from ray_tpu_torch.rllib import impala, optim
+from ray_tpu_torch.rllib.algorithm import to_learner
+from ray_tpu_torch.rllib.models import params_to_numpy
+
+import chip_smoke as cs
+
+T, B, ITERS, SEED = 8, 4, 3, 0
+rt.init(num_cpus=3)
+grid = tune.Tuner(
+    cs.SmokeImpala,
+    param_space={"env_creator": cs.SmokeAtariEnv, "cnn": True,
+                 "num_env_runners": 1, "num_envs_per_runner": B,
+                 "rollout_length": T, "seed": SEED},
+    tune_config=tune.TuneConfig(resources_per_trial={"CPU": 1, "TPU": 1},
+                                stop={"training_iteration": ITERS}),
+    run_config=tune.RunConfig(name="impala", storage_path=sys.argv[1])).fit()
+m = grid[0].metrics
+weights = grid[0].checkpoint.to_dict()["weights"]
+rt.shutdown()
+
+cfg = impala.ImpalaConfig()
+cfg.cnn, cfg.seed = True, SEED
+params, _ = impala._init_params_and_opt(cfg, cs.ATARI_OBS, cs.ATARI_ACTIONS,
+                                        device="cuda")
+params = cs.to_device(params, "cpu")
+p0 = params_to_numpy(params)
+update = impala._make_update_fn(cfg, impala.make_optimizer(cfg, params))
+for i in range(ITERS):
+    update(params, to_learner(impala.time_major(
+        cs.smoke_rollout(SEED, i, T, B)), "cpu"))
+cpu = params_to_numpy(params)
+worst = 0.0
+for a, b, w0 in zip(optim.tree_leaves(weights), optim.tree_leaves(cpu),
+                    optim.tree_leaves(p0)):
+    tol = cs.RL_MOVE_RTOL * np.linalg.norm(b - w0) + cs.RL_ULP * \
+        np.linalg.norm(b)
+    worst = max(worst, float(np.linalg.norm(a - b) / tol))
+print("RESULT " + json.dumps({
+    "errors": [str(e) for e in grid.errors], "device": m["device"],
+    "steps": m["num_env_steps_sampled"], "launches": m["launches"],
+    "finite": all(np.isfinite(v) for v in m.values()
+                  if isinstance(v, float)),
+    "worst": worst}))
+"""
+
+
+def test_rllib_impala_algorithm_in_tune_trial_on_card(cuda, tmp_path):
+    """Phase 20 at a short rollout (T=8 x B=4 frames): ``chip_smoke``'s
+    ``SmokeImpala`` (the port's ``Impala`` with a stub runner) in a Tune
+    trial holding the card trains its Nature-CNN learner on the card for 3
+    iterations; its final weights hold against the CPU learner replayed
+    from the same initial weights over the same rollouts at phase 14's
+    tolerances, and no flash kernel launches."""
+    out = _run_card_driver(tmp_path, RLLIB_ON_CARD,
+                           [str(tmp_path / "results")])
+    assert out["errors"] == []
+    assert out["device"] == "cuda:0"
+    assert out["steps"] == 3 * 8 * 4
+    assert out["finite"]
+    assert out["launches"] == {"flash_fwd": 0, "flash_bwd_dq": 0,
+                               "flash_bwd_dkv": 0}
+    assert out["worst"] <= 1.0

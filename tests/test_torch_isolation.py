@@ -54,7 +54,7 @@ def test_all_names_every_subpackage():
     runtime's API, and the walk that the blocked import takes reaches every
     module (the RL learners, the MNIST model, the runtime, the vendored
     cloudpickle, the native build, ``cluster_utils``, ``air``, ``data``
-    and ``train`` included)."""
+    ``train``, ``tune`` and RLlib's runtime included)."""
     import ray_tpu_torch
 
     pkg = os.path.join(ROOT, "ray_tpu_torch")
@@ -73,7 +73,12 @@ def test_all_names_every_subpackage():
             "ray_tpu_torch._vendor.cloudpickle.cloudpickle",
             "ray_tpu_torch.cluster_utils", "ray_tpu_torch.air.checkpoint",
             "ray_tpu_torch.data.iterator", "ray_tpu_torch.train.torch",
-            "ray_tpu_torch.train.sklearn"} <= set(
+            "ray_tpu_torch.train.sklearn", "ray_tpu_torch.tune",
+            "ray_tpu_torch.tune.tune_controller",
+            "ray_tpu_torch.rllib.algorithm", "ray_tpu_torch.rllib.env_runner",
+            "ray_tpu_torch.rllib.learner_group",
+            "ray_tpu_torch.rllib.multi_agent",
+            "ray_tpu_torch.rllib.replay_buffers"} <= set(
                 _port_modules())
 
 
@@ -124,6 +129,20 @@ class Actor:
 
 print("task", rt.get(task.remote(21), timeout=60))
 print("actor", rt.get(Actor.remote(1).add.remote(2), timeout=60))
+
+from ray_tpu_torch import tune
+
+
+def trial(config):
+    tune.report({"y": config["x"] * 2, "loaded": loaded()})
+
+
+grid = tune.Tuner(
+    trial, param_space={"x": tune.grid_search([1, 2])},
+    tune_config=tune.TuneConfig(metric="y", mode="max"),
+    run_config=tune.RunConfig(name="iso", storage_path=sys.argv[1])).fit()
+best = grid.get_best_result()
+print("tune", best.metrics["y"], best.metrics["loaded"], len(grid.errors))
 print("driver", loaded())
 rt.shutdown()
 """
@@ -132,16 +151,18 @@ rt.shutdown()
 def test_cluster_runs_with_jax_and_ray_tpu_blocked(tmp_path):
     """A port cluster starts in a driver where jax, jaxlib, ray_tpu and the
     installed cloudpickle cannot be imported; a task and an actor call
-    return, and neither the workers nor the driver loaded any of them."""
+    return, a Tune sweep runs its two trials in trial actors, and neither
+    the workers nor the driver loaded any of them."""
     main = tmp_path / "main.py"
     main.write_text(f"FORBIDDEN = {FORBIDDEN!r}\n" + CLUSTER)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = ROOT
-    proc, stdout, stderr = run_driver([sys.executable, str(main)],
-                                      str(tmp_path), env)
+    proc, stdout, stderr = run_driver(
+        [sys.executable, str(main), str(tmp_path / "results")],
+        str(tmp_path), env)
     assert proc.returncode == 0, stderr
     assert stdout.splitlines() == [
-        "task [42, []]", "actor [3, []]", "driver []"], stdout
+        "task [42, []]", "actor [3, []]", "tune 4 [] 0", "driver []"], stdout
 
 
 SERVE_APP = """

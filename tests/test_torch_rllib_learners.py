@@ -402,7 +402,8 @@ def test_impala_init_and_optimizer():
     assert isinstance(opt, topt.RMSprop)
     assert opt.defaults == {"lr": cfg.lr, "decay": 0.99, "eps": 0.1}
     assert len(opt.param_groups[0]["params"]) == 12
-    with pytest.raises(NotImplementedError, match="A7"):
+    # build() reaches Algorithm.setup, which wants an environment, as JAX's
+    with pytest.raises(AssertionError, match="environment"):
         cfg.build()
 
 
@@ -540,16 +541,27 @@ def test_bc_update_matches_jax(updates):
 
 @pytest.mark.parametrize("cfg", ["PPOConfig", "ImpalaConfig", "DQNConfig",
                                  "SACConfig", "BCConfig"])
-def test_configs_match_jax_and_build_raises(cfg):
-    """Each config's fields and defaults are JAX's (less the runtime's
-    ``num_learners`` fan-out, kept); ``build()`` names the runtime."""
+def test_configs_match_jax_and_build_raises(cfg, monkeypatch):
+    """Each config's fields and defaults are JAX's, and the port's one more,
+    ``learner_device`` (the card by default); ``build()`` gives the
+    algorithm JAX's ``build()`` gives, an ``Algorithm`` (its ``setup``, which
+    starts the runners, is stubbed out on both sides here), and without
+    an environment both raise in ``setup``."""
     import ray_tpu.rllib as jr
     import ray_tpu_torch.rllib as tr
 
     jc, tc = getattr(jr, cfg)(), getattr(tr, cfg)()
-    assert tc.to_dict() == jc.to_dict()
-    with pytest.raises(NotImplementedError, match="A7"):
+    ours = tc.to_dict()
+    assert ours.pop("learner_device") == "cuda"
+    assert ours == jc.to_dict()
+    with pytest.raises(AssertionError, match="environment"):
         tc.build()
+    monkeypatch.setattr(jr.Algorithm, "setup", lambda self, config: None)
+    monkeypatch.setattr(tr.Algorithm, "setup", lambda self, config: None)
+    jalgo, talgo = jc.build(), tc.build()
+    assert type(talgo).__name__ == type(jalgo).__name__
+    assert isinstance(talgo, tr.Algorithm)
+    assert talgo._algo_config is tc
 
 
 def test_sac_temperature_takes_logp_before_the_step():

@@ -72,14 +72,28 @@ there.  The hunks:
     definition): ``_HostGroup.allreduce`` of a tensor takes it to the host,
     as ``np.asarray`` of a device array does in the reference, and returns
     a CPU tensor; ``init_collective_group`` accepts ``"c10d"``, the port's
-    in-program class, where the reference accepts ``"xla"``.
+    in-program class, where the reference accepts ``"xla"``;
+(n) RLlib's learner on the card (``rllib/algorithm.py``, held definition
+    by definition): ``AlgorithmConfig.learner_device`` (``"cuda"`` unless a
+    caller names ``"cpu"``) is the learner's device, and
+    ``Algorithm.learner_device()`` returns it and raises where no card is
+    visible, with no fall back to the CPU.
 
 Hunk (a) is also listed where a name of the reference begins with
 ``ray_tpu_`` and so escapes the rename's word boundary: ``RunConfig``'s
 default storage ``~/ray_tpu_results`` becomes ``~/ray_tpu_torch_results``.
 
 ``serve/`` is the reference's ``serve/`` (controller, router, HTTP proxy,
-replica, batching, multiplexing, telemetry) with hunk (b) alone.
+replica, batching, multiplexing, telemetry) with hunk (b) alone, and
+``tune/`` (the controller, trainables, schedulers, searchers and syncers)
+the reference's ``tune/`` with hunk (a) alone, the experiments restored
+from a URI staged under ``~/ray_tpu_torch_results/_synced``.  The trial
+actor asks for ``num_tpus``, one card a ``"TPU"`` (f), and a trial that
+asks for none is kept off the card by the raylet, as every CPU worker is
+(e, in ``core/raylet.py``).  ``rllib/replay_buffers.py`` is the reference's
+(numpy only); ``rllib/algorithm.py``'s ``AlgorithmConfig`` and
+``Algorithm`` are the reference's with hunks (e), the rollout actors kept
+off the card, and (n).
 ``cluster_utils.py`` is the reference's with hunks (e), the cluster's
 processes kept off the card by ``CUDA_VISIBLE_DEVICES=""`` unless the
 caller's environment names it, and (g).  ``air/``, ``data/`` and ``train/``
@@ -113,10 +127,12 @@ SERVE = sorted(f"serve/{f}" for f in os.listdir(os.path.join(REF, "serve"))
 TRAIN = [f"{sub}/{f}" for sub in ("air", "data", "train")
          for f in sorted(os.listdir(os.path.join(REF, sub)))
          if f.endswith(".py")]
-COPIED = CORE + UTIL + SERVE + TRAIN + ["runtime_context.py", "dag.py",
-                                        "cluster_utils.py",
-                                        "native/src/object_store.cc",
-                                        "native/src/frame_codec.cc"]
+TUNE = sorted(f"tune/{f}" for f in os.listdir(os.path.join(REF, "tune"))
+              if f.endswith(".py"))
+COPIED = CORE + UTIL + SERVE + TRAIN + TUNE + [
+    "runtime_context.py", "dag.py", "cluster_utils.py",
+    "native/src/object_store.cc", "native/src/frame_codec.cc",
+    "rllib/replay_buffers.py"]
 
 # path -> [(hunk, first reference line, last reference line)]; an insertion
 # after reference line n is at (n, n)
@@ -150,6 +166,7 @@ HUNKS = {
     "train/torch.py": [("l", 9, 123)],
     "train/trainer.py": [("l", 1, 1), ("l", 22, 22), ("l", 36, 39),
                          ("l", 117, 120), ("l", 218, 228)],
+    "tune/__init__.py": [("a", 180, 180)],
 }
 
 # hunks whose new lines are the reference's under one textual substitution
@@ -204,10 +221,10 @@ def test_copy_differs_only_in_listed_hunks(path):
 
 
 def test_copy_list_is_whole():
-    """Every module of the reference's core, serve, air, data and train is
-    copied, and the port's core, util, serve, air, data and train hold
-    nothing that is not a copy."""
-    for sub in ("core", "util", "serve", "air", "data", "train"):
+    """Every module of the reference's core, serve, air, data, train and
+    tune is copied, and the port's core, util, serve, air, data, train and
+    tune hold nothing that is not a copy."""
+    for sub in ("core", "util", "serve", "air", "data", "train", "tune"):
         port = {f"{sub}/{f}" for f in os.listdir(os.path.join(PORT, sub))
                 if f.endswith(".py")}
         assert port == {p for p in COPIED if p.startswith(sub + "/")}
@@ -215,6 +232,7 @@ def test_copy_list_is_whole():
         os.path.join(REF, "core")) if f.endswith(".py")}
     assert len(SERVE) == 8
     assert len(TRAIN) == 5 + 6 + 8
+    assert len(TUNE) == 6
     assert set(HUNKS) <= set(COPIED)
 
 
@@ -272,6 +290,24 @@ def test_host_collectives_are_the_reference(name):
     first, ref_lines = ref[name]
     _check_hunks(ref_lines, port[name][1],
                  HOST_COLLECTIVE_HUNKS.get(name, []), first_line=first)
+
+
+ALGORITHM = ("AlgorithmConfig", "Algorithm")
+# (e): the rollout actors off the card; (n): the learner's device
+ALGORITHM_HUNKS = {"AlgorithmConfig": [("n", 27, 27)],
+                   "Algorithm": [("e", 93, 98), ("n", 125, 125)]}
+
+
+@pytest.mark.parametrize("name", ALGORITHM)
+def test_algorithm_is_the_reference(name):
+    """``ray_tpu_torch/rllib/algorithm.py`` holds the reference's
+    ``AlgorithmConfig`` and ``Algorithm``, each as it stands there but for
+    hunks (e) and (n)."""
+    ref = _definitions(_renamed("rllib/algorithm.py"))
+    port = _definitions(_read("rllib/algorithm.py"))
+    first, ref_lines = ref[name]
+    _check_hunks(ref_lines, port[name][1], ALGORITHM_HUNKS[name],
+                 first_line=first)
 
 
 def test_host_allreduce_of_a_tensor():

@@ -31,6 +31,7 @@ import sys
 import time
 
 import numpy as np
+import pytest
 
 from ray_tpu_torch.session_root import new_session_root
 
@@ -350,6 +351,7 @@ def test_actors(tmp_path):
 
 OBJECTS = """
 import numpy as np
+import pytest
 import torch
 
 rt.init(num_cpus=4)
@@ -795,6 +797,7 @@ def test_serve(tmp_path):
 
 TRAIN_MNIST = """
 import numpy as np
+import pytest
 
 PKG = sys.argv[1]
 train = importlib.import_module(PKG + ".train")
@@ -920,6 +923,7 @@ def test_train_mnist(tmp_path):
 
 DATA = """
 import numpy as np
+import pytest
 
 data = importlib.import_module(sys.argv[1] + ".data")
 rt.init(num_cpus=4)
@@ -942,3 +946,200 @@ def test_data_pipeline(tmp_path):
     out = check_same(tmp_path, DATA, {"count": 64})
     ids = [r[0] for r in out["rows"]]
     assert ids == list(range(64))
+
+
+TUNE_SWEEP = """
+tune = importlib.import_module(sys.argv[1] + ".tune")
+rt.init(num_cpus=4)
+
+
+def objective(config):
+    for i in range(8):
+        tune.report({"score": -(config["x"] - 3.0) ** 2 * config["w"]
+                     + 0.25 * i})
+
+
+sched = tune.ASHAScheduler(metric="score", mode="max", max_t=8,
+                           grace_period=2, reduction_factor=2)
+grid = tune.Tuner(
+    objective,
+    param_space={"x": tune.uniform(-10.0, 10.0),
+                 "w": tune.grid_search([1.0, 2.0])},
+    tune_config=tune.TuneConfig(
+        metric="score", mode="max", num_samples=5, scheduler=sched,
+        search_alg=tune.TPESearcher(n_initial_points=4, seed=0),
+        max_concurrent_trials=1),
+    run_config=tune.RunConfig(name="sweep", storage_path=os.path.join(
+        os.environ["RAY_TPU_TEMP_DIR"], "results"))).fit()
+OUT["configs"] = [[r.config["x"].hex(), r.config["w"]] for r in grid]
+OUT["iterations"] = [r.metrics["training_iteration"] for r in grid]
+OUT["scores"] = [r.metrics["score"].hex() for r in grid]
+best = grid.get_best_result()
+OUT["best"] = [best.config["x"].hex(), best.metrics["score"].hex()]
+OUT["errors"] = len(grid.errors)
+"""
+
+
+def test_tune_sweep(tmp_path):
+    """One Tune program through both packages: ``TPESearcher(seed=0)`` over
+    a uniform and a ``grid_search`` dimension, 10 trials one at a time,
+    under ``ASHAScheduler`` (rungs at 2 and 4 of 8 reports).  Both give the
+    same trial configs, the same trials stopped at the same rungs, the
+    same scores and the same best result, bit for bit (hex floats)."""
+    out = check_same(tmp_path, "import os\n" + TUNE_SWEEP, {"errors": 0},
+                     timeout=300)
+    assert len(out["configs"]) == 10
+    assert min(out["iterations"]) < 8 == max(out["iterations"])
+
+
+RL_STUB = """
+import pickle
+import types
+
+import numpy as np
+import pytest
+
+PKG, ALGO, INIT, FINAL = sys.argv[1:5]
+rllib = importlib.import_module(PKG + ".rllib")
+sample_batch = importlib.import_module(PKG + ".rllib.sample_batch")
+rt.init(num_cpus=3)
+T, B, ITERS = 16, 4, 3
+
+
+class StubEnv:
+    observation_space = types.SimpleNamespace(shape=(4,))
+    action_space = types.SimpleNamespace(n=2)
+
+    def close(self):
+        pass
+
+
+class StubRunner:
+    \"\"\"Rollouts drawn from a numpy generator by call index: the same
+    transitions whatever weights the runner holds.\"\"\"
+
+    def __init__(self, env_creator, num_envs, rollout_length, policy_init,
+                 seed=0, **kwargs):
+        self.seed, self.calls = seed, 0
+
+    def set_weights(self, weights):
+        return True
+
+    def sample(self):
+        rng = np.random.default_rng([self.seed, self.calls])
+        self.calls += 1
+        n = T * B
+        logits = rng.standard_normal((n, 2))
+        actions = rng.integers(0, 2, n)
+        logp = logits - np.log(np.exp(logits).sum(-1, keepdims=True))
+        cols = {
+            "obs": rng.standard_normal((n, 4)).astype(np.float32),
+            "actions": actions,
+            "logps": logp[np.arange(n), actions].astype(np.float32),
+            "values": rng.standard_normal(n).astype(np.float32),
+            "rewards": rng.standard_normal(n).astype(np.float32),
+            "dones": (rng.random(n) < 0.1).astype(np.float32),
+            "next_obs": rng.standard_normal((n, 4)).astype(np.float32),
+        }
+        return {"batch": sample_batch.SampleBatch(cols), "t_shape": (T, B),
+                "last_values": rng.standard_normal(B).astype(np.float32),
+                "metrics": {"episodes": [(float(rng.normal(20, 5)), 20)],
+                            "env_steps": n}}
+
+
+class Algo(getattr(rllib, ALGO)):
+    def runner_class(self):
+        return StubRunner
+
+
+cfg = (getattr(rllib, ALGO + "Config")().environment(StubEnv)
+       .env_runners(num_env_runners=1, num_envs_per_runner=B,
+                    rollout_length=T).debugging(seed=0))
+if ALGO == "DQN":
+    # uniform replay: its draws depend on the generator alone (PER's would
+    # also follow |td|, which the two packages round apart)
+    cfg.training(learning_starts=32, train_batch_size=32,
+                 num_updates_per_iter=4, prioritized_replay=False,
+                 target_network_update_freq=10 ** 9)
+if PKG == "ray_tpu_torch":
+    cfg.training(learner_device="cpu")
+algo = Algo(cfg)
+if os.path.exists(INIT):
+    with open(INIT, "rb") as f:
+        algo.set_weights(pickle.load(f))
+    algo.sync_weights()
+else:
+    with open(INIT, "wb") as f:
+        pickle.dump(algo.get_weights(), f)
+results = [algo.train() for _ in range(ITERS)]
+with open(FINAL, "wb") as f:
+    pickle.dump(algo.get_weights(), f)
+algo.stop()
+OUT["keys"] = [sorted(r) for r in results]
+OUT["results"] = [{k: float(v) for k, v in r.items()
+                   if k != "env_steps_per_sec"} for r in results]
+"""
+
+# the learners' updates after the same weights on the same rollouts, f32 on
+# both sides in another order: result metrics |a - b| <= RL_RESULT_RTOL |b|
+# + RL_RESULT_ATOL, and each leaf of the final weights ||p - p_jax|| <=
+# RL_MOVE_RTOL ||p_jax - p_0||: the learner tests' tolerances
+# (tests/test_torch_rllib_learners.py, METRIC_RTOL, METRIC_ATOL, MOVE_RTOL;
+# measured here: metrics 2.5e-7 relative, leaves 1.2e-5 of the distance
+# moved, after 3 iterations)
+RL_RESULT_RTOL, RL_RESULT_ATOL = 1e-5, 1e-6
+RL_MOVE_RTOL = 1e-3
+
+
+def _tree_leaves(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _tree_leaves(tree[k])]
+    return [np.asarray(tree)]
+
+
+@pytest.mark.parametrize("algo", ["Impala", "DQN"])
+def test_rl_algorithm_on_stub_rollouts(tmp_path, algo):
+    """One RLlib program through both packages: ``Impala`` (one runner, so
+    iteration i consumes rollout i) and ``DQN`` (uniform replay) train 3
+    iterations on a stub runner's rollouts, drawn by call index from a
+    numpy generator; the port's learner (on the CPU) starts from
+    ``set_weights(jax_algo.get_weights())``.  Both report the same keys,
+    the same env steps and episode returns, metrics within
+    ``RL_RESULT_RTOL``/``ATOL``, and final weights within the learner
+    tests' tolerance of JAX's."""
+    import pickle
+
+    main = tmp_path / "main.py"
+    main.write_text(HEADER + "import os\n" + RL_STUB + FOOTER)
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    init = str(tmp_path / "init.pkl")
+    out, finals = {}, {}
+    for pkg in PACKAGES:  # the reference first: it writes the initial weights
+        final = str(tmp_path / f"final_{pkg}.pkl")
+        proc, stdout, stderr = run_driver(
+            [sys.executable, str(main), pkg, algo, init, final],
+            str(tmp_path), env, timeout=300)
+        assert proc.returncode == 0, f"{pkg}:\n{stdout}\n{stderr}"
+        line = [l for l in stdout.splitlines() if l.startswith("RESULT ")]
+        out[pkg] = json.loads(line[-1][len("RESULT "):])
+        with open(final, "rb") as f:
+            finals[pkg] = pickle.load(f)
+    ref, port = out["ray_tpu"], out["ray_tpu_torch"]
+    assert port["keys"] == ref["keys"]
+    for r_ref, r_port in zip(ref["results"], port["results"]):
+        for k in ("num_env_steps_sampled", "episode_reward_mean",
+                  "training_iteration"):
+            assert r_port[k] == r_ref[k], k
+        np.testing.assert_allclose(
+            [r_port[k] for k in sorted(r_ref)],
+            [r_ref[k] for k in sorted(r_ref)],
+            rtol=RL_RESULT_RTOL, atol=RL_RESULT_ATOL, equal_nan=True)
+    with open(init, "rb") as f:
+        before = pickle.load(f)
+    pick = (lambda w: w["params"]) if algo == "DQN" else (lambda w: w)
+    for got, want, p0 in zip(_tree_leaves(pick(finals["ray_tpu_torch"])),
+                             _tree_leaves(pick(finals["ray_tpu"])),
+                             _tree_leaves(pick(before))):
+        assert got.shape == want.shape
+        assert np.linalg.norm(got - want) <= \
+            RL_MOVE_RTOL * np.linalg.norm(want - p0)
