@@ -295,7 +295,31 @@ Phases; any failure exits non-zero:
    rollouts (phase 14's tolerances), the first update's metrics too, the
    flash kernels' launch counts unmoved; ms per iteration, the update's
    ms (CUDA events) and frames/s beside phase 14's update; after
-   ``shutdown()`` nothing may remain, as in phase 18.
+   ``shutdown()`` nothing may remain, as in phase 18;
+21. workflow, job — a port ``Cluster`` of one node with 2 CPUs and the card,
+   under a session root of its own: a workflow (``ray_tpu_torch.workflow``)
+   whose first step, a GPU task (``card_forward``, ``num_tpus=1``), builds
+   GPT-2 124M from ``--seed`` and returns phase 3's first logits (S=500)
+   with its launch count, and whose second step, on the CPU
+   (``fail_first``), fails on its first attempt: the run fails with step
+   1's checkpoint a CPU tensor bit-equal to phase 3's logits, and
+   ``workflow.resume`` returns those logits bit-equal without running step
+   1 again (its launch log gains nothing: 0 launches on resume); then a
+   job submitted with ``JobSubmissionClient`` whose entrypoint
+   (``job_main``) prints the cards it sees (0: its supervisor is a CPU
+   worker, ``CUDA_VISIBLE_DEVICES=""``) and runs the same forward in a
+   ``num_tpus=1`` task: the job must reach ``SUCCEEDED`` and its logs carry
+   a digest equal to phase 3's; nothing may remain after ``shutdown()``;
+22. autoscaler — an ``AutoscalingCluster`` under a session root of its own
+   (a ``{"CPU": 1}`` head, one worker type ``{"CPU": 1, "TPU": 1}``,
+   ``max_workers=1``, ``idle_timeout_s`` ``AUTOSCALE_IDLE_S``): a pending
+   ``num_tpus=1`` task (``card_forward``) brings up the node, the
+   dashboard's ``/api/cluster_resources`` and ``python -m
+   ray_tpu_torch.scripts status`` both show ``"TPU": 1.0`` while it is up,
+   the task's logits are phase 3's bit for bit with ``n_layer`` launches
+   on that node, and the node is removed once idle for the timeout;
+   scale-up and scale-down seconds; nothing may remain after
+   ``shutdown()``.
 
 Every timed run of phases 8-13 over two or four ranks trains
 ``FOUR_RANK_DEPTH`` (4) layers of GPT-2 124M's widths (or its MoE's),
@@ -315,7 +339,9 @@ The forward kernel's launches are listed by path, the runtime's actor
 (``runtime_actor``) and the Serve replicas (``serve_run_gpt2``,
 ``serve_run_llama``) among them; each kernel's also the Train workers'
 (``train_run``, ``train_run_resumed``, ``train_run_dp2``) and Tune's
-(``tune_trials``, summed over the trials, and ``tune_trainer``).  The last two lines are a JSON object of
+(``tune_trials``, summed over the trials, and ``tune_trainer``); the
+forward's also phase 21's workflow step and job task (``workflow``,
+``job``) and phase 22's autoscaled node (``autoscaler``).  The last two lines are a JSON object of
 per-kernel numbers and the result line ``{"ok": true, "device":
 {...}}``.  ``--profile`` adds ``torch.profiler`` tables of device time
 by kernel for a forward at S=1024, a train step, a Llama forward at
@@ -3709,33 +3735,62 @@ class RuntimeGenerator:
         return self.gen.launches()
 
 
+@contextlib.contextmanager
+def port_session(tag):
+    """A session root of its own for a phase's cluster, and the card named
+    in its processes' environment (they keep it hidden otherwise): yields
+    that environment; after the block nothing of the runtime may remain
+    (``chaos.assert_clean_host``)."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.session_root import new_session_root
+    from ray_tpu_torch.util import chaos
+
+    free_memory(tag)
+    root = new_session_root()
+    rt.config.temp_dir = root
+    baseline = chaos.snapshot_host()
+    yield {"RAY_TPU_TEMP_DIR": root,
+           "CUDA_VISIBLE_DEVICES": os.environ.get("CUDA_VISIBLE_DEVICES")
+           or "0"}
+    try:
+        chaos.assert_clean_host(baseline)
+    except chaos.HostLeakError as e:
+        fail(f"{tag} shutdown left {e}")
+    shutil.rmtree(root, ignore_errors=True)
+    print(f"[{tag}] shutdown: no ray_tpu_torch.core.*_main process and no "
+          f"rtt_store segment left", flush=True)
+
+
+@contextlib.contextmanager
+def results_in_temp(tag):
+    """A temp directory for a phase's run results, removed after the
+    block; ``~/ray_tpu_torch_results`` must then be as it was before."""
+    storage = tempfile.mkdtemp(prefix="rtt_results_")
+    home = os.path.expanduser("~/ray_tpu_torch_results")
+    home_before = os.path.exists(home)
+    yield storage
+    shutil.rmtree(storage)
+    if os.path.exists(home) != home_before:
+        fail(f"the runs left {home}")
+    print(f"[{tag}] no results outside the temp dir ({home} exists: "
+          f"{home_before}, as before)", flush=True)
+
+
 def phase_runtime(seed, serve_ref, profile):
     """Phase 15: the port's core runtime on one node, with the card as the
     chip resource; ``serve_ref`` is phase 3's tokens, first logits and ms
     per request.  ``profile`` also times the put's copy to the host and
     its serialize alone."""
     import ray_tpu_torch as rt
-    from ray_tpu_torch.session_root import new_session_root
-    from ray_tpu_torch.util import chaos
 
-    free_memory("runtime")
-    root = new_session_root()
-    rt.config.temp_dir = root
-    baseline = chaos.snapshot_host()
-    t = time.perf_counter()
-    rt.init()
-    try:
-        launches = runtime_checks(rt, seed, serve_ref, profile,
-                                  time.perf_counter() - t)
-    finally:
-        rt.shutdown()
-    try:
-        chaos.assert_clean_host(baseline)
-    except chaos.HostLeakError as e:
-        fail(f"runtime shutdown left {e}")
-    shutil.rmtree(root, ignore_errors=True)
-    print("[runtime] shutdown: no ray_tpu_torch.core.*_main process and no "
-          "rtt_store segment left", flush=True)
+    with port_session("runtime"):
+        t = time.perf_counter()
+        rt.init()
+        try:
+            launches = runtime_checks(rt, seed, serve_ref, profile,
+                                      time.perf_counter() - t)
+        finally:
+            rt.shutdown()
     return launches
 
 
@@ -3873,31 +3928,18 @@ def phase_serve_run(seed, serve_ref, llama_ref):
     the replicas' processes."""
     import ray_tpu_torch as rt
     from ray_tpu_torch import serve
-    from ray_tpu_torch.session_root import new_session_root
-    from ray_tpu_torch.util import chaos
 
-    free_memory("serve run")
-    root = new_session_root()
-    rt.config.temp_dir = root
-    baseline = chaos.snapshot_host()
-    rt.init()
-    try:
-        serve.start()
-        launches = {"serve_run_gpt2": serve_run_gpt2(
-            rt, serve, seed, serve_ref)}
-        launches["serve_run_llama"] = serve_run_llama(
-            rt, serve, seed, llama_ref)
-    finally:
-        serve.shutdown()
-        rt.shutdown()
-    try:
-        chaos.assert_clean_host(baseline)
-    except chaos.HostLeakError as e:
-        fail(f"serve shutdown left {e}")
-    shutil.rmtree(root, ignore_errors=True)
-    print("[serve run] serve.shutdown() and shutdown(): no "
-          "ray_tpu_torch.core.*_main process and no rtt_store segment left",
-          flush=True)
+    with port_session("serve run"):
+        rt.init()
+        try:
+            serve.start()
+            launches = {"serve_run_gpt2": serve_run_gpt2(
+                rt, serve, seed, serve_ref)}
+            launches["serve_run_llama"] = serve_run_llama(
+                rt, serve, seed, llama_ref)
+        finally:
+            serve.shutdown()
+            rt.shutdown()
     return launches
 
 
@@ -4053,34 +4095,18 @@ def phase_cluster(seed):
     ``shutdown()``."""
     import ray_tpu_torch as rt
     from ray_tpu_torch.cluster_utils import Cluster
-    from ray_tpu_torch.session_root import new_session_root
-    from ray_tpu_torch.util import chaos
 
-    free_memory("cluster")
-    root = new_session_root()
-    rt.config.temp_dir = root
-    baseline = chaos.snapshot_host()
-    # the cluster's processes keep the card hidden unless env names it
-    env = {"RAY_TPU_TEMP_DIR": root,
-           "CUDA_VISIBLE_DEVICES": os.environ.get("CUDA_VISIBLE_DEVICES")
-           or "0"}
-    t = time.perf_counter()
-    c = Cluster(initialize_head=True, head_resources={"num_cpus": 2},
-                env=env)
-    try:
-        card_node = c.add_node(num_cpus=1, num_tpus=1)
-        c.wait_for_nodes(2)
-        c.connect()
-        cluster_checks(rt, c, card_node, seed, time.perf_counter() - t)
-    finally:
-        c.shutdown()
-    try:
-        chaos.assert_clean_host(baseline)
-    except chaos.HostLeakError as e:
-        fail(f"cluster shutdown left {e}")
-    shutil.rmtree(root, ignore_errors=True)
-    print("[cluster] shutdown: no ray_tpu_torch.core.*_main process and no "
-          "rtt_store segment left", flush=True)
+    with port_session("cluster") as env:
+        t = time.perf_counter()
+        c = Cluster(initialize_head=True, head_resources={"num_cpus": 2},
+                    env=env)
+        try:
+            card_node = c.add_node(num_cpus=1, num_tpus=1)
+            c.wait_for_nodes(2)
+            c.connect()
+            cluster_checks(rt, c, card_node, seed, time.perf_counter() - t)
+        finally:
+            c.shutdown()
 
 
 def cluster_checks(rt, c, card_node, seed, up_s):
@@ -4274,32 +4300,13 @@ def phase_train_run(seed):
     runtime, held to phase 4; returns the launches of each kernel counted
     in the workers, by run."""
     import ray_tpu_torch as rt
-    from ray_tpu_torch.session_root import new_session_root
-    from ray_tpu_torch.util import chaos
 
-    free_memory("train run")
-    root = new_session_root()
-    rt.config.temp_dir = root
-    storage = tempfile.mkdtemp(prefix="rtt_train_run_")
-    home = os.path.expanduser("~/ray_tpu_torch_results")
-    home_before = os.path.exists(home)
-    baseline = chaos.snapshot_host()
-    rt.init(object_store_memory=TRAIN_RUN_STORE_BYTES)
-    try:
-        launches = train_run_checks(rt, seed, storage)
-    finally:
-        rt.shutdown()
-    try:
-        chaos.assert_clean_host(baseline)
-    except chaos.HostLeakError as e:
-        fail(f"train run shutdown left {e}")
-    shutil.rmtree(storage)
-    shutil.rmtree(root, ignore_errors=True)
-    if os.path.exists(home) != home_before:
-        fail(f"the runs left {home}")
-    print(f"[train run] shutdown: no ray_tpu_torch.core.*_main process, no "
-          f"rtt_store segment, and no results outside the temp dir "
-          f"({home} exists: {os.path.exists(home)}, as before)", flush=True)
+    with port_session("train run"), results_in_temp("train run") as storage:
+        rt.init(object_store_memory=TRAIN_RUN_STORE_BYTES)
+        try:
+            launches = train_run_checks(rt, seed, storage)
+        finally:
+            rt.shutdown()
     return launches
 
 
@@ -4608,39 +4615,20 @@ def phase_tune_rllib(seed):
     own; returns the launches of each kernel in the Tune trials and in
     the trainer's worker."""
     import ray_tpu_torch as rt
-    from ray_tpu_torch.session_root import new_session_root
-    from ray_tpu_torch.util import chaos
 
-    free_memory("tune")
-    root = new_session_root()
-    rt.config.temp_dir = root
-    storage = tempfile.mkdtemp(prefix="rtt_tune_")
-    home = os.path.expanduser("~/ray_tpu_torch_results")
-    home_before = os.path.exists(home)
-    baseline = chaos.snapshot_host()
-    rt.init(object_store_memory=TRAIN_RUN_STORE_BYTES)
-    try:
-        t0 = time.perf_counter()
-        launches = tune_checks(seed, storage)
-        print(f"[tune] phase 19: {time.perf_counter() - t0:.1f} s",
-              flush=True)
-        t0 = time.perf_counter()
-        rllib_checks(seed, storage)
-        print(f"[rllib] phase 20: {time.perf_counter() - t0:.1f} s",
-              flush=True)
-    finally:
-        rt.shutdown()
-    try:
-        chaos.assert_clean_host(baseline)
-    except chaos.HostLeakError as e:
-        fail(f"tune and rllib shutdown left {e}")
-    shutil.rmtree(storage)
-    shutil.rmtree(root, ignore_errors=True)
-    if os.path.exists(home) != home_before:
-        fail(f"the runs left {home}")
-    print(f"[rllib] shutdown: no ray_tpu_torch.core.*_main process, no "
-          f"rtt_store segment, and no results outside the temp dir "
-          f"({home} exists: {os.path.exists(home)}, as before)", flush=True)
+    with port_session("tune"), results_in_temp("rllib") as storage:
+        rt.init(object_store_memory=TRAIN_RUN_STORE_BYTES)
+        try:
+            t0 = time.perf_counter()
+            launches = tune_checks(seed, storage)
+            print(f"[tune] phase 19: {time.perf_counter() - t0:.1f} s",
+                  flush=True)
+            t0 = time.perf_counter()
+            rllib_checks(seed, storage)
+            print(f"[rllib] phase 20: {time.perf_counter() - t0:.1f} s",
+                  flush=True)
+        finally:
+            rt.shutdown()
     return launches
 
 
@@ -4834,6 +4822,275 @@ def rllib_checks(seed, storage):
         fail("rllib: the card's learner disagrees with the CPU replay")
 
 
+# ---------------------------------------------------------------------------
+# phases 21 and 22: workflows, job submission, the autoscaler, the
+# dashboard and the CLI on the port's runtime
+# ---------------------------------------------------------------------------
+
+# phase 22's card node is removed once it has been idle this long
+AUTOSCALE_IDLE_S = 8.0
+
+
+def card_forward(seed, prompt, log_path=None):
+    """Phase 3's first forward in a GPU task: GPT-2 124M from ``seed``, one
+    forward over ``prompt``, with the forward kernel's launches counted in
+    this process from 0; appended to ``log_path`` where given, so a caller
+    sees every run of the task.  The runtime takes the logits to the host.
+    Shipped by reference from the module ``chip_smoke``."""
+    fa.KERNEL_LAUNCHES = 0
+    gen = Generator("small", "cuda", seed)
+    logits = gen.logits({"prompt": prompt})
+    torch.cuda.synchronize()
+    launches = fa.KERNEL_LAUNCHES
+    if log_path:
+        with open(log_path, "a") as f:
+            f.write(f"{launches}\n")
+    return {"logits": logits, "launches": launches,
+            "node": os.environ.get("RAY_TPU_NODE_ID")}
+
+
+def fail_first(value, flag_path):
+    """A CPU step that fails on its first attempt (it leaves ``flag_path``
+    behind) and passes ``value`` on after that."""
+    if not os.path.exists(flag_path):
+        open(flag_path, "w").close()
+        raise RuntimeError("the second step fails on its first attempt")
+    return {**value, "gate_sees_card": torch.cuda.is_available()}
+
+
+def job_main(seed):
+    """A submitted job's entrypoint (``python3 -c "import chip_smoke as c;
+    c.job_main(seed)"``): it counts the cards it sees, attaches to the
+    cluster (``RAY_TPU_ADDRESS``) and runs phase 3's first forward in a
+    task with ``num_tpus=1``; one ``JOB {json}`` line."""
+    import ray_tpu_torch as rt
+
+    cards = torch.cuda.device_count()
+    print(f"JOB-CARDS {cards} CUDA_VISIBLE_DEVICES="
+          f"{os.environ.get('CUDA_VISIBLE_DEVICES')!r}", flush=True)
+    rt.init()
+    prompt = serve_prompts(seed)[1][500]
+    out = rt.get(rt.remote(num_tpus=1)(card_forward).remote(seed, prompt),
+                 timeout=600)
+    print("JOB " + json.dumps({
+        "cards": cards, "digest": tensor_checksum(out["logits"])[0],
+        "launches": out["launches"], "dtype": str(out["logits"].dtype),
+        "device": out["logits"].device.type}), flush=True)
+    rt.shutdown()
+
+
+def phase_workflow_job(seed, serve_ref):
+    """Phase 21: a port ``Cluster`` of one node with the card, under a
+    session root of its own: a workflow whose first step runs phase 3's
+    first forward on the card and whose second step fails once, resumed;
+    then a submitted job whose task runs the same forward.  Returns the
+    forward kernel's launches by path."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.cluster_utils import Cluster
+
+    with port_session("workflow") as env:
+        c = Cluster(initialize_head=True,
+                    head_resources={"num_cpus": 2, "num_tpus": 1}, env=env)
+        try:
+            c.wait_for_nodes(1)
+            c.connect()
+            launches = {
+                "workflow": workflow_checks(rt, seed, serve_ref,
+                                            env["RAY_TPU_TEMP_DIR"]),
+                "job": job_checks(c, seed, serve_ref)}
+            rt.shutdown()
+        finally:
+            c.shutdown()
+    return launches
+
+
+def workflow_checks(rt, seed, serve_ref, root):
+    import pickle
+
+    from ray_tpu_torch import workflow
+
+    store = os.path.join(root, "workflows")
+    workflow.init_storage(store)
+    log = os.path.join(root, "card_forward.log")
+    flag = os.path.join(root, "fail_first.flag")
+    forward = rt.remote(num_tpus=1)(script_class("card_forward"))
+    gate = rt.remote(num_cpus=1, max_retries=0)(script_class("fail_first"))
+    dag = gate.bind(forward.bind(seed, serve_ref["prompts"][500], log), flag)
+    t = time.perf_counter()
+    try:
+        workflow.run(dag, workflow_id="phase21")
+    except Exception as e:  # noqa: BLE001 - the second step's failure
+        first_error = f"{type(e).__name__}: {str(e).splitlines()[0]}"
+    else:
+        fail("workflow: the second step did not fail on its first attempt")
+    run_s = time.perf_counter() - t
+    status = workflow.get_status("phase21")
+    step = os.path.join(store, "phase21", "000_card_forward.pkl")
+    with open(step, "rb") as f:
+        ckpt = pickle.load(f)["logits"]
+    runs = open(log).read().split()
+    print(f"[workflow] run: {run_s:.2f} s, status {status} ({first_error}); "
+          f"step 1 ran {len(runs)} time(s) on the card with {runs} flash_fwd "
+          f"launches; its checkpoint holds a {ckpt.device.type} "
+          f"{ckpt.dtype} tensor {tuple(ckpt.shape)}, bit-equal to phase "
+          f"3's first logits: {torch.equal(ckpt, serve_ref['logits'])}",
+          flush=True)
+    if status != "FAILED" or runs != [str(gpt2.GPT2_SMALL.n_layer)]:
+        fail("workflow: the first run did not fail after step 1 ran once")
+    if ckpt.device.type != "cpu" or not torch.equal(ckpt,
+                                                    serve_ref["logits"]):
+        fail("workflow: step 1's checkpoint is not phase 3's logits on the "
+             "host")
+    t = time.perf_counter()
+    out = workflow.resume("phase21")
+    resume_s = time.perf_counter() - t
+    again = open(log).read().split()[len(runs):]
+    resumed_launches = sum(int(x) for x in again)
+    same = torch.equal(out["logits"], serve_ref["logits"])
+    print(f"[workflow] resume: {resume_s:.2f} s, status "
+          f"{workflow.get_status('phase21')}; step 1 ran {len(again)} more "
+          f"time(s), flash_fwd launches on resume {resumed_launches}; the "
+          f"output's logits ({out['logits'].device.type} "
+          f"{out['logits'].dtype}) bit-equal to phase 3's: {same}; the CPU "
+          f"step sees the card: {out['gate_sees_card']}", flush=True)
+    if again or resumed_launches or not same or out["gate_sees_card"] \
+            or workflow.get_status("phase21") != "SUCCESSFUL":
+        fail("workflow: resume did not return step 1's logits from its "
+             "checkpoint")
+    return out["launches"]
+
+
+def job_checks(c, seed, serve_ref):
+    from ray_tpu_torch.job_submission import JobStatus, JobSubmissionClient
+
+    want = tensor_checksum(serve_ref["logits"])[0]
+    client = JobSubmissionClient(c.address)
+    here = os.path.dirname(os.path.abspath(__file__))
+    path = os.pathsep.join(
+        [here] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p])
+    t = time.perf_counter()
+    job = client.submit_job(
+        entrypoint=f"{sys.executable} -c \"import chip_smoke as c; "
+        f"c.job_main({seed})\"",
+        runtime_env={"env_vars": {"PYTHONPATH": path}})
+    status = client.wait_until_finished(job, timeout=600)
+    job_s = time.perf_counter() - t
+    logs = client.get_job_logs(job)
+    lines = [json.loads(l[len("JOB "):]) for l in logs.splitlines()
+             if l.startswith("JOB ")]
+    cards = [l for l in logs.splitlines() if l.startswith("JOB-CARDS")]
+    print(f"[job] submitted job: {status} in {job_s:.2f} s; the "
+          f"entrypoint printed {cards}; its task's result "
+          f"{lines[-1] if lines else None}; digest equals phase 3's: "
+          f"{bool(lines) and lines[-1]['digest'] == want}", flush=True)
+    if status != JobStatus.SUCCEEDED or not lines:
+        fail(f"job: {status}; its logs:\n{logs[-3000:]}")
+    res = lines[-1]
+    if res["cards"] != 0 or res["digest"] != want or res["device"] != "cpu" \
+            or res["launches"] != gpt2.GPT2_SMALL.n_layer:
+        fail("job: the entrypoint saw a card, or its task's logits are not "
+             "phase 3's, or its task did not launch the forward kernel once "
+             "a layer")
+    return res["launches"]
+
+
+def phase_autoscale(seed, serve_ref):
+    """Phase 22: an ``AutoscalingCluster`` (a CPU head, one worker type
+    with the card) scales a node up for a pending ``num_tpus=1`` task and
+    removes it once idle; the dashboard and the CLI show the card while the
+    node is up.  Returns the forward kernel's launches on that node."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.autoscaler import AutoscalingCluster
+
+    with port_session("autoscaler") as env:
+        c = AutoscalingCluster(
+            head_resources={"CPU": 1.0},
+            worker_node_types={"card": {
+                "resources": {"CPU": 1.0, "TPU": 1.0}, "min_workers": 0,
+                "max_workers": 1, "object_store_mb": 256}},
+            max_workers=1, idle_timeout_s=AUTOSCALE_IDLE_S,
+            update_interval_s=0.2, env=env)
+        try:
+            c.connect()
+            launches = autoscale_checks(rt, c, seed, serve_ref)
+        finally:
+            c.shutdown()
+    return launches
+
+
+def wait_until(cond, timeout, what):
+    deadline = time.monotonic() + timeout
+    while not cond():
+        if time.monotonic() > deadline:
+            fail(f"autoscaler: {what} within {timeout} s")
+        time.sleep(0.05)
+
+
+def autoscale_checks(rt, c, seed, serve_ref):
+    import urllib.request
+
+    from ray_tpu_torch.dashboard import DashboardHead
+
+    resources = rt.cluster_resources()
+    if resources.get("TPU") or c.worker_node_ids():
+        fail(f"autoscaler: the cluster starts with {resources}")
+    t = time.perf_counter()
+    ref = rt.remote(num_tpus=1)(script_class("card_forward")).remote(
+        seed, serve_ref["prompts"][500])
+    wait_until(lambda: rt.cluster_resources().get("TPU") == 1.0, 120,
+               "no node with the card came up")
+    up_s = time.perf_counter() - t
+    node = c.worker_node_ids()
+    d = DashboardHead(c.address)
+    try:
+        with urllib.request.urlopen(d.url + "/api/cluster_resources",
+                                    timeout=30) as resp:
+            dash = json.loads(resp.read())["total"]
+    finally:
+        d.shutdown()
+    cli = subprocess.run(
+        [sys.executable, "-m", "ray_tpu_torch.scripts", "status",
+         "--address", c.address], capture_output=True, text=True,
+        env=dict(os.environ, CUDA_VISIBLE_DEVICES=""), timeout=120)
+    cli_total = json.loads(cli.stdout.split("resources:", 1)[1]
+                           .splitlines()[0]) if "resources:" in cli.stdout \
+        else {}
+    print(f"[autoscaler] a pending num_tpus=1 task brought up a node with "
+          f"the card in {up_s:.2f} s ({node}); the dashboard's "
+          f"/api/cluster_resources total {dash}; `python -m "
+          f"ray_tpu_torch.scripts status` resources {cli_total}", flush=True)
+    if len(node) != 1 or dash.get("TPU") != 1.0 \
+            or cli_total.get("TPU") != 1.0:
+        fail(f"autoscaler: the dashboard or the CLI does not show the card:"
+             f" {cli.stdout}{cli.stderr}")
+    out = rt.get(ref, timeout=600)
+    task_s = time.perf_counter() - t
+    same = torch.equal(out["logits"], serve_ref["logits"])
+    print(f"[autoscaler] the task ran on {out['node']} in {task_s:.2f} s "
+          f"from submit: flash_fwd launches {out['launches']}, logits "
+          f"bit-equal to phase 3's: {same}", flush=True)
+    launches = out["launches"]
+    if out["node"] != node[0] or not same \
+            or launches != gpt2.GPT2_SMALL.n_layer:
+        fail("autoscaler: the task on the new node disagrees with phase 3")
+    del out, ref
+    t = time.perf_counter()
+    wait_until(lambda: not c.worker_node_ids(), AUTOSCALE_IDLE_S + 60,
+               "the idle node was not removed")
+    down_s = time.perf_counter() - t
+    wait_until(lambda: not rt.cluster_resources().get("TPU"), 30,
+               "the removed node's card is still counted")
+    print(f"[autoscaler] scale-up {up_s:.2f} s, scale-down {down_s:.2f} s "
+          f"after the task's result (idle_timeout_s {AUTOSCALE_IDLE_S}); "
+          f"terminations {c.autoscaler.num_terminations}, launches "
+          f"{c.autoscaler.num_launches}", flush=True)
+    if down_s < AUTOSCALE_IDLE_S - 1.0 or c.autoscaler.num_launches != 1:
+        fail("autoscaler: the node went before its idle timeout, or more "
+             "than one was launched")
+    return launches
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -4886,6 +5143,10 @@ def main():
     run("17 cluster", phase_cluster, args.seed)
     train_run = run("18 train run", phase_train_run, args.seed)
     tune_runs = run("19-20 tune, rllib", phase_tune_rllib, args.seed)
+    tools_launches = run("21 workflow, job", phase_workflow_job, args.seed,
+                         serve_ref)
+    tools_launches["autoscaler"] = run("22 autoscaler", phase_autoscale,
+                                       args.seed, serve_ref)
     print(f"[time] phases: {seconds}; all {sum(seconds.values()):.1f} s",
           flush=True)
     print(card_line())
@@ -4897,7 +5158,7 @@ def main():
         "flash_fwd": {"serve": serve_launches, "llama": llama_launches,
                       "moe_serve": moe_serve,
                       "runtime_actor": runtime_launches,
-                      **serve_run_launches},
+                      **serve_run_launches, **tools_launches},
         "flash_bwd_dq": {}, "flash_bwd_dkv": {}}
     for name, by_path in paths.items():
         by_path.update({path: run[name] for path, run in trained.items()})

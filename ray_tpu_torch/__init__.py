@@ -77,8 +77,9 @@ __all__ = [
     "TaskCancelledError", "BackPressureError", "OutOfMemoryError",
     "__version__",
     # sub-packages
-    "air", "collective", "core", "data", "models", "native", "ops",
-    "parallel", "rllib", "serve", "train", "tune", "util",
+    "air", "autoscaler", "collective", "core", "dashboard", "data",
+    "job_submission", "models", "native", "ops", "parallel", "rllib",
+    "serve", "train", "tune", "util", "workflow",
 ]
 
 
@@ -315,9 +316,10 @@ def timeline(filename: Optional[str] = None):
 
 # Convenience namespaced access (lazy imports to keep `import ray_tpu_torch` light).
 def __getattr__(name):
-    if name in ("air", "collective", "core", "data", "models", "native",
-                "ops", "parallel", "rllib", "serve", "train", "tune",
-                "util"):
+    if name in ("air", "autoscaler", "collective", "core", "dashboard",
+                "data", "job_submission", "models", "native", "ops",
+                "parallel", "rllib", "serve", "train", "tune", "util",
+                "workflow"):
         import importlib
 
         return importlib.import_module(f"ray_tpu_torch.{name}")

@@ -16,38 +16,28 @@ live-cluster chaos suites (``test_chaos``, ``test_gcs_ft``,
 
 import contextlib
 import os
-import shutil
 import time
 
 import numpy as np
 import pytest
-from test_torch_runtime_parity import assert_port_left_nothing
+from test_torch_runtime_parity import port_session_root
 
 import ray_tpu_torch as rt
 from ray_tpu_torch.cluster_utils import Cluster
-from ray_tpu_torch.session_root import new_session_root
 
 
 @contextlib.contextmanager
 def port_cluster(**kwargs):
     """A ``Cluster`` under a session root of its own, shut down and held to
     the leak audit on exit."""
-    root = new_session_root()
-    since = time.time()
-    default, rt.config.temp_dir = rt.config.temp_dir, root
-    c = None
-    try:
-        c = Cluster(env={"RAY_TPU_TEMP_DIR": root}, **kwargs)
-        yield c
-    finally:
-        if c is not None:
-            c.shutdown()
-        rt.config.temp_dir = default
+    with port_session_root() as root:
+        c = None
         try:
-            assert_port_left_nothing([os.getpid()], roots=(root,),
-                                     since=since)
+            c = Cluster(env={"RAY_TPU_TEMP_DIR": root}, **kwargs)
+            yield c
         finally:
-            shutil.rmtree(root, ignore_errors=True)
+            if c is not None:
+                c.shutdown()
 
 
 @pytest.fixture(scope="module")

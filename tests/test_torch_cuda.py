@@ -18,7 +18,8 @@ a ``TorchTrainer`` training GPT-2 at ``GPT2_TINY`` widths on the card, a
 ``Cluster`` node given the card running a GPU task (and one that hides
 it failing), a Tune sweep under ASHA whose trials train GPT-2 at
 ``GPT2_TINY`` widths (2 layers) on the card, and IMPALA's ``Algorithm`` in
-a Tune trial with its learner on the card against the CPU learner.
+a Tune trial with its learner on the card against the CPU learner; a
+workflow whose GPU step's bf16 tensor is checkpointed on the host.
 
 Marked ``cuda``: every test skips where there is no CUDA device.  On a
 machine with one (no JAX needed, hence ``--noconftest``):
@@ -1552,3 +1553,53 @@ def test_rllib_impala_algorithm_in_tune_trial_on_card(cuda, tmp_path):
     assert out["launches"] == {"flash_fwd": 0, "flash_bwd_dq": 0,
                                "flash_bwd_dkv": 0}
     assert out["worst"] <= 1.0
+
+
+WORKFLOW_ON_CARD = """
+import json, os, pickle, sys
+import torch
+import ray_tpu_torch as rt
+from ray_tpu_torch import workflow
+
+
+def draw():
+    g = torch.Generator(device="cuda").manual_seed(11)
+    return torch.randn(256, 128, device="cuda", generator=g).to(
+        torch.bfloat16)
+
+
+def rows(t, flag):
+    if not os.path.exists(flag):
+        open(flag, "w").close()
+        raise RuntimeError("fails once")
+    return [t.shape[0], torch.cuda.is_available()]
+
+
+rt.init(num_cpus=2)
+workflow.init_storage(os.path.join(sys.argv[1], "wf"))
+flag = os.path.join(sys.argv[1], "flag")
+dag = rt.remote(max_retries=0)(rows).bind(
+    rt.remote(num_gpus=1)(draw).bind(), flag)
+try:
+    workflow.run(dag, workflow_id="w")
+except Exception:
+    pass
+with open(os.path.join(sys.argv[1], "wf", "w", "000_draw.pkl"), "rb") as f:
+    ckpt = pickle.load(f)
+resumed = workflow.resume("w")
+want = draw().cpu()
+rt.shutdown()
+print("RESULT " + json.dumps({
+    "device": ckpt.device.type, "dtype": str(ckpt.dtype),
+    "same": torch.equal(ckpt.view(torch.int16), want.view(torch.int16)),
+    "resumed": resumed}))
+"""
+
+
+def test_workflow_gpu_step_checkpoints_bf16_on_the_host(cuda, tmp_path):
+    """A workflow step run as a GPU task returns a bf16 tensor on the card;
+    its checkpoint holds a bf16 CPU tensor bit-equal to the same draw, and
+    the CPU step that failed once runs on resume without the card."""
+    out = _run_card_driver(tmp_path, WORKFLOW_ON_CARD, [str(tmp_path)])
+    assert out == {"device": "cpu", "dtype": "torch.bfloat16", "same": True,
+                   "resumed": [256, False]}

@@ -54,7 +54,9 @@ def test_all_names_every_subpackage():
     runtime's API, and the walk that the blocked import takes reaches every
     module (the RL learners, the MNIST model, the runtime, the vendored
     cloudpickle, the native build, ``cluster_utils``, ``air``, ``data``
-    ``train``, ``tune`` and RLlib's runtime included)."""
+    ``train``, ``tune``, RLlib's runtime, the workflows, job submission,
+    the actor pool, queue and ``Pool``, the dashboard, the autoscaler, the
+    chaos schedules and the CLI included)."""
     import ray_tpu_torch
 
     pkg = os.path.join(ROOT, "ray_tpu_torch")
@@ -78,7 +80,14 @@ def test_all_names_every_subpackage():
             "ray_tpu_torch.rllib.algorithm", "ray_tpu_torch.rllib.env_runner",
             "ray_tpu_torch.rllib.learner_group",
             "ray_tpu_torch.rllib.multi_agent",
-            "ray_tpu_torch.rllib.replay_buffers"} <= set(
+            "ray_tpu_torch.rllib.replay_buffers", "ray_tpu_torch.workflow",
+            "ray_tpu_torch.job_submission", "ray_tpu_torch.util.queue",
+            "ray_tpu_torch.util.actor_pool",
+            "ray_tpu_torch.util.multiprocessing",
+            "ray_tpu_torch.util.chaos_schedule", "ray_tpu_torch.dashboard",
+            "ray_tpu_torch.autoscaler", "ray_tpu_torch.autoscaler.gce",
+            "ray_tpu_torch.autoscaler.monitor_main",
+            "ray_tpu_torch.scripts"} <= set(
                 _port_modules())
 
 
@@ -283,4 +292,87 @@ def test_cluster_and_trainer_run_with_jax_and_ray_tpu_blocked(tmp_path):
     assert stdout.splitlines() == [
         "node True []",
         "fit {'x': 42, 'device': 'cpu', 'loaded': []}",
+        "driver []"], stdout
+
+
+CLUSTER_TOOLS = """
+import json, os, sys, urllib.request
+for m in FORBIDDEN:
+    sys.modules[m] = None
+import ray_tpu_torch as rt
+from ray_tpu_torch import workflow
+from ray_tpu_torch.autoscaler import AutoscalingCluster
+from ray_tpu_torch.dashboard import DashboardHead
+from ray_tpu_torch.job_submission import JobSubmissionClient
+from ray_tpu_torch.util.actor_pool import ActorPool
+from ray_tpu_torch.util.multiprocessing import Pool
+from ray_tpu_torch.util.queue import Queue
+
+
+def loaded():
+    return sorted(m for m in FORBIDDEN if sys.modules.get(m) is not None)
+
+
+c = AutoscalingCluster(head_resources={"CPU": 2.0}, worker_node_types={},
+                       max_workers=0)
+try:
+    client = JobSubmissionClient(c.address)
+
+    @rt.remote
+    def add(a, b):
+        return [a + b, loaded()]
+
+    @rt.remote
+    def first(pair):
+        return pair[0] * 10
+
+    workflow.init_storage(os.path.join(sys.argv[1], "wf"))
+    print("workflow", workflow.run(first.bind(add.bind(1, 2)),
+                                   workflow_id="w"))
+    print("task", rt.get(add.remote(2, 3), timeout=60))
+    q = Queue()
+    q.put(loaded())
+    print("queue", q.get(timeout=30))
+    q.shutdown()
+
+    @rt.remote
+    class Echo:
+        def f(self, x):
+            return [x, loaded()]
+
+    print("actor_pool", list(ActorPool([Echo.remote()]).map(
+        lambda a, v: a.f.remote(v), [1])))
+    with Pool(processes=1) as p:
+        print("pool", p.map(lambda x: [x, loaded()], [2]))
+    job = client.submit_job(entrypoint="echo job-ran")
+    print("job", client.wait_until_finished(job, timeout=60),
+          client.get_job_logs(job).strip())
+    d = DashboardHead(c.address)
+    with urllib.request.urlopen(d.url + "/api/cluster_resources",
+                                timeout=10) as resp:
+        print("dashboard", json.loads(resp.read())["total"]["CPU"])
+    d.shutdown()
+    print("driver", loaded())
+finally:
+    c.shutdown()
+"""
+
+
+def test_workflow_job_pool_and_dashboard_run_with_jax_and_ray_tpu_blocked(
+        tmp_path):
+    """On a port ``AutoscalingCluster`` in a driver where jax, jaxlib,
+    ray_tpu and the installed cloudpickle cannot be imported: a workflow
+    runs, a ``Queue``, an ``ActorPool`` and a ``Pool`` pass values, a job
+    runs its entrypoint, and the dashboard answers; neither the workers
+    nor the driver loaded any of them."""
+    main = tmp_path / "main.py"
+    main.write_text(f"FORBIDDEN = {FORBIDDEN!r}\n" + CLUSTER_TOOLS)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = ROOT
+    proc, stdout, stderr = run_driver([sys.executable, str(main),
+                                       str(tmp_path)], str(tmp_path), env)
+    assert proc.returncode == 0, stderr
+    assert stdout.splitlines() == [
+        "workflow 30", "task [5, []]", "queue []", "actor_pool [[1, []]]",
+        "pool [[2, []]]", "job SUCCEEDED job-ran", "dashboard 2.0",
         "driver []"], stdout

@@ -77,7 +77,12 @@ there.  The hunks:
     by definition): ``AlgorithmConfig.learner_device`` (``"cuda"`` unless a
     caller names ``"cpu"``) is the learner's device, and
     ``Algorithm.learner_device()`` returns it and raises where no card is
-    visible, with no fall back to the CPU.
+    visible, with no fall back to the CPU;
+(o) the CLI's pid and cluster records (``scripts.py``'s ``_PID_DIR`` and
+    ``_CLUSTER_DIR``) under the temp dir (``tempfile.gettempdir()``, which
+    follows ``TMPDIR``) in place of ``/tmp``: two checkouts that each set
+    ``TMPDIR`` keep apart the processes that their ``stop`` signals and the
+    clusters that their ``up`` records.
 
 Hunk (a) is also listed where a name of the reference begins with
 ``ray_tpu_`` and so escapes the rename's word boundary: ``RunConfig``'s
@@ -98,6 +103,17 @@ off the card, and (n).
 processes kept off the card by ``CUDA_VISIBLE_DEVICES=""`` unless the
 caller's environment names it, and (g).  ``air/``, ``data/`` and ``train/``
 are the reference's with hunks (j), (k), (l) and (b) (``train/sklearn.py``).
+``util/queue.py``, ``util/actor_pool.py``, ``util/chaos_schedule.py``,
+``dashboard/``, ``autoscaler/`` and ``scripts.py`` are the reference's with
+hunk (a) alone, but for hunk (o) in ``scripts.py``: the CLI keeps its pid
+and cluster records under ``<temp dir>/ray_tpu_torch/``, the reference under
+``/tmp/ray_tpu/``, so ``stop`` of one package signals none of the other's
+processes, and a node type counts its cards under ``"TPU"`` (f).
+``util/multiprocessing.py`` and ``workflow/`` are the reference's with hunk
+(b), the workflow's default store ``~/.ray_tpu_torch/workflows`` by the
+rename; ``job_submission/`` with hunk (e) in its docstring alone: the
+supervisor is a CPU worker, kept off the card, and its entrypoint inherits
+its environment.
 
 ``ray_tpu_torch/__init__.py`` carries ``ray_tpu/__init__.py``'s API and
 ``ray_tpu_torch/native/build.py`` ``ray_tpu/native/build.py``'s host build
@@ -121,7 +137,8 @@ CORE = sorted(f"core/{f}" for f in os.listdir(os.path.join(REF, "core"))
 UTIL = [f"util/{m}.py" for m in (
     "__init__", "locks", "retry", "scheduling_strategies", "metrics",
     "metrics_query", "alerts", "tracing", "profiling", "state", "chaos",
-    "trace_analysis")]
+    "trace_analysis", "queue", "actor_pool", "multiprocessing",
+    "chaos_schedule")]
 SERVE = sorted(f"serve/{f}" for f in os.listdir(os.path.join(REF, "serve"))
                if f.endswith(".py"))
 TRAIN = [f"{sub}/{f}" for sub in ("air", "data", "train")
@@ -129,10 +146,13 @@ TRAIN = [f"{sub}/{f}" for sub in ("air", "data", "train")
          if f.endswith(".py")]
 TUNE = sorted(f"tune/{f}" for f in os.listdir(os.path.join(REF, "tune"))
               if f.endswith(".py"))
-COPIED = CORE + UTIL + SERVE + TRAIN + TUNE + [
+AUTOSCALER = sorted(f"autoscaler/{f}" for f in os.listdir(
+    os.path.join(REF, "autoscaler")) if f.endswith(".py"))
+COPIED = CORE + UTIL + SERVE + TRAIN + TUNE + AUTOSCALER + [
     "runtime_context.py", "dag.py", "cluster_utils.py",
     "native/src/object_store.cc", "native/src/frame_codec.cc",
-    "rllib/replay_buffers.py"]
+    "rllib/replay_buffers.py", "workflow/__init__.py",
+    "job_submission/__init__.py", "dashboard/__init__.py", "scripts.py"]
 
 # path -> [(hunk, first reference line, last reference line)]; an insertion
 # after reference line n is at (n, n)
@@ -150,6 +170,10 @@ HUNKS = {
                        ("g", 715, 715)],
     "core/worker_main.py": [("b", 26, 26)],
     "util/chaos.py": [("g", 470, 470)],
+    "util/multiprocessing.py": [("b", 18, 18), ("b", 24, 24),
+                                ("b", 69, 69)],
+    "workflow/__init__.py": [("b", 147, 147), ("b", 160, 160)],
+    "job_submission/__init__.py": [("e", 9, 9)],
     "serve/__init__.py": [("b", 22, 22)],
     "serve/replica.py": [("b", 30, 30)],
     "cluster_utils.py": [("e", 54, 54), ("e", 68, 70), ("g", 234, 234)],
@@ -167,6 +191,7 @@ HUNKS = {
     "train/trainer.py": [("l", 1, 1), ("l", 22, 22), ("l", 36, 39),
                          ("l", 117, 120), ("l", 218, 228)],
     "tune/__init__.py": [("a", 180, 180)],
+    "scripts.py": [("o", 40, 40), ("o", 42, 42), ("o", 189, 189)],
 }
 
 # hunks whose new lines are the reference's under one textual substitution
@@ -215,16 +240,18 @@ def _check_hunks(ref_lines, port_lines, hunks, first_line=1):
 @pytest.mark.parametrize("path", COPIED)
 def test_copy_differs_only_in_listed_hunks(path):
     hunks = HUNKS.get(path, [])
-    assert {h[0] for h in hunks} <= set("abcdeghijkl")
+    assert {h[0] for h in hunks} <= set("abcdeghijklo")
     _check_hunks(_renamed(path).splitlines(), _read(path).splitlines(),
                  hunks)
 
 
 def test_copy_list_is_whole():
-    """Every module of the reference's core, serve, air, data, train and
-    tune is copied, and the port's core, util, serve, air, data, train and
-    tune hold nothing that is not a copy."""
-    for sub in ("core", "util", "serve", "air", "data", "train", "tune"):
+    """Every module of the reference's core, util, serve, air, data, train,
+    tune, autoscaler, workflow, job_submission and dashboard is copied,
+    and those sub-packages of the port hold nothing that is not a copy."""
+    subs = ("core", "util", "serve", "air", "data", "train", "tune",
+            "autoscaler", "workflow", "job_submission", "dashboard")
+    for sub in subs:
         port = {f"{sub}/{f}" for f in os.listdir(os.path.join(PORT, sub))
                 if f.endswith(".py")}
         assert port == {p for p in COPIED if p.startswith(sub + "/")}
@@ -233,6 +260,11 @@ def test_copy_list_is_whole():
     assert len(SERVE) == 8
     assert len(TRAIN) == 5 + 6 + 8
     assert len(TUNE) == 6
+    assert len(AUTOSCALER) == 3
+    for sub in subs:
+        ref = {f"{sub}/{f}" for f in os.listdir(os.path.join(REF, sub))
+               if f.endswith(".py")}
+        assert ref <= set(COPIED), ref - set(COPIED)
     assert set(HUNKS) <= set(COPIED)
 
 

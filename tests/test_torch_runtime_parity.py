@@ -22,6 +22,7 @@ workers do not count; the other port runtime test files use both.
 """
 
 import concurrent.futures
+import contextlib
 import json
 import os
 import re
@@ -128,6 +129,29 @@ def assert_port_left_nothing(driver_pids, grace_s=15.0, roots=(),
             return
         assert time.monotonic() < deadline, f"left after shutdown: {left}"
         time.sleep(0.25)
+
+
+@contextlib.contextmanager
+def port_session_root():
+    """A session root for the port's processes that this process starts
+    (``config.temp_dir`` points at it meanwhile; pass it to a cluster's
+    processes as ``RAY_TPU_TEMP_DIR``); on exit, what they left is held to
+    the leak audit and the root is removed."""
+    import ray_tpu_torch
+
+    root = new_session_root()
+    since = time.time()
+    default, ray_tpu_torch.config.temp_dir = ray_tpu_torch.config.temp_dir, \
+        root
+    try:
+        yield root
+    finally:
+        ray_tpu_torch.config.temp_dir = default
+        try:
+            assert_port_left_nothing([os.getpid()], roots=(root,),
+                                     since=since)
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
 
 
 def run_driver(args, cwd, env, timeout=120):
@@ -1143,3 +1167,207 @@ def test_rl_algorithm_on_stub_rollouts(tmp_path, algo):
         assert got.shape == want.shape
         assert np.linalg.norm(got - want) <= \
             RL_MOVE_RTOL * np.linalg.norm(want - p0)
+
+
+WORKFLOW = """
+import os
+import shutil
+
+workflow = importlib.import_module(sys.argv[1] + ".workflow")
+rt.init(num_cpus=4)
+store = os.path.join(os.environ["RAY_TPU_TEMP_DIR"], "workflows")
+workflow.init_storage(store)
+flag, touch = os.path.join(store, "ok"), os.path.join(store, "touch")
+
+
+@rt.remote
+def double(x, path):
+    with open(path, "a") as f:
+        f.write("ran\\n")
+    return x * 2
+
+
+@rt.remote(max_retries=0)
+def flaky(x, flag_path):
+    if not os.path.exists(flag_path):
+        raise RuntimeError("flaky failure")
+    return x + 100
+
+
+dag = flaky.bind(double.bind(7, touch), flag)
+err = error(lambda: workflow.run(dag, workflow_id="w"))
+OUT["run_error"] = [err[0], "flaky failure" in err[1]]
+OUT["failed"] = workflow.get_status("w")
+OUT["runs"] = [open(touch).read().count("ran")]
+OUT["files"] = sorted(os.listdir(os.path.join(store, "w")))
+open(flag, "w").write("go")
+OUT["resumed"] = workflow.resume("w")
+OUT["runs"].append(open(touch).read().count("ran"))
+OUT["status"] = workflow.get_status("w")
+OUT["output"] = workflow.get_output("w")
+OUT["rerun"] = workflow.run(dag, workflow_id="w")
+OUT["list"] = [[m["workflow_id"], m["status"]] for m in workflow.list_all()]
+shutil.rmtree(store)
+"""
+
+
+def test_workflow_failed_and_resumed(tmp_path):
+    """One workflow through both packages: its second step fails, the
+    first step's checkpoint is committed, and ``resume`` completes it
+    without running the first step again; the same statuses, files,
+    outputs and run counts."""
+    check_same(tmp_path, WORKFLOW, {
+        "run_error": ["TaskError", True], "failed": "FAILED",
+        "runs": [1, 1], "resumed": 114, "status": "SUCCESSFUL",
+        "output": 114, "rerun": 114, "list": [["w", "SUCCESSFUL"]],
+        "files": ["000_double.pkl", "dag.pkl", "meta.json"]})
+
+
+JOBS = """
+cluster_utils = importlib.import_module(sys.argv[1] + ".cluster_utils")
+jobs = importlib.import_module(sys.argv[1] + ".job_submission")
+c = cluster_utils.Cluster(initialize_head=True,
+                          head_resources={"num_cpus": 2})
+try:
+    c.wait_for_nodes(1)
+    client = jobs.JobSubmissionClient(c.address)
+    ok = client.submit_job(
+        entrypoint=sys.executable + " -c \\"print('hello from job')\\"",
+        submission_id="job-ok", metadata={"owner": "parity"})
+    bad = client.submit_job(
+        entrypoint=sys.executable + " -c \\"print('about to fail'); "
+        "import sys; sys.exit(3)\\"", submission_id="job-bad")
+    OUT["status"] = [client.wait_until_finished(j, timeout=60)
+                     for j in (ok, bad)]
+    OUT["logs"] = [client.get_job_logs(j) for j in (ok, bad)]
+    infos = [client.get_job_info(j) for j in (ok, bad)]
+    OUT["info"] = [[i.submission_id, i.status, i.message, i.metadata,
+                    i.end_time >= i.start_time] for i in infos]
+    OUT["listed"] = sorted(j.submission_id for j in client.list_jobs())
+    OUT["deleted"] = client.delete_job(bad)
+    OUT["after_delete"] = error(lambda: client.get_job_info(bad))
+    rt.shutdown()
+finally:
+    c.shutdown()
+"""
+
+
+def test_job_submission(tmp_path):
+    """One job program through both packages, each on a cluster of its
+    own package: a job that succeeds and one that exits 3 reach the same
+    statuses, logs, messages and metadata, and list and delete alike."""
+    check_same(tmp_path, JOBS, {
+        "status": ["SUCCEEDED", "FAILED"],
+        "logs": ["hello from job\n", "about to fail\n"],
+        "info": [["job-ok", "SUCCEEDED", "", {"owner": "parity"}, True],
+                 ["job-bad", "FAILED", "entrypoint exited with code 3", {},
+                  True]],
+        "listed": ["job-bad", "job-ok"], "deleted": True,
+        "after_delete": ["ValueError", "no job 'job-bad'"]}, timeout=180)
+
+
+QUEUE_POOL = """
+queue = importlib.import_module(sys.argv[1] + ".util.queue")
+actor_pool = importlib.import_module(sys.argv[1] + ".util.actor_pool")
+mp = importlib.import_module(sys.argv[1] + ".util.multiprocessing")
+rt.init(num_cpus=4)
+
+q = queue.Queue(maxsize=3)
+
+
+@rt.remote
+def producer(q, items):
+    for x in items:
+        q.put(x)
+    return q.qsize()
+
+
+OUT["queue_sizes"] = rt.get(producer.remote(q, ["a", "b"]))
+q.put_nowait("c")
+OUT["queue_full"] = [q.full(), error(lambda: q.put_nowait("d"))[0]]
+OUT["queue"] = [q.get(timeout=10), *q.get_nowait_batch(2)]
+OUT["queue_empty"] = [q.empty(), error(q.get_nowait)[0]]
+q.shutdown()
+
+
+@rt.remote
+class Sq:
+    def f(self, x):
+        return x * x
+
+
+pool = actor_pool.ActorPool([Sq.remote(), Sq.remote()])
+OUT["actor_pool"] = list(pool.map(lambda a, v: a.f.remote(v), range(7)))
+OUT["actor_pool_unordered"] = sorted(
+    pool.map_unordered(lambda a, v: a.f.remote(v), range(7)))
+with mp.Pool(processes=2) as p:
+    OUT["pool_map"] = p.map(lambda x: x * 3 + 1, range(9))
+    OUT["pool_starmap"] = p.starmap(lambda a, b: a - b, [(5, 2), (1, 4)])
+    OUT["pool_apply"] = p.apply_async(lambda x: x ** 2, (12,)).get(30)
+    OUT["pool_imap"] = list(p.imap(lambda x: -x, range(5), chunksize=2))
+"""
+
+
+def test_queue_actor_pool_and_pool(tmp_path):
+    """``Queue`` (across a task, bounded), ``ActorPool`` (ordered and
+    not) and ``multiprocessing.Pool`` through both packages give the same
+    results and the same exceptions."""
+    check_same(tmp_path, QUEUE_POOL, {
+        "queue_sizes": 2, "queue_full": [True, "Full"],
+        "queue": ["a", "b", "c"], "queue_empty": [True, "Empty"],
+        "actor_pool": [0, 1, 4, 9, 16, 25, 36],
+        "pool_map": [1, 4, 7, 10, 13, 16, 19, 22, 25],
+        "pool_starmap": [3, -3], "pool_apply": 144,
+        "pool_imap": [0, -1, -2, -3, -4]})
+
+
+SCHEDULE = """
+import hashlib
+
+cs = importlib.import_module(sys.argv[1] + ".util.chaos_schedule")
+text = "".join(
+    cs.timeline_to_jsonl(cs.build_schedule(seed, duration, n_slots=slots,
+                                           **gaps))
+    for seed, duration, slots, gaps in (
+        (12, 25.0, 2, {"min_gap_s": 2.0, "max_gap_s": 4.0}),
+        (42, 60.0, 3, {}), (7, 120.0, 2, {})))
+OUT["jsonl"] = text
+OUT["sha256"] = hashlib.sha256(text.encode()).hexdigest()
+"""
+
+
+def test_chaos_schedule_is_byte_identical(tmp_path):
+    """``build_schedule`` is a pure function of its seed: three seeds'
+    timelines, as JSONL, are the same bytes in both packages."""
+    out = run_both(tmp_path, SCHEDULE)
+    ref, port = out["ray_tpu"], out["ray_tpu_torch"]
+    assert port["jsonl"] == ref["jsonl"] and port["sha256"] == ref["sha256"]
+    assert ref["jsonl"].count("\n") > 10
+
+
+DEMAND = """
+autoscaler = importlib.import_module(sys.argv[1] + ".autoscaler")
+types = {"cpu4": {"resources": {"CPU": 4.0}, "max_workers": 3},
+         "gpu1": {"resources": {"CPU": 1.0, "TPU": 1.0}, "max_workers": 2},
+         "host8": {"resources": {"CPU": 8.0, "TPU": 8.0}}}
+sched = autoscaler.ResourceDemandScheduler(types, max_workers=6)
+demands = ([{"CPU": 1.0}] * 9 + [{"CPU": 1.0, "TPU": 1.0}] * 3
+           + [{"TPU": 4.0}, {"GPU": 1.0}, {"CPU": 2.0, "custom": 1.0}])
+free = [{"CPU": 1.0}, {"CPU": 2.0, "TPU": 0.5}]
+OUT["decisions"] = [
+    sched.get_nodes_to_launch(demands, free, {}),
+    sched.get_nodes_to_launch(demands, free, {"cpu4": 2, "gpu1": 1}),
+    sched.get_nodes_to_launch(demands[:9], [], {"cpu4": 3}),
+    sched.get_nodes_to_launch(demands[9:12], free, {}),
+]
+"""
+
+
+def test_demand_scheduler_decisions(tmp_path):
+    """The autoscaler's ``ResourceDemandScheduler`` decides the same node
+    launches in both packages on one fixed demand (CPU tasks, one-card
+    tasks, a slice-sized task and infeasible shapes) against the same free
+    capacity and node counts."""
+    out = check_same(tmp_path, DEMAND)
+    assert out["decisions"][0] and all(
+        set(d) <= {"cpu4", "gpu1", "host8"} for d in out["decisions"])
