@@ -61,15 +61,20 @@ class DataIterator:
         """Numpy batches as tensors staged onto ``device`` (host→HBM: a
         copy from pinned memory with ``non_blocking``); on the CPU only
         where the caller passes ``device="cpu"``.  Raises where a CUDA
-        device is asked for and no card is present."""
+        device is asked for and no card is present.  Each batch is staged
+        in the ``region`` ``data.stage``."""
+        from ray_tpu_torch.util.tracing import region
+
         device = _torch_device(device)
         for batch in self.iter_batches(batch_size=batch_size,
                                        drop_last=drop_last):
-            if isinstance(batch, dict):
-                out = {k: _stage(v, dtype, device) if v.dtype.kind in "fiub"
-                       else v for k, v in batch.items()}
-            else:
-                out = _stage(batch, dtype, device)
+            with region("data.stage"):
+                if isinstance(batch, dict):
+                    out = {k: _stage(v, dtype, device)
+                           if v.dtype.kind in "fiub" else v
+                           for k, v in batch.items()}
+                else:
+                    out = _stage(batch, dtype, device)
             yield out
 
     def materialize(self):
@@ -102,14 +107,19 @@ class StreamSplitDataIterator(DataIterator):
         self._epoch = 0
 
     def _claimed_blocks(self):
-        """Generator of local blocks for this epoch (prefetch depth 2)."""
+        """Generator of local blocks for this epoch (prefetch depth 2); each
+        claim is the ``region`` ``data.claim``, each wait for a block's
+        read ``data.block_wait``."""
         import ray_tpu_torch
+        from ray_tpu_torch.util.tracing import region
 
         epoch = self._epoch
         self._epoch += 1
 
         def claim():
-            return ray_tpu_torch.get(self._coord.claim.remote(epoch), timeout=120)
+            with region("data.claim"):
+                return ray_tpu_torch.get(self._coord.claim.remote(epoch),
+                                         timeout=120)
 
         pending = []
         for _ in range(2):
@@ -122,7 +132,9 @@ class StreamSplitDataIterator(DataIterator):
             i = claim()
             if i is not None:
                 pending.append(self._dataset._execute_block(i))
-            yield ray_tpu_torch.get(ref)
+            with region("data.block_wait"):
+                block = ray_tpu_torch.get(ref)
+            yield block
 
     def iter_batches(self, *, batch_size: int = 256,
                      batch_format: str = "numpy", drop_last: bool = False,

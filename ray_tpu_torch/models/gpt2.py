@@ -108,6 +108,7 @@ from ray_tpu_torch.parallel.pipeline import (pipeline_apply,
                                              stack_layer_params)
 from ray_tpu_torch.parallel.ring_attention import ring_attention_sharded
 from ray_tpu_torch.parallel.sharding import fsdp_dim
+from ray_tpu_torch.util.tracing import region
 
 
 @dataclass(frozen=True)
@@ -867,15 +868,17 @@ def forward(params, tokens, cfg: GPT2Config, aux_acc=None,
     regroup = _regroups(params, cfg)
     if regroup:
         tokens = _to_microbatch_blocks(tokens, pp_microbatches)
-    x = _trunk(params, tokens, cfg, aux_acc, pp_microbatches)
+    with region("gpt2.trunk"):
+        x = _trunk(params, tokens, cfg, aux_acc, pp_microbatches)
     if regroup:
         x = _from_microbatch_blocks(x, pp_microbatches)
     _, tp = _axis_rank_and_size("tp")
-    logits = _lm_head(_copy_to_tp(x, tp),
-                      params["wte"]["embedding"].to(cfg.compute_dtype))
-    if tp > 1:
-        logits = _GatherWhole.apply(logits, require_mesh().get_group("tp"),
-                                    logits.dim() - 1)
+    with region("gpt2.head"):
+        logits = _lm_head(_copy_to_tp(x, tp),
+                          params["wte"]["embedding"].to(cfg.compute_dtype))
+        if tp > 1:
+            logits = _GatherWhole.apply(
+                logits, require_mesh().get_group("tp"), logits.dim() - 1)
     return logits
 
 
@@ -952,7 +955,8 @@ def loss_fn(params, batch, cfg: GPT2Config, pp_microbatches: int = 2,
     the targets follow their inputs' rows).
     Under tp the loss is a vocabulary-parallel cross-entropy
     (``_xent_terms``), the same on every tp rank; tp holds no other terms
-    of it."""
+    of it.  The trunk runs in the ``region`` ``gpt2.trunk``, the head and
+    its cross-entropy terms in ``gpt2.head`` (as in ``forward``)."""
     tokens = batch["tokens"]
     params = _whole_tables(params, cfg)
     if _regroups(params, cfg):
@@ -960,24 +964,27 @@ def loss_fn(params, batch, cfg: GPT2Config, pp_microbatches: int = 2,
         tokens = _to_microbatch_blocks(tokens, pp_microbatches)
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
     aux_acc: list = []
-    x = _trunk(params, inputs, cfg, aux_acc, pp_microbatches)
+    with region("gpt2.trunk"):
+        x = _trunk(params, inputs, cfg, aux_acc, pp_microbatches)
     B, S, E = x.shape
     if B != targets.shape[0]:  # the rank's rows of the pipeline's output
         targets = targets.reshape(-1, B, S)[
             require_mesh().get_local_rank("pp")]
     axes = _loss_axes(params, cfg)
     ranks = math.prod(size for _, size in axes)
-    wte = params["wte"]["embedding"].to(cfg.compute_dtype)
     tp_rank, tp = _axis_rank_and_size("tp")
-    x = _copy_to_tp(x, tp)
-    vocab_lo = tp_rank * wte.shape[0] if tp > 1 else None
-    if xent_chunks > 0:
-        loss = _chunked_xent(x.reshape(B * S, E), wte,
-                             targets.reshape(B * S), xent_chunks,
-                             vocab_lo) / (B * S * ranks)
-    else:
-        terms = _xent_terms(_lm_head(x, wte), targets, vocab_lo)
-        loss = terms.mean() if ranks == 1 else terms.sum() / (B * S * ranks)
+    with region("gpt2.head"):
+        wte = params["wte"]["embedding"].to(cfg.compute_dtype)
+        x = _copy_to_tp(x, tp)
+        vocab_lo = tp_rank * wte.shape[0] if tp > 1 else None
+        if xent_chunks > 0:
+            loss = _chunked_xent(x.reshape(B * S, E), wte,
+                                 targets.reshape(B * S), xent_chunks,
+                                 vocab_lo) / (B * S * ranks)
+        else:
+            terms = _xent_terms(_lm_head(x, wte), targets, vocab_lo)
+            loss = (terms.mean() if ranks == 1
+                    else terms.sum() / (B * S * ranks))
     for axis, _ in axes:
         loss = c10d.allreduce(loss, axis)
     if aux_acc:
@@ -1028,16 +1035,27 @@ def make_train_step(cfg: GPT2Config, optimizer, pp_microbatches: int = 2,
     and ``xent_chunks`` go to ``loss_fn``.  Over ranks (``batch`` is the
     rank's part) every gradient is summed over the ranks that computed
     other terms of it before the optimizer's step (``_sum_grads``), so the
-    ranks that hold a leaf keep it equal bit for bit."""
+    ranks that hold a leaf keep it equal bit for bit.  Each phase is a
+    ``region`` (``train_step.cast``, ``.loss``, ``.backward``,
+    ``.grad_sum``, ``.optimizer``, ``.zero_grad``) inside ``train_step``."""
 
     def train_step(params, batch):
-        loss = loss_fn(_cast_weights(params, cfg.compute_dtype), batch, cfg,
-                       pp_microbatches, xent_chunks)
-        loss.backward()
-        _sum_grads(params, cfg)
-        optimizer.step()
-        optimizer.zero_grad(set_to_none=True)
-        return {"loss": loss.detach()}
+        with region("train_step"):
+            with region("train_step.cast"):
+                weights = _cast_weights(params, cfg.compute_dtype)
+            with region("train_step.loss"):
+                loss = loss_fn(weights, batch, cfg, pp_microbatches,
+                               xent_chunks)
+            del weights  # the graph holds what the backward needs of them
+            with region("train_step.backward"):
+                loss.backward()
+            with region("train_step.grad_sum"):
+                _sum_grads(params, cfg)
+            with region("train_step.optimizer"):
+                optimizer.step()
+            with region("train_step.zero_grad"):
+                optimizer.zero_grad(set_to_none=True)
+            return {"loss": loss.detach()}
 
     return train_step
 

@@ -16,6 +16,7 @@ from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional
 
 from ray_tpu_torch.air.checkpoint import Checkpoint
+from ray_tpu_torch.util.tracing import region
 
 REPORT = "report"
 FINISHED = "finished"
@@ -75,11 +76,15 @@ class _TrainSession:
 
     def report(self, metrics: Dict[str, Any],
                checkpoint: Optional[Checkpoint] = None):
-        self._consumed.clear()
-        self._result_q.put((REPORT, (metrics, checkpoint)))
-        # Lockstep: wait until the driver drained this round before
-        # producing the next (reference blocks on a bounded queue too).
-        self._consumed.wait()
+        """The ``region`` ``train.report``; its wait for the trainer to
+        take the report is ``train.report_wait``."""
+        with region("train.report"):
+            self._consumed.clear()
+            self._result_q.put((REPORT, (metrics, checkpoint)))
+            # Lockstep: wait until the trainer drained this round before
+            # producing the next (reference blocks on a bounded queue too).
+            with region("train.report_wait"):
+                self._consumed.wait()
 
     # ---------------------------------------------------------------- driver side
 

@@ -48,6 +48,7 @@ from __future__ import annotations
 import contextvars
 import json
 import os
+import sys
 import threading
 import time
 
@@ -90,7 +91,7 @@ config.define("trace_file_max_mb", int, 64,
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 __all__ = ["enable_tracing", "tracing_enabled", "span", "maybe_span",
-           "current_trace_ctx", "trace_sampled", "emit_span", "hop",
+           "region", "current_trace_ctx", "trace_sampled", "emit_span", "hop",
            "read_spans", "drain_pending", "flush_spans", "set_flush_target"]
 
 _ENV = "RAY_TPU_TRACE_DIR"
@@ -438,6 +439,54 @@ def maybe_span(name: str, **attributes):
     if _current.get() is None or not tracing_enabled():
         return _NULL_SPAN
     return span(name, **attributes)
+
+
+class _Region:
+    """``region``'s two records of one stretch: a ``record_function`` in
+    the profiler's trace and a child span of the runtime's trace, either
+    of them None."""
+
+    __slots__ = ("_record", "_span")
+
+    def __init__(self, record, child):
+        self._record, self._span = record, child
+
+    def __enter__(self):
+        # the span first: the profiler stamps its event before the
+        # record's own set-up (~1 ms on its first use), so both start
+        # within microseconds
+        if self._span is not None:
+            self._span.__enter__()
+        if self._record is not None:
+            self._record.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        if self._record is not None:
+            self._record.__exit__(*exc)
+        if self._span is not None:
+            self._span.__exit__(*exc)
+        return False
+
+
+def region(name: str, **attributes):
+    """A named stretch of the program's own work (a train step's phases,
+    a batch's ingest), recorded where someone is looking: as a
+    ``record_function`` while torch's profiler records, so it lands in
+    the device trace on the profiler's clock (kineto stamps host events
+    with the wall clock, as ``span`` does), and as a child span while a
+    trace context is active and tracing is on, so it exports under the
+    caller's trace.  Otherwise the shared no-op: one module lookup, one
+    bool and one contextvar read.  Never imports torch: the raylet and
+    GCS import this module and never load it."""
+    prof = sys.modules.get("torch.autograd.profiler")
+    recording = prof is not None and getattr(prof, "_is_profiler_enabled",
+                                             False)
+    traced = _current.get() is not None and tracing_enabled()
+    if not (recording or traced):
+        return _NULL_SPAN
+    return _Region(prof.record_function(name) if recording else None,
+                   span(name, **attributes) if traced else None)
 
 
 def emit_span(name: str, trace_id: str, parent_id: Optional[str],

@@ -82,7 +82,16 @@ there.  The hunks:
     ``_CLUSTER_DIR``) under the temp dir (``tempfile.gettempdir()``, which
     follows ``TMPDIR``) in place of ``/tmp``: two checkouts that each set
     ``TMPDIR`` keep apart the processes that their ``stop`` signals and the
-    clusters that their ``up`` records.
+    clusters that their ``up`` records;
+(p) program regions (``util/tracing.py``'s ``region``: a
+    ``record_function`` while torch's profiler records, a child span under
+    an active trace context, else the shared no-op; the module still never
+    imports torch) around Data's ingest and Train's report:
+    ``data/iterator.py``'s ``data.claim`` and ``data.block_wait`` in
+    ``StreamSplitDataIterator._claimed_blocks`` (and ``data.stage`` in
+    hunk (k)'s ``iter_torch_batches``), ``train/session.py``'s
+    ``train.report`` around ``_TrainSession.report`` with
+    ``train.report_wait`` around its lockstep wait.
 
 Hunk (a) is also listed where a name of the reference begins with
 ``ray_tpu_`` and so escapes the rename's word boundary: ``RunConfig``'s
@@ -102,7 +111,8 @@ off the card, and (n).
 ``cluster_utils.py`` is the reference's with hunks (e), the cluster's
 processes kept off the card by ``CUDA_VISIBLE_DEVICES=""`` unless the
 caller's environment names it, and (g).  ``air/``, ``data/`` and ``train/``
-are the reference's with hunks (j), (k), (l) and (b) (``train/sklearn.py``).
+are the reference's with hunks (j), (k), (l), (p) and (b)
+(``train/sklearn.py``).
 ``util/queue.py``, ``util/actor_pool.py``, ``util/chaos_schedule.py``,
 ``dashboard/``, ``autoscaler/`` and ``scripts.py`` are the reference's with
 hunk (a) alone, but for hunk (o) in ``scripts.py``: the CLI keeps its pid
@@ -169,6 +179,7 @@ HUNKS = {
     "core/worker.py": [("b", 25, 25), ("g", 658, 658), ("d", 694, 703),
                        ("g", 715, 715)],
     "core/worker_main.py": [("b", 26, 26)],
+    "util/tracing.py": [("p", 50, 50), ("p", 93, 93), ("p", 442, 442)],
     "util/chaos.py": [("g", 470, 470)],
     "util/multiprocessing.py": [("b", 18, 18), ("b", 24, 24),
                                 ("b", 69, 69)],
@@ -181,11 +192,13 @@ HUNKS = {
     "air/config.py": [("l", 22, 26), ("l", 35, 35), ("a", 81, 81),
                       ("a", 86, 86)],
     "data/dataset.py": [("k", 673, 681), ("k", 695, 695)],
-    "data/iterator.py": [("k", 5, 7), ("k", 12, 12), ("k", 32, 47)],
+    "data/iterator.py": [("k", 5, 7), ("k", 12, 12), ("k", 32, 47),
+                         ("p", 80, 81), ("p", 87, 87), ("p", 100, 100)],
     "train/__init__.py": [("l", 6, 10), ("l", 21, 21), ("l", 34, 34),
                           ("l", 43, 44)],
     "train/backend.py": [("l", 8, 17), ("l", 23, 24), ("l", 51, 175)],
     "train/backend_executor.py": [("l", 22, 22), ("l", 60, 61)],
+    "train/session.py": [("p", 18, 18), ("p", 78, 82)],
     "train/sklearn.py": [("b", 41, 41), ("b", 82, 82)],
     "train/torch.py": [("l", 9, 123)],
     "train/trainer.py": [("l", 1, 1), ("l", 22, 22), ("l", 36, 39),
@@ -240,7 +253,7 @@ def _check_hunks(ref_lines, port_lines, hunks, first_line=1):
 @pytest.mark.parametrize("path", COPIED)
 def test_copy_differs_only_in_listed_hunks(path):
     hunks = HUNKS.get(path, [])
-    assert {h[0] for h in hunks} <= set("abcdeghijklo")
+    assert {h[0] for h in hunks} <= set("abcdeghijklop")
     _check_hunks(_renamed(path).splitlines(), _read(path).splitlines(),
                  hunks)
 
