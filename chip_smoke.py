@@ -26,7 +26,13 @@ Phases; any failure exits non-zero:
    errors beside their tolerances,
    each case's plan (q rows a block, ring slots), kernel / plain /
    library times (CUDA events after warm-up) and the kernel's bound; the
-   host time of a launch's tensor-map encodes;
+   host time of a launch's tensor-map encodes; then GPT-2's lm head
+   (``ops/lm_head.py``) at the train cells' shapes (N = 16 x 1024 rows,
+   V = 50257): the Triton split of the f32 cotangent into two bf16 parts
+   equal to its plain version bit for bit, within 2^-16 of each element
+   and zero in the pad, and dx and dwte at E = 768 and 1600 against the
+   f32 products of the up-cast operands (``HEAD_GRAD_REL_TOL``,
+   ``HEAD_BIT_EQUAL``), with the products' and the split's ms;
 2b. backward kernels — the dq and dk/dv kernels against the plain
    backward (``_reference_attention_bwd``) on the same (o, lse, do), in
    bf16, both layouts, causal on and off, at the training shape (B=16,
@@ -49,7 +55,9 @@ Phases; any failure exits non-zero:
    B=4, S=1024 with the kernels against ``attention="dense"``; then one
    warm-up step and 10 timed steps at B=16, S=1024 on one batch, whose
    losses must be finite and fall, with exactly ``n_layer`` launches of
-   each kernel per step; ms per step, tokens/s, MFU and peak memory;
+   each kernel per step and one call of the lm head's bf16 path and of
+   its split (``head_path_counts``, ``SPLIT_LAUNCHES``); ms per step,
+   tokens/s, MFU and peak memory;
 5. llama — Llama-2 7B (``LLAMA_7B``: 32 layers, E=4096, 32 heads of
    D=128, vocab 32000, max_seq 4096; random weights from ``--seed``, cast
    once by ``serving_params``) in the port's ``Replica`` hosting
@@ -80,9 +88,10 @@ Phases; any failure exits non-zero:
    with ``xent_chunks=8`` against the dense head; 3 timed AdamW steps at
    B=16, S=1024 after a warm-up with the dense head, then 3 with
    ``xent_chunks=8`` (launches 2 x 48 of the forward and 48 of each
-   backward kernel per step; falling losses; peak memory below the
-   card's): ms per step, tokens/s, MFU, peak memory; then one step at B=4
-   without remat and its peak memory;
+   backward kernel per step; the lm head's bf16 path once a step, or
+   twice a chunk, and its split once a step or a chunk; falling losses;
+   peak memory below the card's): ms per step, tokens/s, MFU, peak
+   memory; then one step at B=4 without remat and its peak memory;
 8. sp — sequence parallelism over ranks that share the card: each ring
    step's kernels on the chunks of q, k, v (B=16, H=12, S=1024, D=64,
    bf16, from ``--seed``) at sp = 2 and 4 against their plain versions
@@ -354,7 +363,8 @@ Precision: TF32 is off for matmuls and cuDNN
 (``torch.backends.cuda.matmul.allow_tf32 = False``,
 ``torch.backends.cudnn.allow_tf32 = False``), and bf16 GEMMs may not
 reduce in reduced precision, so f32 matmuls (the plain attention, the lm
-head) run in full f32 and bf16 GEMMs accumulate in f32, as the JAX model's
+head of the f32 configurations) run in full f32 and bf16 GEMMs (the bf16
+lm head among them) accumulate in f32, as the JAX model's
 ``preferred_element_type=f32`` does.
 """
 
@@ -385,6 +395,7 @@ from ray_tpu_torch.collective import c10d
 from ray_tpu_torch.models import gpt2, llama, mnist
 from ray_tpu_torch.native import build
 from ray_tpu_torch.ops import flash_attention as fa
+from ray_tpu_torch.ops import lm_head
 from ray_tpu_torch.parallel import ring_attention as ra
 from ray_tpu_torch.parallel.context import use_mesh
 from ray_tpu_torch.parallel.launch import RankPool
@@ -466,6 +477,21 @@ REMAT_GRAD_REL_TOL = 1e-3
 # bf16 layers; held as the kernels-vs-dense gradients are.
 CHUNK_LOSS_TOL = 1e-4
 CHUNK_GRAD_REL_TOL = 5e-2
+# GPT-2's lm head on bf16 operands (``ops/lm_head.py``) at the train cells'
+# shapes (N = 16 x 1024 rows, V = 50257; E = 768 and 1600), against the f32
+# products of the up-cast operands on the card.  The split holds each
+# element of the cotangent to 2^-16 and the Triton kernel equals the plain
+# version bit for bit.  dx and dwte differ by the split's error and by the
+# tensor cores' f32 accumulation, which loses bits as it grows: summed in
+# one GEMM over dx's 2 x 50264 terms it moved dx by 1.56e-4 of its norm,
+# over chunks of ~12.5k terms by 1.5e-5, and dwte over each part's 16384
+# rows by 1.9e-5.  The norm gap before the bf16 cast is held to 2^-14
+# (6.1e-5), below the one-GEMM reading and ~30x below the bf16 rounding
+# that follows (~2e-3); after that cast at least HEAD_BIT_EQUAL of the
+# elements must equal the f32 path's.
+HEAD_SPLIT_REL_TOL = 2.0 ** -16
+HEAD_GRAD_REL_TOL = 2.0 ** -14
+HEAD_BIT_EQUAL = 0.98
 # Llama-2 7B logits at S=2048, the kernel (uncached forward) vs the dense
 # cached branch.  32 bf16 layers amplify any change in how attention
 # rounds: on the card the plain attention in f32, uncached, parts from the
@@ -944,7 +970,73 @@ def phase_kernels(seed):
                       f"kernel_ms={ms:.4f} library_ms={lib_ms:.4f} "
                       f"bound_ms={bound:.5f} ({bound_by})", flush=True)
     served["max_abs_err"] = worst
+    lm_head_checks(seed)
     return served
+
+
+def lm_head_checks(seed):
+    """The lm head's split and gradients at the train cells' shapes on the
+    card (``HEAD_*`` above): the Triton split against its plain version on
+    a cotangent whose magnitudes span 30 decades (its bound holds where
+    the low part is a normal f32), with zeros; then, for GPT-2 124M's and
+    XL's widths, dx and dwte of ``head_grads`` against the f32 products of
+    the up-cast operands, and the forward, the split and the backward
+    timed (CUDA events)."""
+    N, V = 16 * 1024, 50257
+    vp = lm_head.padded_vocab(V)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    g = torch.randn((N, V), device="cuda", generator=gen)
+    g *= torch.exp(torch.empty_like(g).uniform_(-46, 23, generator=gen))
+    g[torch.rand(g.shape, device="cuda", generator=gen) < 0.01] = 0.0
+    launches = lm_head.SPLIT_LAUNCHES
+    parts = lm_head.split_parts(g, vp)
+    same = torch.equal(parts, lm_head.split_parts_plain(g, vp))
+    p = parts.view(N, 2, vp).float()
+    err = (g - p[:, 0, :V] - p[:, 1, :V]).abs()
+    ratio = (err / (HEAD_SPLIT_REL_TOL * g.abs())).nan_to_num(0.0).max()
+    ok = (same and (err <= HEAD_SPLIT_REL_TOL * g.abs()).all().item()
+          and (p[:, :, V:] == 0).all().item()
+          and lm_head.SPLIT_LAUNCHES == launches + 1)
+    print(f"[head] split (N={N}, V={V}, rows of {vp}; |g| from 1e-20 to "
+          f"1e10 times N(0, 1), 1% zeros): Triton equals plain bit for bit: "
+          f"{same}; max |g - hi - lo| / (2^-16 |g|) {ratio.item():.3f} "
+          f"(must be <= 1); "
+          f"pad zero; launches {lm_head.SPLIT_LAUNCHES - launches}"
+          f"{'' if ok else '  <-- FAILED'}", flush=True)
+    if not ok:
+        fail("the lm head's split disagrees with its plain version")
+    del g, parts, p, err
+    for tag, E in (("124m", 768), ("xl", 1600)):
+        x = torch.randn((N, E), device="cuda", generator=gen).bfloat16()
+        wte = (0.02 * torch.randn((V, E), device="cuda",
+                                  generator=gen)).bfloat16()
+        g = 1e-5 * torch.randn((N, V), device="cuda", generator=gen)
+        wp = lm_head.pad_rows(wte, vp)
+        dx, dw = lm_head.head_grads(g, x, wp)
+        want = (g @ wte.float(), g.T @ x.float())
+        line = []
+        for name, got, ref in (("dx", dx, want[0]),
+                               ("dwte", dw[:V], want[1])):
+            gap = ((got - ref).norm() / ref.norm()).item()
+            equal = (got.bfloat16() == ref.bfloat16()).float().mean().item()
+            line.append(f"{name} ||gap|| / ||f32|| {gap:.3e} (tol "
+                        f"{HEAD_GRAD_REL_TOL:.3e}), {equal:.4%} bit-equal "
+                        f"in bf16 (at least {HEAD_BIT_EQUAL:.0%})")
+            if gap > HEAD_GRAD_REL_TOL or equal < HEAD_BIT_EQUAL:
+                fail(f"the lm head's {name} at E={E} disagrees with the "
+                     f"f32 product")
+        if (dw[V:] != 0).any():
+            fail("the lm head's dwte has rows past the vocabulary")
+        del dx, dw, want
+        ms = {"forward": time_ms(lambda: lm_head.mm_f32(x, wp.T), iters=5),
+              "split": time_ms(lambda: lm_head.split_parts(g, vp), iters=5),
+              "backward": time_ms(lambda: lm_head.head_grads(g, x, wp),
+                                  iters=5)}
+        print(f"[head] {tag} E={E}: {'; '.join(line)}; ms "
+              + ", ".join(f"{k} {v:.3f}" for k, v in ms.items())
+              + " (the backward with its split)", flush=True)
+        del x, wte, g, wp
+    torch.cuda.empty_cache()
 
 
 def encode_us(q, k, v, layout, iters=10000):
@@ -1277,6 +1369,17 @@ def read_launches():
             "flash_bwd_dkv": fa.BWD_DKV_LAUNCHES}
 
 
+def reset_head():
+    lm_head.SPLIT_LAUNCHES = 0
+    gpt2.head_path_counts(reset=True)
+
+
+def read_head():
+    """The lm head's calls by path and the split kernel's launches since
+    ``reset_head``."""
+    return {**gpt2.head_path_counts(), "split": lm_head.SPLIT_LAUNCHES}
+
+
 def loss_and_grads(params, batch, cfg, xent_chunks=0):
     """(loss, gradient of every leaf) of ``loss_fn`` through the cast."""
     leaves = gpt2.param_leaves(params)
@@ -1334,6 +1437,7 @@ def timed_steps(step, params, batch, steps):
     first = step(params, batch)["loss"].item()
     warm_s = time.perf_counter() - t0
     reset_launches()
+    reset_head()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -1377,12 +1481,16 @@ def phase_train(seed, profile):
           f"memory {peak_gb:.2f} GB; card {card_line()}", flush=True)
     SINGLE_RANK_STEPS["gpt2"] = (ms, peak_gb)
     PHASE_REF["train_losses"] = losses
+    head = read_head()
     print(f"[train] launches in {steps} steps: {launches} (n_layer "
-          f"{cfg.n_layer} x {steps} each)", flush=True)
+          f"{cfg.n_layer} x {steps} each); lm head {head} (bf16_parts and "
+          f"split {steps} each, f32 0)", flush=True)
     if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
         fail(f"train losses not finite or not falling: {losses}")
     if any(n != cfg.n_layer * steps for n in launches.values()):
         fail("a train step did not launch each kernel once per layer")
+    if head != {"bf16_parts": steps, "f32": 0, "split": steps}:
+        fail("a train step did not take the lm head's bf16 parts once")
 
     if profile:
         print_profile(lambda: step(params, batch), 30,
@@ -1789,6 +1897,7 @@ def phase_xl(seed, profile):
         torch.cuda.reset_peak_memory_stats()
         losses, ms, run, warm_s = timed_steps(step, params,
                                               {"tokens": tokens}, steps)
+        heads = read_head()
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         tok_s = B * S / (ms / 1e3)
         head = f"xent_chunks={chunks}" if chunks else "dense head"
@@ -1796,8 +1905,8 @@ def phase_xl(seed, profile):
               f"(warm-up {warm_s:.2f} s); B={B} S={S}: {ms:.3f} ms per step "
               f"(CUDA events over {steps} steps), {tok_s:.1f} tokens/s, MFU "
               f"{tok_s * flops / PEAK_BF16_FLOPS:.4f}, peak memory "
-              f"{peak_gb:.2f} GB; launches {run}; card {card_line()}",
-              flush=True)
+              f"{peak_gb:.2f} GB; launches {run}; lm head {heads}; card "
+              f"{card_line()}", flush=True)
         if not all(math.isfinite(x) for x in losses) \
                 or losses[-1] >= losses[0]:
             fail(f"XL losses not finite or not falling: {losses}")
@@ -1805,6 +1914,12 @@ def phase_xl(seed, profile):
                    "flash_bwd_dkv": L * steps}:
             fail("an XL step under remat did not launch the forward twice "
                  "and each backward kernel once per layer")
+        # a chunk's head runs again in its recompute; its split once
+        calls = 2 * chunks * steps if chunks else steps
+        if heads != {"bf16_parts": calls, "f32": 0,
+                     "split": (chunks or 1) * steps}:
+            fail("an XL step did not take the lm head's bf16 parts once a "
+                 "chunk")
         if peak_gb >= total_gb:
             fail("XL peak memory is not below the card's")
         if not chunks:

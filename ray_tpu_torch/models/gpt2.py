@@ -9,7 +9,12 @@ a JAX parameter tree across as numpy arrays.
 Numerics follow the JAX model step for step: layer-norm statistics in f32
 with the population variance, tanh-approximated GELU, the f32 embedding
 sum cast to ``compute_dtype``, a final layer norm on f32 input, and a tied
-lm head with bf16 operands and f32 logits over the padded vocabulary.
+lm head with bf16 operands and f32 logits over the padded vocabulary
+(``ops/lm_head.py``: a product of two bf16 values is exact in f32, so a
+bf16 GEMM that sums in f32 computes the f32 product of the up-cast
+operands; its backward carries the f32 cotangent as two bf16 parts, which
+hold it to 2^-16, 256 times below the bf16 rounding of the gradients it
+makes).
 Attention goes through ``flash_attention_bshd`` (``attention="flash"``,
 the CUDA kernel on the card), the plain dense version
 (``attention="dense"``), or sequence parallelism over the ``sp`` axis of
@@ -100,6 +105,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch.collective import _all_gather, c10d
+from ray_tpu_torch.ops import lm_head
 from ray_tpu_torch.ops.flash_attention import (_reference_attention,
                                                flash_attention_bshd)
 from ray_tpu_torch.parallel.context import get_mesh, require_mesh, use_mesh
@@ -845,13 +851,37 @@ class _GatherWhole(torch.autograd.Function):
         return g.chunk(ctx.n, ctx.dim)[ctx.rank], None, None
 
 
-def _lm_head(x, wte):
-    """The tied lm head: compute-dtype operands, f32 logits.  Both operands
-    are up-cast to f32 (exact for bf16) and multiplied in f32, so the
-    logits are not rounded to bf16 (which would tie argmaxes that the JAX
-    model separates).  Needs TF32 off for f32 matmuls
-    (``torch.backends.cuda.matmul.allow_tf32 = False``, the default)."""
-    return torch.matmul(x.float(), wte.float().T)
+#: calls of the tied lm head by path (``head_path_counts``): "bf16_parts"
+#: where both operands are bf16 (``lm_head.tied_head``), "f32" otherwise
+_HEAD_PATHS = {"bf16_parts": 0, "f32": 0}
+
+
+def head_path_counts(reset: bool = False) -> Dict[str, int]:
+    """The lm head's calls by path since the last reset (a chunked loss
+    counts each chunk, and again in its recompute); ``reset`` zeroes them
+    after reading."""
+    out = dict(_HEAD_PATHS)
+    if reset:
+        _HEAD_PATHS.update(dict.fromkeys(_HEAD_PATHS, 0))
+    return out
+
+
+def _lm_head(x, wte, v=None):
+    """The tied lm head: compute-dtype operands, f32 logits, not rounded
+    to bf16 (which would tie argmaxes that the JAX model separates).  bf16
+    operands take ``lm_head.tied_head``: bf16 GEMMs with f32 sums, the
+    same products as the f32 GEMM of the up-cast operands, and a backward
+    over the f32 cotangent's two bf16 parts.  Other operands (the f32
+    configurations) are multiplied in f32, which needs TF32 off
+    (``torch.backends.cuda.matmul.allow_tf32 = False``, the default).
+    ``v``: the vocabulary, where wte's rows past it are a zero pad
+    (``_chunked_xent``'s); by default all of wte's rows."""
+    v = wte.shape[0] if v is None else v
+    if x.dtype == wte.dtype == torch.bfloat16:
+        _HEAD_PATHS["bf16_parts"] += 1
+        return lm_head.tied_head(x, wte, v)
+    _HEAD_PATHS["f32"] += 1
+    return torch.matmul(x.float(), wte[:v].float().T)
 
 
 def forward(params, tokens, cfg: GPT2Config, aux_acc=None,
@@ -902,31 +932,35 @@ def _xent_terms(logits, targets, vocab_lo=None):
     return lse - c10d.allreduce(torch.where(inside, tgt, 0.0), "tp")
 
 
-def _xent_sum(x, wf, targets, vocab_lo=None):
-    """Summed cross-entropy of one chunk: ``_lm_head``'s f32 logits, then
-    ``_xent_terms``."""
-    return _xent_terms(torch.matmul(x.float(), wf.T), targets,
-                       vocab_lo).sum()
+def _xent_sum(x, wte, targets, vocab_lo=None, v=None):
+    """Summed cross-entropy of one chunk: ``_lm_head``'s f32 logits (of
+    wte's first ``v`` rows), then ``_xent_terms``."""
+    return _xent_terms(_lm_head(x, wte, v), targets, vocab_lo).sum()
 
 
 def _chunked_xent(x, wte, targets, n_chunks: int, vocab_lo=None):
     """Linear + softmax cross-entropy over token chunks, each under
     ``checkpoint``: the backward recomputes a chunk's logits and contracts
     them at once, so the (N, V) f32 logits never exist (3.3 GB at B=16,
-    S=1024).  x: (N, E) compute dtype; wte: (V, E); targets: (N,).  The
-    chunk count falls to the nearest divisor of N, as in the reference.
+    S=1024).  x: (N, E) compute dtype; wte: (V, E) compute dtype, which
+    each chunk's head takes as it is (no f32 copy; in bf16 padded with
+    zero rows once for every chunk, ``lm_head.pad_rows``), so each chunk's
+    gradient of wte is rounded to its dtype and summed in it, as the
+    reference's scan sums them; targets: (N,).  The chunk count falls to
+    the nearest divisor of N, as in the reference.
     Under tp (``vocab_lo``: ``_xent_terms``) each chunk's collectives run
     again in its recompute, in the same order on every rank.  Returns the
     summed loss (f32)."""
-    N = x.shape[0]
+    N, V = x.shape[0], wte.shape[0]
     n_chunks = max(1, min(n_chunks, N))
     while N % n_chunks:
         n_chunks -= 1
-    wf = wte.float()  # once for every chunk: 322 MB at GPT-2 XL
+    if x.dtype == wte.dtype == torch.bfloat16:
+        wte = lm_head.pad_rows(wte, lm_head.padded_vocab(V))
     xent_sum = _with_mesh(get_mesh(), _xent_sum)
     total = torch.zeros((), device=x.device)
     for xi, ti in zip(x.chunk(n_chunks), targets.chunk(n_chunks)):
-        total = total + checkpoint(xent_sum, xi, wf, ti, vocab_lo,
+        total = total + checkpoint(xent_sum, xi, wte, ti, vocab_lo, V,
                                    use_reentrant=False,
                                    preserve_rng_state=False)
     return total
@@ -935,8 +969,10 @@ def _chunked_xent(x, wte, targets, n_chunks: int, vocab_lo=None):
 def loss_fn(params, batch, cfg: GPT2Config, pp_microbatches: int = 2,
             xent_chunks: int = 0):
     """batch: {"tokens": (B, S+1) int64} -> mean next-token cross-entropy
-    (f32 scalar) through the tied head's f32 logits, plus ``moe_aux_weight``
-    x the mean of the blocks' load-balancing losses for a mixture.
+    (f32 scalar) through the tied head's f32 logits (``_lm_head``: with
+    bf16 compute, bf16 GEMMs that sum in f32 and a backward over the
+    cotangent's two bf16 parts), plus ``moe_aux_weight`` x the mean of
+    the blocks' load-balancing losses for a mixture.
     ``xent_chunks > 0`` takes ``_chunked_xent``, which never holds the
     (B, S, V) logits.
 
